@@ -1,0 +1,60 @@
+"""Inverse STFT with "same" padding.
+
+Counterpart of ``llmvox_tpu/ops/istft.py::istft_same``: irfft per frame,
+Hann window, overlap-add, window-envelope normalisation, then trimming
+``(win - hop) // 2`` samples per side so the output is ``hop * T``
+samples.  Overlap-add uses the ratio ``r = win // hop``: each frame is cut
+into r hop-sized segments that are summed with r shifted adds.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.ops.nn import valid_mask
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic Hann window: 0.5 * (1 - cos(2 pi n / N))."""
+    n = np.arange(win_length)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(
+        np.float32)
+
+
+def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """OLA of (B, T, win) frames -> (B, (T-1)*hop + win) samples."""
+    b, t, win = frames.shape
+    r = win // hop
+    assert r * hop == win, "win_length must be a multiple of hop_length"
+    segs = frames.reshape(b, t, r, hop)
+    out = frames.new_zeros(b, t + r - 1, hop)
+    for j in range(r):
+        out[:, j:j + t] += segs[:, :, j]
+    return out.reshape(b, (t + r - 1) * hop)
+
+
+def istft_same(spec: torch.Tensor, *, n_fft: int, hop_length: int,
+               valid_len=None) -> torch.Tensor:
+    """Complex spectrogram (B, T, n_fft//2 + 1) -> (B, hop*T) waveform.
+
+    With ``valid_len`` (int, 0-d or per-batch tensor), frames at index >=
+    valid_len are absent from both the signal's overlap-add and the window
+    envelope, so samples [0, hop*valid_len) equal an exact-length call;
+    later samples are meaningless and the caller trims them.
+    """
+    win = n_fft
+    pad = (win - hop_length) // 2
+    b, t, nbins = spec.shape
+    assert nbins == n_fft // 2 + 1
+    window = torch.from_numpy(hann_window(win)).to(spec.device)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1).float() * window
+    env_frames = window.square().expand(1, t, win)
+    if valid_len is not None:
+        fmask = valid_mask(t, valid_len, spec.device)[:, :, None]
+        frames = frames * fmask
+        env_frames = env_frames * fmask
+    y = _overlap_add(frames, hop_length)[:, pad:-pad]
+    envelope = _overlap_add(env_frames.contiguous(), hop_length)[:, pad:-pad]
+    # with Hann at 4x overlap the interior envelope is strictly positive;
+    # the clamp guards only masked tail samples, which are trimmed
+    return y / envelope.clamp_min(1e-11)

@@ -1,0 +1,81 @@
+"""Serving CLI: ``python -m llmvox_tpu_torch.serve --flags``.
+
+The same flags as ``python -m llmvox_tpu.serve``: converted checkpoints
+(``--llmvox_checkpoint_path``, ``--wav_model_path``, ``--byt5_table``),
+the ServeConfig and CodecConfig fields, and the two TTS replicas on the
+CUDA devices ``--tts_device_1`` / ``--tts_device_2``.  Two flags are the
+port's own: ``--device`` (``cuda`` by default; ``cpu`` runs the plain
+path) and ``--random_seed N``, which serves full-width random weights
+made from seed N instead of checkpoints (for smoke runs; the audio is
+noise).  Only ``/tts`` with ``--scripted_reply`` is served so far.
+
+    python -m llmvox_tpu_torch.serve --random_seed 0 \\
+        --scripted_reply "Hello there. How are you?"
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.utils.config import (
+    CodecConfig, DecoderConfig, ServeConfig, add_dataclass_args,
+    apply_cli_overrides)
+
+
+def main(argv=None) -> None:
+    from llmvox_tpu_torch.codec.codec import WavCodec
+    from llmvox_tpu_torch.serve.engine import TTSEngine
+    from llmvox_tpu_torch.serve.server import build_server
+    from llmvox_tpu_torch.utils import params as P
+
+    parser = argparse.ArgumentParser(
+        description="LLMVoX streaming TTS server (PyTorch/CUDA)")
+    add_dataclass_args(parser, ServeConfig)
+    add_dataclass_args(parser, CodecConfig)
+    parser.add_argument("--byt5_table", type=str, required=False)
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--random_seed", type=int, default=None)
+    args = parser.parse_args(argv)
+    cfg = apply_cli_overrides(ServeConfig(), args)
+    ccfg = apply_cli_overrides(CodecConfig(), args)
+    if cfg.pool_capacity or cfg.pool_ladder or cfg.quantize \
+            or cfg.spec_decode:
+        parser.error("the pool, --quantize and --spec_decode are not ported "
+                     "to llmvox_tpu_torch yet")
+
+    if args.random_seed is not None:
+        dcfg = DecoderConfig()
+        dec_params = P.init_decoder_params(args.random_seed, dcfg)
+        codec_params = P.init_codec_params(args.random_seed + 1, ccfg)
+        table = P.random_text_table(args.random_seed + 2, dcfg)
+    else:
+        dec_params = P.load_params_npz(cfg.llmvox_checkpoint_path)
+        margs = P.load_meta(cfg.llmvox_checkpoint_path).get("model_args", {})
+        dcfg = DecoderConfig(**{k: v for k, v in margs.items()
+                                if k in DecoderConfig.__dataclass_fields__})
+        table = np.load(args.byt5_table)["table"]
+        codec_params = P.load_params_npz(cfg.wav_model_path)
+
+    dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+             else torch.float32)
+    if args.device == "cuda":
+        devices = [f"cuda:{cfg.tts_device_1}", f"cuda:{cfg.tts_device_2}"]
+    else:
+        devices = [args.device, args.device]
+    engines = []
+    for dev in devices:
+        codec = WavCodec(codec_params, ccfg, buckets=cfg.chunk_buckets,
+                         device=dev)
+        engines.append(TTSEngine(dec_params, table, codec, dcfg, cfg,
+                                 device=dev, cache_dtype=dtype))
+    print("warming up (kernel build, decode blocks, synthesis buckets)...",
+          flush=True)
+    for e in engines:
+        e.warmup()
+    build_server(cfg, engines).run()
+
+
+if __name__ == "__main__":
+    main()
