@@ -1,7 +1,8 @@
 """WavCodec: the WavTokenizer-compatible codec's decode path.
 
 Counterpart of ``llmvox_tpu/codec/codec.py`` (``DEFAULT_BUCKETS``,
-``_decode_codes``, and ``WavCodec``'s decode surface).  Chunks are decoded
+``_decode_codes``, and ``WavCodec``'s decode surface, the pool's ragged
+batched decode included).  Chunks are decoded
 at a few bucket lengths: a ragged chunk is zero-padded to the next bucket,
 the ``valid_len`` masking inside the backbone and the ISTFT keeps the
 kept samples equal to an exact-length decode, and the tail is trimmed.
@@ -11,7 +12,7 @@ kernel shapes, and so the timings, to a small fixed set.)
 from __future__ import annotations
 
 import bisect
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +76,31 @@ class WavCodec:
                             torch.from_numpy(codes).to(self.device),
                             bandwidth_id, l, self.cfg)
         return wav.cpu().numpy()[:, : l * self.cfg.hop_length]
+
+    def decode_codes_ragged(self, codes: np.ndarray, lengths: np.ndarray,
+                            bandwidth_id: int = 0) -> List[np.ndarray]:
+        """Batched ragged decode: (B, Lmax) zero-padded codes with per-row
+        valid ``lengths`` -> B waveforms, row i ``lengths[i] * hop``
+        samples long.  The batch is padded (or cut) to the bucket of the
+        longest row, and per-row ``valid_len`` masking keeps each row
+        equal to an exact-length decode: one call vocodes the chunks of
+        many streams."""
+        codes = np.asarray(codes, dtype=np.int32)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        b, l = codes.shape
+        lpad = self.bucket_for(int(lengths.max()))
+        if lpad > l:
+            codes = np.concatenate(
+                [codes, np.zeros((b, lpad - l), np.int32)], axis=1)
+        else:
+            codes = codes[:, :lpad]
+        wav = _decode_codes(self.params,
+                            torch.from_numpy(codes).to(self.device),
+                            bandwidth_id,
+                            torch.from_numpy(lengths).to(self.device),
+                            self.cfg).cpu().numpy()
+        hop = self.cfg.hop_length
+        return [wav[i, : int(lengths[i]) * hop] for i in range(b)]
 
     def decode_codes_device(self, codes: torch.Tensor, lengths,
                             bandwidth_id: int = 0) -> torch.Tensor:

@@ -8,9 +8,12 @@ port's own: ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 path) and ``--random_seed N``, which serves full-width random weights
 made from seed N instead of checkpoints (for smoke runs; the audio is
 noise).  Only ``/tts`` with ``--scripted_reply`` is served so far.
+``--pool_capacity N`` serves concurrent requests through a
+continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
+ladder of pools; either lies on ``--tts_device_1``.
 
     python -m llmvox_tpu_torch.serve --random_seed 0 \\
-        --scripted_reply "Hello there. How are you?"
+        --scripted_reply "Hello there. How are you?" [--pool_capacity 16]
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from llmvox_tpu_torch.utils.config import (
 def main(argv=None) -> None:
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.serve.engine import TTSEngine
+    from llmvox_tpu_torch.serve.pool import DecodePool, PoolLadder
     from llmvox_tpu_torch.serve.server import build_server
     from llmvox_tpu_torch.utils import params as P
 
@@ -40,10 +44,17 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     cfg = apply_cli_overrides(ServeConfig(), args)
     ccfg = apply_cli_overrides(CodecConfig(), args)
-    if cfg.pool_capacity or cfg.pool_ladder or cfg.quantize \
-            or cfg.spec_decode:
-        parser.error("the pool, --quantize and --spec_decode are not ported "
-                     "to llmvox_tpu_torch yet")
+    if cfg.quantize:
+        parser.error("--quantize is not ported to llmvox_tpu_torch yet: the "
+                     "int4 kernel K4 and quantized serving are ROADMAP item "
+                     "12")
+    if cfg.spec_decode:
+        parser.error("--spec_decode is not ported to llmvox_tpu_torch yet: "
+                     "speculative decode and kernel K3 are the next slice, "
+                     "ROADMAP item 8")
+    if cfg.pool_mesh_dp > 1:
+        parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
+                     "yet: the multi-device pool is ROADMAP item 15")
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()
@@ -74,7 +85,24 @@ def main(argv=None) -> None:
           flush=True)
     for e in engines:
         e.warmup()
-    build_server(cfg, engines).run()
+
+    pool = None
+    if cfg.pool_ladder:
+        pool = PoolLadder([
+            DecodePool(dec_params, table, engines[0].codec, capacity=c,
+                       dcfg=dcfg, scfg=cfg, device=devices[0],
+                       cache_dtype=dtype)
+            for c in sorted(cfg.pool_ladder)])
+        print(f"continuous-batching pool ladder: {sorted(cfg.pool_ladder)}",
+              flush=True)
+    elif cfg.pool_capacity > 0:
+        pool = DecodePool(dec_params, table, engines[0].codec,
+                          capacity=cfg.pool_capacity, dcfg=dcfg, scfg=cfg,
+                          device=devices[0], cache_dtype=dtype)
+        print(f"continuous-batching pool: {cfg.pool_capacity} slots",
+              flush=True)
+    # build_server warms the pool (step widths, synthesis buckets)
+    build_server(cfg, engines, pool=pool).run()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """The multi-queue dual-replica streaming scheduler.
 
 The port's own copy of ``llmvox_tpu/serve/scheduler.py`` (that one
-imports the JAX engine), driving ``llmvox_tpu_torch`` engines on the
-dedicated dual replicas; the pooled-engine hooks come with the pool.
+imports the JAX engine), driving ``llmvox_tpu_torch`` engines: the
+dedicated dual replicas (``serve/engine.py``) or two slots of the
+continuous-batching pool (``serve/pool.py::PooledEngine``), which set the
+hooks ``fixed_block``, ``issue_ahead`` and ``synthesize_async``.
 Behavior-compatible rebuild of the reference's producer / 2-consumer /
 async-mux state machine (streaming_server.py:184-469), re-cut as asyncio
 tasks instead of daemon threads:
@@ -163,25 +165,35 @@ class StreamingScheduler:
         eos = cfg.eos_token
         dcfg = engine.dcfg
         block = engine.block
-        big_block = cfg.decode_block_large or 0
-        first_block = cfg.first_decode_block or 0
+        # pooled engines decode at the pool's fixed block: no block growth
+        # and no small first block
+        fixed = getattr(engine, "fixed_block", False)
+        big_block = 0 if fixed else (cfg.decode_block_large or 0)
+        first_block = 0 if fixed else (cfg.first_decode_block or 0)
         if first_block >= block:
             first_block = 0  # only ever SHRINK the first device call
-        can_fuse = cfg.fused_first_chunk
+        can_fuse = (cfg.fused_first_chunk
+                    and hasattr(engine, "decode_block_fused_async"))
 
         st = _SentenceState()
         dec_state = engine.new_state()
 
         # ---- ordered synthesis worker --------------------------------
         synth_q: asyncio.Queue = asyncio.Queue()
+        synth_async = getattr(engine, "synthesize_async", None)
 
         async def synth_worker():
             while True:
                 item = await synth_q.get()
                 if isinstance(item, list):
                     with trace.span(f"synth_r{index}"):
-                        chunk = await asyncio.to_thread(engine.synthesize,
-                                                        item)
+                        if synth_async is not None:
+                            # pooled engines batch concurrent requests'
+                            # chunks into one codec call
+                            chunk = await synth_async(item)
+                        else:
+                            chunk = await asyncio.to_thread(
+                                engine.synthesize, item)
                     await audio_q.put(chunk)
                 else:
                     await audio_q.put(item)
@@ -207,8 +219,12 @@ class StreamingScheduler:
                 await synth_q.put(codes)
 
         issued = 0          # absolute decode position dispatched so far
-        # In-flight Pending* handles, oldest first: the engine pipelines
-        # one block ahead (at most 2 outstanding).
+        # In-flight Pending* handles, oldest first.  Dedicated engines
+        # pipeline one block ahead (2 outstanding); pooled engines ask for
+        # enough outstanding blocks that every in-flight pool step can
+        # take a merged pair from their slot
+        # (PooledEngine.issue_ahead = pipeline depth * merge factor).
+        ahead = max(1, int(getattr(engine, "issue_ahead", 1)))
         pending: Deque = deque()
 
         async def end_sentence(flush_buffer: bool) -> bool:
@@ -259,17 +275,17 @@ class StreamingScheduler:
                             st.text_ids.append(dcfg.text_eos_id)
 
                 # -- generate as far as pacing allows ---------------------
-                # Issue-ahead pipeline: keep up to 2 blocks dispatched on
-                # the chained device state before fetching the oldest
-                # one's tokens.  ``issued`` tracks the optimistic decode
-                # position of dispatched blocks; it only diverges from
-                # the fetched position when EOA fires, at which point the
-                # speculative block generates nothing (device-side
-                # ``done``) and is discarded.
+                # Issue-ahead pipeline: keep up to 1+ahead blocks
+                # dispatched on the chained device state before fetching
+                # the oldest one's tokens.  ``issued`` tracks the
+                # optimistic decode position of dispatched blocks; it
+                # only diverges from the fetched position when EOA
+                # fires, at which point the speculative blocks generate
+                # nothing (device-side ``done``) and are discarded.
                 while True:
                     # -- fill the dispatch pipeline ----------------------
                     capped = False
-                    while len(pending) < 2:
+                    while len(pending) < 1 + ahead:
                         # Adaptive block growth: after the sentence has
                         # generated past the small first dumps, decode in
                         # larger blocks — same device throughput, ~4x fewer
@@ -320,6 +336,13 @@ class StreamingScheduler:
                             # can never deadlock.  Measured: 2 fewer
                             # pool steps + 1 fewer synth round trip to
                             # first audio on the LLM-driven path.
+                            break
+                        if limit < cur and len(pending) >= 2:
+                            # Text is trickling in: a partial-limit block
+                            # still costs a full ``cur``-step device call,
+                            # so beyond the 1-ahead pair wait for the
+                            # text to fill a whole block instead of
+                            # flooding the pipeline with tiny requests.
                             break
                         window = np.full(cur, dcfg.pad_token_id, np.int32)
                         avail = st.text_ids[issued:issued + cur]

@@ -1,16 +1,23 @@
 """Streaming TTS HTTP server (stdlib asyncio HTTP/1.1).
 
-The port's counterpart of ``llmvox_tpu/serve/server.py`` for the
-dedicated dual replicas:
+The port's counterpart of ``llmvox_tpu/serve/server.py``:
 
 - ``POST /tts``   {"text": ...} -> chunked ``application/octet-stream``
   body of raw float32 little-endian 24 kHz PCM;
 - ``GET  /``      service info;
-- ``GET  /stats`` per-request latency traces.
+- ``GET  /stats`` per-request latency traces, and the pool's counters.
 
 ``/voicechat``, ``/multimodalchat`` and ``/vlmschat`` (they need ASR and
 the multimodal LLM streams) answer 501 with a JSON error until they are
-ported.  Requests are serialized on the one scheduler.
+ported.
+
+Two serving modes, as in the JAX server:
+- **dedicated** (default): one dual-replica scheduler; requests are
+  serialized on it;
+- **pooled**: with ``pool`` (``serve/pool.py::DecodePool`` or
+  ``PoolLadder``), each request gets two ``PooledEngine`` slots and runs
+  concurrently with up to ``pool.B // 2`` others; all in-flight requests
+  decode through the pool's batched step.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import collections
 import json
 from typing import Dict, Optional
 
+from llmvox_tpu_torch.serve.pool import PooledEngine
 from llmvox_tpu_torch.serve.scheduler import StreamingScheduler
 from llmvox_tpu_torch.streams.protocol import aiter_stream
 from llmvox_tpu_torch.utils.config import ServeConfig
@@ -29,12 +37,17 @@ _NOT_PORTED = ("/voicechat", "/multimodalchat", "/vlmschat")
 
 
 class TTSServer:
-    def __init__(self, scheduler: StreamingScheduler,
-                 cfg: Optional[ServeConfig] = None, stream_model=None):
+    def __init__(self, scheduler: Optional[StreamingScheduler],
+                 cfg: Optional[ServeConfig] = None, stream_model=None,
+                 pool=None):
         self.scheduler = scheduler
         self.cfg = cfg or ServeConfig()
         self.stream_model = stream_model
-        self._busy = asyncio.Lock()
+        self.pool = pool
+        if pool is not None:
+            self._busy = asyncio.Semaphore(max(pool.B // 2, 1))
+        else:
+            self._busy = asyncio.Lock()
         self.traces = collections.deque(maxlen=50)
 
     # -- HTTP plumbing --------------------------------------------------
@@ -67,8 +80,10 @@ class TTSServer:
                     "version": "1.0.0",
                 })
             elif method == "GET" and path == "/stats":
-                await self._plain(writer, 200,
-                                  {"requests": list(self.traces)})
+                obj = {"requests": list(self.traces)}
+                if self.pool is not None:
+                    obj["pool"] = self.pool.stats()
+                await self._plain(writer, 200, obj)
             elif method == "POST" and path == "/tts":
                 await self._stream_response(writer, path,
                                             json.loads(body or b"{}"))
@@ -116,11 +131,22 @@ class TTSServer:
         try:
             async with self._busy:
                 trace = Trace(path)
-                async for chunk in self.scheduler.run(text_stream,
-                                                      trace=trace):
-                    writer.write(f"{len(chunk):x}\r\n".encode() + chunk
-                                 + b"\r\n")
-                    await writer.drain()
+                if self.pool is not None:
+                    engines = [PooledEngine(self.pool, self.cfg),
+                               PooledEngine(self.pool, self.cfg)]
+                    scheduler = StreamingScheduler(engines, self.cfg)
+                else:
+                    engines = []
+                    scheduler = self.scheduler
+                try:
+                    async for chunk in scheduler.run(text_stream,
+                                                     trace=trace):
+                        writer.write(f"{len(chunk):x}\r\n".encode() + chunk
+                                     + b"\r\n")
+                        await writer.drain()
+                finally:
+                    for e in engines:
+                        e.close()
                 self.traces.append(trace.summary())
         except (asyncio.IncompleteReadError, ConnectionResetError,
                 BrokenPipeError):
@@ -151,6 +177,8 @@ class TTSServer:
                 await forever
             except asyncio.CancelledError:
                 pass
+            if self.pool is not None:
+                self.pool.stop()
 
     def shutdown(self) -> None:
         """Thread-safe graceful stop: ``serve()`` returns and the listening
@@ -162,10 +190,13 @@ class TTSServer:
         asyncio.run(self.serve())
 
 
-def build_server(cfg: ServeConfig, engines, stream_model=None) -> TTSServer:
-    """Wire the dual-replica scheduler to a text-stream source: the given
-    ``stream_model``, or a ScriptedStream of ``cfg.scripted_reply``.  The
-    HF and in-framework LLM streams are not ported yet."""
+def build_server(cfg: ServeConfig, engines, stream_model=None,
+                 pool=None) -> TTSServer:
+    """Wire the dual-replica scheduler (or, with ``pool``, the
+    continuous-batching pool, which is warmed here) to a text-stream
+    source: the given ``stream_model``, or a ScriptedStream of
+    ``cfg.scripted_reply``.  The HF and in-framework LLM streams are not
+    ported yet."""
     if stream_model is None:
         if not cfg.scripted_reply:
             raise ValueError(
@@ -174,4 +205,7 @@ def build_server(cfg: ServeConfig, engines, stream_model=None) -> TTSServer:
         from llmvox_tpu_torch.streams.scripted import ScriptedStream
         stream_model = ScriptedStream([cfg.scripted_reply],
                                       eos_token=cfg.eos_token)
-    return TTSServer(StreamingScheduler(engines, cfg), cfg, stream_model)
+    scheduler = StreamingScheduler(engines, cfg) if engines else None
+    if pool is not None:
+        pool.warmup()
+    return TTSServer(scheduler, cfg, stream_model, pool=pool)

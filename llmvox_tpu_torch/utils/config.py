@@ -111,8 +111,9 @@ class CodecConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs.  The same flags as the JAX server; the port serves
-    ``/tts`` on the dedicated dual replicas, and the LLM, ASR, pool,
-    speculative and quantization knobs are parsed but not yet used."""
+    ``/tts`` on the dedicated dual replicas or through the pool, and the
+    LLM, ASR, speculative and quantization knobs are parsed but not yet
+    used."""
 
     chat_type: str = "text"  # ['text','voice','multimodal','visual_speech']
 
