@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
-    python3 chip_smoke.py --kernels    # phases 1, 2 and 5 only
+    python3 chip_smoke.py --kernels    # phases 1, 2, 5 and 8 only
 
 Phases, each of which raises on failure (exit code non-zero, no result):
   1. the card's name and power limit; build every kernel from the sources
@@ -30,6 +30,20 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      schedule, then 4 and 8 concurrent bf16 requests on a 16-slot pool
      (per-request first audio and RTF, aggregate throughput, the pool's
      counters).  K2's launch count in the JSON line is this phase's.
+  8. kernel K3 (verify attention, speculative decode) against its plain
+     version, every layer view of (4, 16, 8192, 768) caches, f32 and bf16,
+     at 5 and 13 queries per stream, ragged and uniform positions (one row
+     whose later queries pass the cache), and B=1; its times beside the
+     byte bound and a library yardstick;
+  9. speculative decode offline at full width with 4 random draft heads:
+     B=16 and B=1 blocks with oracle, garbage and draft-head drafts, f32
+     tokens equal to greedy's, K3's launches per iteration issued, and the
+     host ms per 64-token block of greedy against spec;
+ 10. the server with speculation: the f32 dedicated spec engines and an
+     f32 spec pool against the greedy schedule, 4 and 8 concurrent bf16
+     requests on a 16-slot spec pool, one round on the adaptive ladder
+     (0, 2, 4).  K3's launch count in the JSON line is the bf16 spec pool
+     rounds'.
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -140,8 +154,15 @@ def phase_card_and_build() -> str:
 # phase 2: K1 against its plain version
 # ---------------------------------------------------------------------------
 
+# The kernels and their plain versions both compute in f32 and round the
+# output once to the input type, so in bf16 they may differ by one bf16 ulp
+# of the output (2^-7 of its value at most) and by f32 noise near zero.
 K1_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
-          torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+          torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
+# Held against the library yardstick (SDPA) only as a sanity check: its
+# bf16 paths round the probabilities to bf16 before the value product.
+LIBRARY_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
 def k1_bound_ms(pos: int, c: int, dtype) -> tuple:
@@ -223,7 +244,7 @@ def _time_k1(q, k, v, p, pos, H, D, dtype) -> dict:
     torch.testing.assert_close(
         lib_out.float(),
         cuda_attn.decode_attention(q, k[0], v[0], p, H).float(),
-        **K1_TOL[dtype])
+        **LIBRARY_TOL[dtype])
     bound, by = k1_bound_ms(pos, C, dtype)
     t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain),
          "library_ms": graph_ms(run_library), "bound_ms": bound,
@@ -639,7 +660,7 @@ def _time_k2(q, k, v, p, plist, H, dtype) -> dict:
         lib_out.float(),
         cuda_batched_attn.batched_decode_attention(q, k[0], v[0], p,
                                                    H).float(),
-        **K1_TOL[dtype])
+        **LIBRARY_TOL[dtype])
     bound, by = k2_bound_ms(plist, C, dtype)
     t = {"ms": graph_ms(run_kernel), "library_ms": graph_ms(run_library),
          "plain_ms": graph_ms(run_plain, per_graph=4, replays=5, reps=3),
@@ -829,6 +850,468 @@ def phase_pool_server(engines, weights, device="cuda") -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# phase 8: K3 against its plain version
+# ---------------------------------------------------------------------------
+
+K3_B = 16
+# every verify width this script serves: the ladder's rung 2 and the
+# default spec_k_draft 4, and k_draft 12
+K3_NQ = (3, 5, 13)
+
+
+def k3_positions(nq: int, s: int) -> dict:
+    """A ragged set over the 16 rows (0, 1, 255, 256, 511, 4095 and S-nq,
+    the deepest row whose queries all lie in the cache, among them; the
+    last row at S-2, whose later queries pass S), and uniform sets."""
+    deep = s - nq
+    return {
+        "ragged": [0, 1, 255, 256, 511, 4095, deep, 2, 100, 777, 1024, 2047,
+                   3000, 5000, 6500, s - 2],
+        "uniform 511": [511] * K3_B,
+        "uniform 4095": [4095] * K3_B,
+        f"uniform {deep}": [deep] * K3_B,
+    }
+
+
+def k3_bound_ms(pos_list, nq: int, s: int, c: int, dtype) -> tuple:
+    """Least time for one call: each stream's K and V rows 0..min(pos_b +
+    nq - 1, S - 1), q and out once, pos once, over HBM's rate; or 4*C flops
+    per (query, attended row) over the peak rate of the inputs' type;
+    whichever is longer."""
+    es = torch.finfo(dtype).bits // 8
+    b = len(pos_list)
+    rows = sum(min(p + nq, s) for p in pos_list)
+    nbytes = 2 * rows * c * es + 2 * b * nq * c * es + 4 * b
+    attended = sum(min(p + j, s - 1) + 1 for p in pos_list for j in range(nq))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * attended * c / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _k3_check(q, k, v, p, H, dtype, what) -> float:
+    """K3 against its plain version on every layer view; only the queries
+    inside the cache are compared (a query past S has no committed use).
+    K1's tolerances, for the same reason as K2's."""
+    from llmvox_tpu_torch.ops import attention, cuda_verify_attn
+    L, S = k.shape[0], k.shape[2]
+    nq = q.shape[1]
+    keep = (p[:, None] + torch.arange(nq, device=p.device)[None]) < S
+    err = mag = 0.0
+    for layer in range(L):
+        got = cuda_verify_attn.verify_attention(q, k[layer], v[layer], p, H)
+        ref = attention.batched_verify_attention(q, k[layer], v[layer], p,
+                                                 n_head=H)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == dtype
+        assert torch.isfinite(got).all(), f"{what}: non-finite output"
+        torch.testing.assert_close(got[keep].float(), ref[keep].float(),
+                                   **K1_TOL[dtype])
+        err = max(err, (got[keep].float() - ref[keep].float()).abs().max()
+                  .item())
+        mag = max(mag, ref[keep].float().abs().mean().item())
+    log(f"[k3] {str(dtype):15s} {what} ok, max |err| over {L} layers "
+        f"{err:.3g}, mean |out| {mag:.3g} ({int(keep.sum())} of "
+        f"{keep.numel()} queries in the cache)")
+    return err
+
+
+def phase_k3() -> dict:
+    from llmvox_tpu_torch.utils.config import DecoderConfig
+    cfg = DecoderConfig()
+    L, S, C, H = cfg.n_layer, cfg.block_size, cfg.n_embd, cfg.n_head
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k = torch.randn(L, K3_B, S, C, generator=gen, device=dev, dtype=dtype)
+        v = torch.randn(L, K3_B, S, C, generator=gen, device=dev, dtype=dtype)
+        for nq in K3_NQ:
+            q = torch.randn(K3_B, nq, C, generator=gen, device=dev,
+                            dtype=dtype)
+            for name, plist in k3_positions(nq, S).items():
+                p = torch.tensor(plist, dtype=torch.int32, device=dev)
+                max_err = max(max_err, _k3_check(
+                    q, k, v, p, H, dtype, f"B={K3_B} nq={nq:2d} {name:14s}"))
+                if dtype is torch.bfloat16 and name != "uniform 511":
+                    timings[f"nq={nq} {name}"] = _time_k3(q, k, v, p, plist,
+                                                          H, dtype)
+        # B=1 at nq=5, the dedicated engine's path: one stream's views
+        q = torch.randn(1, 5, C, generator=gen, device=dev, dtype=dtype)
+        for b, pos in enumerate((0, 511, 4095, S - 5, S - 2)):
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            max_err = max(max_err, _k3_check(
+                q, k[:, b:b + 1], v[:, b:b + 1], p, H, dtype,
+                f"B=1  nq= 5 pos {pos}"))
+        del k, v
+        torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "timings": timings}
+
+
+def _time_k3(q, k, v, p, plist, H, dtype) -> dict:
+    from llmvox_tpu_torch.ops import attention, cuda_verify_attn
+    L, B, S, C = k.shape
+    nq, D = q.shape[1], C // H
+    li = [0]
+
+    def nxt():
+        li[0] = (li[0] + 1) % L   # cycle the layers: each view is far past L2
+        return li[0]
+
+    def run_kernel():
+        i = nxt()
+        cuda_verify_attn.verify_attention(q, k[i], v[i], p, H)
+
+    def run_plain():
+        i = nxt()
+        attention.batched_verify_attention(q, k[i], v[i], p, n_head=H)
+
+    # the library yardstick: one SDPA call over rows 0..max(pos)+nq-1 with
+    # a boolean (B, 1, nq, n) mask for each query's own depth
+    n = min(max(plist) + nq, S)
+    q4 = q.view(B, nq, H, D).transpose(1, 2)
+    last = p[:, None] + torch.arange(nq, device=q.device)[None]
+    mask = (torch.arange(n, device=q.device)[None, None, :]
+            <= last[..., None])[:, None]
+    kv = [(k[i, :, :n].view(B, n, H, D).transpose(1, 2),
+           v[i, :, :n].view(B, n, H, D).transpose(1, 2)) for i in range(L)]
+
+    def run_library():
+        i = nxt()
+        torch.nn.functional.scaled_dot_product_attention(q4, *kv[i],
+                                                         attn_mask=mask)
+
+    keep = last < S
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        q4, *kv[0], attn_mask=mask).transpose(1, 2).reshape(B, nq, C)
+    torch.testing.assert_close(
+        lib_out[keep].float(),
+        cuda_verify_attn.verify_attention(q, k[0], v[0], p, H)[keep].float(),
+        **LIBRARY_TOL[dtype])
+    bound, by = k3_bound_ms(plist, nq, S, C, dtype)
+    t = {"ms": graph_ms(run_kernel), "library_ms": graph_ms(run_library),
+         "plain_ms": graph_ms(run_plain, per_graph=4, replays=5, reps=3),
+         "bound_ms": bound, "bound_by": by, "eager_ms": eager_ms(run_kernel)}
+    log(f"[k3] bf16 B={B} nq={nq} {_pos_name(plist)}: device time per call "
+        f"(CUDA graph) kernel {t['ms'] * 1e3:.2f} us, plain "
+        f"{t['plain_ms'] * 1e3:.2f} us, sdpa {t['library_ms'] * 1e3:.2f} us, "
+        f"bound {bound * 1e3:.2f} us ({by}); eager back-to-back kernel "
+        f"{t['eager_ms'] * 1e3:.1f} us")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 9: speculative decode offline at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4          # the default spec_k_draft
+SPEC_TOKENS = 64
+
+
+def with_draft_heads(weights, n: int = SPEC_K):
+    """The weights with ``n`` random draft heads (seed 0, drawn after the
+    other decoder weights, which stay as they were)."""
+    from llmvox_tpu_torch.utils import params as P
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    dcfg = dataclasses.replace(dcfg, n_draft_heads=n)
+    heads = P.init_decoder_params(0, dcfg)["draft_heads"]
+    return (dict(dec_p, draft_heads=heads), codec_p, table, dcfg, ccfg, scfg)
+
+
+def _spec_windows(batch, n, pad):
+    """(batch, n) windows: stream i reads the text from its own offset."""
+    ids = np.frombuffer(TEXT.encode(), np.uint8).astype(np.int32) + 3
+    w = np.full((batch, n), pad, np.int32)
+    for i in range(batch):
+        w[i, :len(ids)] = np.roll(ids, -i)[:n]
+    return w, len(ids)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_spec_offline(weights, device="cuda") -> dict:
+    """``decode_block_spec_batch`` at B=16 and ``decode_block_spec`` at
+    B=1, EOA off, 64 tokens from pos 0, with oracle drafts (the greedy
+    tokens), garbage drafts (a constant code greedy never emits) and the
+    random draft heads.  In f32 every token equals ``decode_block_batch``
+    / ``decode_block``; in bf16 the structure is checked and the match
+    fraction printed.  K3 launches n_layer times per iteration issued, K1
+    and K2 never.  Then the eager host ms per 64-token block, greedy
+    against spec with oracle drafts, in both dtypes."""
+    from llmvox_tpu_torch.models import decoder as dec
+    from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
+        cuda_verify_attn
+    weights = with_draft_heads(weights)
+    dcfg = dataclasses.replace(weights[3], eoa_token_id=-1)
+    weights = (*weights[:3], dcfg, *weights[4:])
+    n, b = SPEC_TOKENS, K3_B
+    win_np, tlen = _spec_windows(b, n, dcfg.pad_token_id)
+    win = torch.from_numpy(win_np).to(device)
+    tl = torch.full((b,), tlen, dtype=torch.int32, device=device)
+    lim = torch.full((b,), n, dtype=torch.int32, device=device)
+    host_ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = make_engine(weights, device, dtype)
+        args = (eng.params, eng.text_table, eng.codebook)
+
+        def greedy(batch):
+            if batch == 1:
+                return dec.decode_block(*args, eng.new_state(), win[0], tl[0],
+                                        lim[0], dcfg, block=n)[0][None]
+            return dec.decode_block_batch(
+                *args, dec.init_decode_state_batch(dcfg, b, dtype, device),
+                win, tl, lim, dcfg, block=n)[0]
+
+        def spec(batch, drafts):
+            if batch == 1:
+                t, cnt, _, it = dec.decode_block_spec(
+                    *args, eng.new_state(), win[0], tl[0], lim[0], dcfg,
+                    block=n, k_draft=SPEC_K,
+                    draft_tokens=None if drafts is None else drafts[0])
+                return t[None], cnt[None], it[None]
+            t, cnt, _, it = dec.decode_block_spec_batch(
+                *args, dec.init_decode_state_batch(dcfg, b, dtype, device),
+                win, tl, lim, dcfg, block=n, k_draft=SPEC_K,
+                draft_tokens=drafts)
+            return t, cnt, it
+
+        for batch in (b, 1):
+            want = greedy(batch).cpu()
+            assert (want >= 0).all(), "greedy block ended early"
+            # the code greedy emits least (at full width: never)
+            rare = int(torch.bincount(want.flatten().long(),
+                                      minlength=dcfg.vocab_size).argmin())
+            kinds = {"oracle": want.to(device),
+                     "garbage": torch.full_like(want, rare).to(device),
+                     "heads": None}
+            for kind, drafts in kinds.items():
+                cuda_attn.LAUNCHES = cuda_batched_attn.LAUNCHES = 0
+                cuda_verify_attn.LAUNCHES = 0
+                it0 = dec.SPEC_ITERATIONS
+                toks, cnt, iters = (x.cpu() for x in spec(batch, drafts))
+                issued = dec.SPEC_ITERATIONS - it0
+                k1, k2 = cuda_attn.LAUNCHES, cuda_batched_attn.LAUNCHES
+                k3 = cuda_verify_attn.LAUNCHES
+                assert k1 == k2 == 0 and k3 == dcfg.n_layer * issued > 0, \
+                    (k1, k2, k3, issued)
+                assert issued <= min(int(iters.max()) + 1, n), (issued, iters)
+                assert toks.shape == (batch, n) and (cnt == n).all(), cnt
+                assert ((toks >= 0) & (toks < dcfg.vocab_size)).all()
+                match = (toks == want).float().mean().item()
+                if dtype is torch.float32:
+                    assert torch.equal(toks, want), f"{kind} B={batch}"
+                    bound = (-(-n // (SPEC_K + 1)) + 1 if kind == "oracle"
+                             else n)
+                    assert int(iters.max()) <= bound, (kind, iters)
+                log(f"[spec] {str(dtype):15s} B={batch:2d} {kind:7s} "
+                    f"drafts: {100 * match:.1f}% of tokens equal greedy's"
+                    f"{' (all, as required)' if match == 1.0 else ''}; "
+                    f"iterations per stream max {int(iters.max())} mean "
+                    f"{iters.float().mean().item():.2f}, issued {issued}; "
+                    f"K3 launches {k3} = {dcfg.n_layer} x {issued}, K1 and "
+                    f"K2 0")
+            host_ms[(str(dtype), batch)] = _spec_block_ms(
+                greedy, spec, batch, want, device, dtype)
+        del eng
+    return host_ms
+
+
+def _spec_block_ms(greedy, spec, batch, want, device, dtype,
+                   reps: int = 3) -> dict:
+    """Host ms per 64-token block, issue to fetch, greedy against spec with
+    oracle drafts (median of ``reps``)."""
+    drafts = want.to(device)
+    out = {}
+    for name, fn in (("greedy", lambda: greedy(batch)),
+                     ("spec", lambda: spec(batch, drafts)[0])):
+        times = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn().cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    log(f"[spec] {dtype} B={batch}: host ms per {SPEC_TOKENS}-token block, "
+        f"issue to fetch: greedy {out['greedy']:.1f}, spec with oracle drafts "
+        f"{out['spec']:.1f} ({out['greedy'] / out['spec']:.2f}x)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the server with speculation, pooled and dedicated
+# ---------------------------------------------------------------------------
+
+def _greedy_schedule(weights, device) -> list:
+    """The chunk sizes one scripted ``/tts`` reply streams, from the f32
+    greedy B=1 engine's tokens (phase 4's computation)."""
+    _, _, _, dcfg, _, scfg = weights
+    eng = make_engine(weights, device, torch.float32)
+    cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
+    want = []
+    for text, dump in ((REPLY, scfg.initial_dump_size_1),
+                       ("", scfg.initial_dump_size_2)):
+        want += expected_chunks(eng.tts(text, max_tokens=cap)[1], dump, scfg,
+                                dcfg.eoa_token_id)
+    return want
+
+
+def phase_spec_server(engines, weights, device="cuda") -> dict:
+    """Speculative serving with the random draft heads: the f32 spec pool
+    and the f32 dedicated spec engines against the greedy schedule, the
+    bf16 spec pool at 4 and 8 concurrent requests, and one round on the
+    adaptive ladder (0, 2, 4)."""
+    from llmvox_tpu_torch.models import decoder as dec
+    from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
+        cuda_verify_attn
+    from llmvox_tpu_torch.serve.client import post_chunks
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.serve.server import build_server
+    weights = with_draft_heads(weights)
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    hop, sr = ccfg.hop_length, ccfg.sample_rate
+    codec = engines[0].codec
+    spec_cfg = dataclasses.replace(scfg, spec_decode=True,
+                                   spec_k_draft=SPEC_K)
+    want = _greedy_schedule(weights, device)
+
+    # f32, EOA on: the dedicated spec engines, then an 8-slot spec pool
+    eng32 = [make_engine((*weights[:5], spec_cfg), device, torch.float32)
+             for _ in range(2)]
+    assert all(e._spec for e in eng32)
+    # offline first, EOA off so that the chains run 128 tokens
+    deep = (*weights[:3], dataclasses.replace(dcfg, eoa_token_id=-1), ccfg)
+    _, tg = make_engine((*deep, scfg), device, torch.float32).tts(
+        TEXT, max_tokens=128)
+    _, ts = make_engine((*deep, spec_cfg), device, torch.float32).tts(
+        TEXT, max_tokens=128)
+    assert len(tg) == 128 and ts == tg, (ts, tg)
+    for e in eng32:
+        e.warmup()
+    port = _free_port()
+    with _Server(build_server(dataclasses.replace(spec_cfg, api_port=port),
+                              eng32), port):
+        it0 = dec.SPEC_ITERATIONS
+        cuda_verify_attn.LAUNCHES = 0
+        chunks = post_chunks("127.0.0.1", port, "/tts",
+                             {"text": "Say something."}, timeout=300)
+        issued = dec.SPEC_ITERATIONS - it0
+    sizes = [len(c) // 4 // hop for _, c in chunks]
+    assert sizes == want, (sizes, want)
+    assert cuda_verify_attn.LAUNCHES == dcfg.n_layer * issued > 0
+    log(f"[spec-server] f32 dedicated spec engine: tts tokens equal greedy's "
+        f"(EOA off, {len(tg)} tokens); one /tts streamed chunks {sizes}, "
+        f"the greedy schedule; K3 launches {cuda_verify_attn.LAUNCHES} = "
+        f"{dcfg.n_layer} x {issued} iterations")
+    del eng32
+    port = _free_port()
+    cfg = dataclasses.replace(spec_cfg, api_port=port, pool_capacity=8)
+    pool = DecodePool(dec_p, table, codec, capacity=8, dcfg=dcfg, scfg=cfg,
+                      device=device, cache_dtype=torch.float32)
+    assert pool._spec
+    with _Server(build_server(cfg, engines, pool=pool), port):
+        res, _ = _concurrent_round(port, 4, hop, sr)
+    for sizes, *_ in res:
+        assert sizes == want, (sizes, want)
+    log(f"[spec-pool] f32 spec pool (8 slots, k={SPEC_K}), 4 concurrent "
+        f"requests: every stream's chunks {want} equal the f32 greedy B=1 "
+        f"engine's schedule")
+    del pool
+
+    # bf16, EOA off: every stream's schedule is the dump ladder's
+    no_eoa = dataclasses.replace(dcfg, eoa_token_id=-1)
+    cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
+    want = (expected_chunks([0] * 2 * cap, scfg.initial_dump_size_1, scfg,
+                            -1)
+            + expected_chunks([0] * 2 * cap, scfg.initial_dump_size_2, scfg,
+                              -1))
+    out = {}
+    for ladder, rounds in (((), (4, 8)), ((0, 2, SPEC_K), (4, 8))):
+        port = _free_port()
+        cfg = dataclasses.replace(spec_cfg, api_port=port, pool_capacity=16,
+                                  spec_k_ladder=ladder)
+        pool = DecodePool(dec_p, table, codec, capacity=16, dcfg=no_eoa,
+                          scfg=cfg, device=device,
+                          cache_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        srv = build_server(cfg, engines, pool=pool)
+        _sync(device)
+        tag = f"ladder {list(ladder)}" if ladder else f"k={SPEC_K}"
+        log(f"[spec-pool] bf16 spec pool (16 slots, {tag}) built and warmed "
+            f"in {time.perf_counter() - t0:.2f} s; stats "
+            f"{json.dumps(pool.stats()['spec'])}")
+        picks = []
+        if pool._spec_ctl is not None:
+            ctl_next = pool._spec_ctl.next_k
+
+            def next_k():
+                picks.append(ctl_next())
+                return picks[-1]
+
+            pool._spec_ctl.next_k = next_k
+        cuda_attn.LAUNCHES = cuda_batched_attn.LAUNCHES = 0
+        cuda_verify_attn.LAUNCHES = 0
+        it0, steps0 = dec.SPEC_ITERATIONS, pool.decode_steps
+        with _Server(srv, port):
+            for n in rounds:
+                st0 = dict(pool.stats(), disp=pool.dispatch_s,
+                           tok=pool.decode_steps)
+                res, wall = _concurrent_round(port, n, hop, sr)
+                for sizes, *_ in res:
+                    assert sizes == want, (sizes, want)
+                for i, (_, ttfa, w, audio) in enumerate(res):
+                    log(f"[spec-pool] {tag} {n}-way request {i}: first "
+                        f"audio {ttfa * 1e3:.1f} ms, wall {w * 1e3:.1f} ms, "
+                        f"{audio:.2f} s audio, RTF {w / audio:.3f}")
+                st = pool.stats()
+                steps = st["steps"] - st0["steps"]
+                disp = pool.dispatch_s - st0["disp"]
+                audio = sum(r[3] for r in res)
+                ttfa = [r[1] for r in res]
+                out[(tag, n)] = {"ttfa_ms": [t * 1e3 for t in ttfa],
+                                 "aggregate": audio / wall,
+                                 "ms_per_step": disp * 1e3 / max(steps, 1)}
+                log(f"[spec-pool] {tag} {n}-way round: {audio:.2f} s audio "
+                    f"in {wall:.2f} s wall, aggregate {audio / wall:.2f} s "
+                    f"of audio per second; pool steps {steps} (merged "
+                    f"{st['merged_steps'] - st0['merged_steps']}, "
+                    f"{pool.decode_steps - st0['tok']} token steps); the "
+                    f"event loop spent {disp * 1e3 / max(steps, 1):.1f} ms "
+                    f"issuing each pool step")
+        issued = dec.SPEC_ITERATIONS - it0
+        k1, k2 = cuda_attn.LAUNCHES, cuda_batched_attn.LAUNCHES
+        k3 = cuda_verify_attn.LAUNCHES
+        assert k1 == 0 and k3 == dcfg.n_layer * issued > 0, (k1, k3, issued)
+        tok_steps = pool.decode_steps - steps0
+        if not ladder:
+            assert k2 == 0, k2
+            out["k3_launches"] = k3
+            out["k3_iterations"] = issued
+        log(f"[spec-pool] {tag}: stats {json.dumps(pool.stats())}; K3 "
+            f"launches {k3} = {dcfg.n_layer} x {issued} iterations issued, "
+            f"K2 launches {k2}, K1 0; {tok_steps} token steps"
+            + (f"; rungs picked per step {picks}" if picks else ""))
+        if ladder:
+            # random heads accept nothing (p_hat 0), so once the first
+            # estimate is in, the controller leaves the spec rungs for
+            # greedy when its dwell runs out, and no probe falls due here
+            ctl = pool._spec_ctl
+            first = picks.index(0) if 0 in picks else len(picks)
+            assert len(picks) >= ctl.dwell and first < ctl.dwell and all(
+                k == 0 for k in picks[first:first + ctl.probe_every]), (
+                    picks, ctl.cost_ms)
+            log(f"[spec-pool] {tag}: the controller left the spec rungs at "
+                f"step {first + 1} (dwell {ctl.dwell}), calibrated cost_ms "
+                f"{json.dumps(ctl.cost_ms)}")
+            out["ladder"] = {"cost_ms": ctl.cost_ms, "picks": picks}
+        del pool, srv
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -837,7 +1320,8 @@ def main(argv) -> int:
     card = phase_card_and_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    launches = pool_launches = None
+    k3 = phase_k3()
+    launches = pool_launches = spec_launches = None
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -845,6 +1329,8 @@ def main(argv) -> int:
         phase_batch(weights)
         phase_block_graph(weights, batch=K2_B)
         pool_launches = phase_pool_server(engines, weights)
+        phase_spec_offline(weights)
+        spec_launches = phase_spec_server(engines, weights)["k3_launches"]
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -863,7 +1349,19 @@ def main(argv) -> int:
               "other": {name: {"ms": t["ms"], "bound_ms": t["bound_ms"]}
                         for name, t in k2["timings"].items()
                         if name != "uniform 8191"}}
-    log(json.dumps({"kernels": [entry, entry2]}))
+    k3_name = f"nq={SPEC_K + 1} uniform {8192 - SPEC_K - 1}"
+    entry3 = {"name": "K3 verify_attention", "route": "cuda",
+              "source": "llmvox_tpu_torch/csrc/verify_attention.cu",
+              "replaces": "llmvox_tpu/ops/pallas_attn.py:634",
+              "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_verify_attention",
+              "launches": spec_launches, "max_abs_err": k3["max_abs_err"],
+              "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
+              "dtype": "bfloat16", **k3["timings"][k3_name],
+              "other": {name: {key: t[key] for key in
+                               ("ms", "bound_ms", "plain_ms", "library_ms")}
+                        for name, t in k3["timings"].items()
+                        if name != k3_name}}
+    log(json.dumps({"kernels": [entry, entry2, entry3]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,15 +16,28 @@ and the caller can issue block i+1 before fetching block i's tokens, as
 the JAX package does with one ``lax.scan`` program.  The caches are
 written in place (the JAX state is immutable; here the state passed in
 is consumed).
+
+Speculative decode (``decode_block_spec_batch``, ``decode_block_spec``;
+the JAX functions of the same names) verifies ``k_draft`` drafted tokens
+per stream in one ``k_draft + 1``-position forward whose attention is
+kernel K3.  JAX runs it as a ``lax.while_loop`` that ends when no stream
+is active; here the loop's stop test comes back to the host one
+iteration late (see ``decode_block_spec_batch``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, nn
+from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
+    cuda_verify_attn, nn
 from llmvox_tpu_torch.utils.config import DecoderConfig
+from llmvox_tpu_torch.utils.device import Fetch
+
+# Speculative iterations issued since the last reset; each runs one verify
+# forward, n_layer K3 launches on the card.
+SPEC_ITERATIONS = 0
 
 
 class DecodeState(NamedTuple):
@@ -229,3 +242,212 @@ def decode_block_batch(params: Dict, text_table: torch.Tensor,
     n = (tokens >= 0).sum(dim=-1, dtype=torch.int32)
     return tokens, n, DecodeState(states.k_cache, states.v_cache, pos, prev,
                                   done)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: k_draft drafts per stream verified in one forward
+# ---------------------------------------------------------------------------
+
+def check_draft_heads(params: Dict, dcfg: DecoderConfig, k: int) -> None:
+    """Raise unless ``params["draft_heads"]`` is an (n, C, vocab) tensor
+    with n >= k: speculation at k drafts reads heads 0..k-1."""
+    heads = params["draft_heads"]
+    want = (dcfg.n_embd, dcfg.vocab_size)
+    if (not isinstance(heads, torch.Tensor) or heads.dim() != 3
+            or tuple(heads.shape[1:]) != want or heads.shape[0] < k):
+        shape = (tuple(heads.shape) if isinstance(heads, torch.Tensor)
+                 else type(heads).__name__)
+        raise ValueError(f"speculative decode at {k} drafts needs "
+                         f"draft_heads of shape (>= {k}, {want[0]}, "
+                         f"{want[1]}); got {shape}")
+
+
+def _decode_many_batch(params: Dict, cfg: DecoderConfig, xs: torch.Tensor,
+                       states: DecodeState, n: int):
+    """Batched teacher-forced verify forward: stream b at positions
+    ``pos[b]..pos[b]+n-1`` in one pass; xs (B, n, C), caches (L, B, S, C)
+    written in place.  Returns (argmax tokens (B, n) int32, final hidden
+    (B, n, C)).
+
+    A query at a position >= S reads the last ``wpe`` row and writes no
+    cache row, as JAX's batched scatter drops it.  Its clamped row index
+    is S-1, which the stream's in-range query at S-1 may also write, so
+    every query past the cache writes what that query writes there (or
+    the old row when none does): duplicate indices then agree."""
+    b = xs.shape[0]
+    s, c = cfg.block_size, cfg.n_embd
+    pos = states.pos
+    offs = torch.arange(n, dtype=torch.int32, device=xs.device)
+    posn = pos[:, None] + offs[None]                              # (B, n)
+    x = xs + params["wpe"].index_select(
+        0, posn.clamp(max=s - 1).reshape(-1)).view(b, n, c).to(xs.dtype)
+    src = torch.minimum(offs[None], (s - 1 - pos).clamp(0, n - 1)[:, None])
+    dst = pos[:, None] + src
+    keep = (dst < s)[..., None]
+    rows = (torch.arange(b, device=xs.device)[:, None].expand(b, n),
+            dst.clamp(max=s - 1).long())
+    gather = src.long()[..., None].expand(b, n, c)
+    h = params["h"]
+    for layer in range(cfg.n_layer):
+        p = {k: v[layer] for k, v in h.items()}
+        hnorm = nn.layer_norm(x, p["ln1_s"], p.get("ln1_b"), cfg.ln_eps)
+        qkv = nn.linear(hnorm, p["wqkv"], p.get("bqkv"))          # (B, n, 3C)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        kc, vc = states.k_cache[layer], states.v_cache[layer]
+        kc.index_put_(rows, torch.where(
+            keep, k.gather(1, gather).to(kc.dtype), kc[rows]))
+        vc.index_put_(rows, torch.where(
+            keep, v.gather(1, gather).to(vc.dtype), vc[rows]))
+        a = cuda_verify_attn.verify_attention(
+            q.to(kc.dtype).contiguous(), kc, vc, pos, cfg.n_head)
+        x = x + nn.linear(a.to(x.dtype), p["wo"], p.get("bo"))
+        hnorm = nn.layer_norm(x, p["ln2_s"], p.get("ln2_b"), cfg.ln_eps)
+        m = nn.gelu_tanh(nn.linear(hnorm, p["wfc"], p.get("bfc")))
+        x = x + nn.linear(m, p["wproj"], p.get("bproj"))
+    x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
+    logits = x.float() @ params["head"].float()
+    return torch.argmax(logits, dim=-1).to(torch.int32), x
+
+
+def decode_block_spec_batch(params: Dict, text_table: torch.Tensor,
+                            codebook: torch.Tensor, states: DecodeState,
+                            text_windows: torch.Tensor,
+                            text_lens: torch.Tensor, limits: torch.Tensor,
+                            cfg: DecoderConfig, block: int = 32,
+                            k_draft: int = 4,
+                            draft_tokens: Optional[torch.Tensor] = None):
+    """Speculative ``decode_block_batch``: the same tokens for any drafts,
+    in fewer iterations when drafts are good.
+
+    Each iteration runs ONE forward over ``k_draft + 1`` positions per
+    stream: slot 0 conditioned on the stream's committed previous token
+    (always exact), slots 1..k on the drafts carried from the previous
+    iteration (``params["draft_heads"]`` on the hidden state at the
+    stream's last committed slot, or the explicit ``draft_tokens``
+    (B, block) stream).  Each active stream commits slot 0 plus the prefix
+    whose drafts matched, up to its limit and its EOA; rejected slots'
+    cache rows lie above ``pos`` and are overwritten before anything
+    attends to them.  Limits above ``block`` count as ``block``.
+
+    The loop: JAX's ``lax.while_loop`` runs until no stream is active.
+    Here each iteration ends by copying "any stream active" to pinned host
+    memory without blocking, and the host waits for iteration i's flag
+    only before it issues iteration i+2, so it stays one iteration ahead
+    of the card.  So one iteration more than JAX's is issued (none more
+    than ``block``): it is masked, commits nothing and leaves ``pos``,
+    ``prev_token``, ``done`` and ``iters`` as they were; it writes only
+    cache rows at and above ``pos``.  ``SPEC_ITERATIONS`` counts the
+    iterations issued.
+
+    Returns (tokens (B, block) int32 with -1 at inactive slots, n (B,),
+    states, iters (B,): each stream's active iterations, as JAX counts
+    them)."""
+    global SPEC_ITERATIONS
+    dev = states.pos.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    compute_dtype = states.k_cache.dtype
+    bsz, kd = states.pos.shape[0], k_draft
+    pad, eoa = cfg.pad_token_id, cfg.eoa_token_id
+    limits = limits.clamp(max=block)
+    wpad = torch.cat([text_windows.to(torch.int32),
+                      torch.full((bsz, kd + 1), pad, **i32)], dim=1)
+    offs1 = torch.arange(kd + 1, **i32)
+    if draft_tokens is not None:
+        dpad = torch.cat([draft_tokens.to(torch.int32).clamp_min(0),
+                          torch.zeros((bsz, kd + 1), **i32)], dim=1)
+        d = dpad[:, :kd]
+    else:
+        heads = params["draft_heads"][:kd].float()
+        d = torch.zeros((bsz, kd), **i32)
+    out = torch.full((bsz, block + kd + 1), -1, **i32)
+    count = torch.zeros((bsz,), **i32)
+    iters = torch.zeros((bsz,), **i32)
+    pos, prev, done = states.pos, states.prev_token, states.done
+    # flags[i]: is any stream active before iteration i
+    flags = [Fetch(((count < limits) & ~done).any())]
+    for i in range(block):
+        if i >= 1 and not bool(flags[i - 1].get()):
+            break
+        active = (count < limits) & ~done
+        prevs = torch.cat([prev[:, None], d], dim=1)              # (B, kd+1)
+        tseg = wpad.gather(1, (count[:, None] + offs1).long())
+        post = pos[:, None] + offs1
+        tids = torch.where(post < text_lens[:, None], tseg, pad)
+        tembs = text_table.index_select(0, tids.reshape(-1)).view(
+            bsz, kd + 1, -1)
+        sfeats = torch.where(
+            (post == 0)[..., None], 0.0,
+            codebook.index_select(0, prevs.reshape(-1)).view(bsz, kd + 1, -1))
+        xs = nn.l2_normalize(torch.cat([tembs, sfeats], dim=-1)).to(
+            compute_dtype)
+        a, hidden = _decode_many_batch(
+            params, cfg, xs,
+            DecodeState(states.k_cache, states.v_cache, pos, prev, done),
+            kd + 1)
+
+        # each stream commits slot 0 and its matching draft prefix
+        prefix_ok = torch.cat([
+            torch.ones((bsz, 1), dtype=torch.bool, device=dev),
+            torch.cumprod((d == a[:, :kd]).to(torch.int32), dim=1).bool()],
+            dim=1)
+        eoa_before = torch.cat([
+            torch.zeros((bsz, 1), dtype=torch.bool, device=dev),
+            torch.cumsum((a == eoa).to(torch.int32), dim=1)[:, :-1] > 0],
+            dim=1)
+        commit = (active[:, None] & prefix_ok
+                  & (count[:, None] + offs1 < limits[:, None]) & ~eoa_before)
+        m = commit.sum(dim=1, dtype=torch.int32)
+        sel = (m - 1).clamp_min(0).long()[:, None]
+        last = torch.where(m > 0, a.gather(1, sel)[:, 0], prev)
+        done = done | (commit & (a == eoa)).any(dim=1)
+
+        # the next drafts, from each stream's last committed slot
+        if draft_tokens is not None:
+            d = dpad.gather(1, ((count + m)[:, None] + offs1[:kd]).long())
+        else:
+            h_last = hidden.gather(
+                1, sel[..., None].expand(bsz, 1, hidden.shape[-1]))[:, 0]
+            d = torch.einsum("bc,kcv->bkv", h_last.float(), heads).argmax(
+                dim=-1).to(torch.int32)
+
+        # a frozen stream writes -1 at [count..count+kd], where out is -1
+        out.scatter_(1, (count[:, None] + offs1).long(),
+                     torch.where(commit, a, -1))
+        pos, prev = pos + m, last
+        count = count + m
+        iters = iters + active.to(torch.int32)
+        SPEC_ITERATIONS += 1
+        flags.append(Fetch(((count < limits) & ~done).any()))
+    return (out[:, :block], count,
+            DecodeState(states.k_cache, states.v_cache, pos, prev, done),
+            iters)
+
+
+def decode_block_spec(params: Dict, text_table: torch.Tensor,
+                      codebook: torch.Tensor, state: DecodeState,
+                      text_window: torch.Tensor, text_len: torch.Tensor,
+                      limit: torch.Tensor, cfg: DecoderConfig,
+                      block: int = 32, k_draft: int = 4,
+                      draft_tokens: Optional[torch.Tensor] = None):
+    """Speculative ``decode_block`` for one stream: the same tokens as
+    ``decode_block`` for any drafts.  It runs ``decode_block_spec_batch``
+    on the (L, 1, S, C) view of the (L, S, C) caches, so attention goes
+    through K3 and the cache writes land in this state's caches.  Near the
+    cache's end it follows the batched rule (a query past S writes
+    nothing, ``wpe`` clamps per query), not JAX's B=1 window, which slides
+    down to fit.
+
+    Returns (tokens (block,) with -1 at inactive steps, n_generated (0-d),
+    state, iters (0-d))."""
+    batched = DecodeState(state.k_cache.unsqueeze(1),
+                          state.v_cache.unsqueeze(1), state.pos.reshape(1),
+                          state.prev_token.reshape(1), state.done.reshape(1))
+    toks, n, st, iters = decode_block_spec_batch(
+        params, text_table, codebook, batched, text_window.reshape(1, -1),
+        text_len.reshape(1), limit.reshape(1), cfg, block=block,
+        k_draft=k_draft,
+        draft_tokens=(None if draft_tokens is None
+                      else draft_tokens.reshape(1, -1)))
+    return toks[0], n[0], DecodeState(state.k_cache, state.v_cache,
+                                      st.pos[0], st.prev_token[0],
+                                      st.done[0]), iters[0]

@@ -10,14 +10,19 @@ made from seed N instead of checkpoints (for smoke runs; the audio is
 noise).  Only ``/tts`` with ``--scripted_reply`` is served so far.
 ``--pool_capacity N`` serves concurrent requests through a
 continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
-ladder of pools; either lies on ``--tts_device_1``.
+ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
+speculates with the checkpoint's draft heads (``--spec_k_draft`` drafts,
+or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
+``--random_seed`` the random decoder then carries random draft heads.
 
     python -m llmvox_tpu_torch.serve --random_seed 0 \\
-        --scripted_reply "Hello there. How are you?" [--pool_capacity 16]
+        --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
+        [--spec_decode true]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,16 +53,16 @@ def main(argv=None) -> None:
         parser.error("--quantize is not ported to llmvox_tpu_torch yet: the "
                      "int4 kernel K4 and quantized serving are ROADMAP item "
                      "12")
-    if cfg.spec_decode:
-        parser.error("--spec_decode is not ported to llmvox_tpu_torch yet: "
-                     "speculative decode and kernel K3 are the next slice, "
-                     "ROADMAP item 8")
     if cfg.pool_mesh_dp > 1:
         parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
                      "yet: the multi-device pool is ROADMAP item 15")
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()
+        if cfg.spec_decode:
+            # random draft heads, so that the speculative path engages
+            dcfg = dataclasses.replace(dcfg, n_draft_heads=max(
+                (cfg.spec_k_draft, *cfg.spec_k_ladder)))
         dec_params = P.init_decoder_params(args.random_seed, dcfg)
         codec_params = P.init_codec_params(args.random_seed + 1, ccfg)
         table = P.random_text_table(args.random_seed + 2, dcfg)

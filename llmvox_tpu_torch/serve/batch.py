@@ -17,10 +17,10 @@ import torch
 
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
-from llmvox_tpu_torch.serve.engine import _Fetch, _to_device
+from llmvox_tpu_torch.serve.engine import _to_device
 from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
-from llmvox_tpu_torch.utils.device import resolve_device
+from llmvox_tpu_torch.utils.device import Fetch, resolve_device
 from llmvox_tpu_torch.utils.params import to_torch
 
 MESH_NOT_PORTED = ("multi-device pooled and batched decode (a mesh; "
@@ -116,7 +116,7 @@ class BatchTTS:
                 tok_dev, states = self.decode_batch(states, windows,
                                                     text_lens, limits)
                 issued += self.block
-                pending.append(_Fetch(tok_dev))
+                pending.append(Fetch(tok_dev))
             if not pending:
                 break
             toks = pending.popleft().get()

@@ -8,6 +8,11 @@ device-to-host copy into pinned memory, started when the block is issued
 and waited for only by ``Pending*.fetch()``: the scheduler issues block
 i+1 on the chained state before it fetches block i.
 
+Under ``spec_decode``, with draft heads in the params, every block but a
+sentence's fused first one is speculative (``decode_block_spec``,
+attention through kernel K3), as in JAX; it waits on the card for its
+stop flags while it is issued, one iteration behind.
+
 Serving casts decoder params and caches to bf16 (``compute_dtype``); the
 codec stays f32, and the final argmax accumulates in f32.
 """
@@ -26,7 +31,7 @@ from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
 from llmvox_tpu_torch.utils.config import (CodecConfig, DecoderConfig,
                                            ServeConfig)
-from llmvox_tpu_torch.utils.device import resolve_device
+from llmvox_tpu_torch.utils.device import Fetch, resolve_device
 from llmvox_tpu_torch.utils.params import to_torch
 
 
@@ -38,33 +43,13 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-class _Fetch:
-    """One device-to-host copy, started now and waited for on ``get``."""
-
-    __slots__ = ("host", "event")
-
-    def __init__(self, t: torch.Tensor):
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(t.device))
-        else:
-            self.host, self.event = t, None
-
-    def get(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
-
-
 class PendingTokens:
     """Handle to an in-flight decode block (its tokens not yet fetched)."""
 
     __slots__ = ("_fetch",)
 
     def __init__(self, tokens: torch.Tensor):
-        self._fetch = _Fetch(tokens)
+        self._fetch = Fetch(tokens)
 
     def fetch(self) -> List[int]:
         return [int(t) for t in self._fetch.get() if t >= 0]
@@ -81,7 +66,7 @@ class PendingFused:
     __slots__ = ("_fetch", "n_wav")
 
     def __init__(self, packed: torch.Tensor, n_wav: int):
-        self._fetch = _Fetch(packed)
+        self._fetch = Fetch(packed)
         self.n_wav = n_wav
 
     def fetch(self) -> Tuple[List[int], bytes]:
@@ -139,6 +124,13 @@ class TTSEngine:
         self.codebook = codec.params["codebooks"][0]
         # decode steps dispatched (each block counts its full length)
         self.decode_steps = 0
+        # speculative decode engages, as in JAX, only when the checkpoint
+        # carries draft heads; the fused first block stays greedy
+        self._spec = bool(self.scfg.spec_decode
+                          and "draft_heads" in self.params)
+        if self._spec:
+            dec.check_draft_heads(self.params, self.dcfg,
+                                  self.scfg.spec_k_draft)
 
     # -- decode --------------------------------------------------------
     def new_state(self) -> dec.DecodeState:
@@ -156,13 +148,21 @@ class TTSEngine:
                            text_window: np.ndarray, text_len: int,
                            limit: int, block: Optional[int] = None
                            ) -> Tuple[PendingTokens, dec.DecodeState]:
-        """Dispatch one block without waiting; the state chains on the
-        device.  ``block`` overrides the block length."""
+        """Dispatch one block; the state chains on the device.  ``block``
+        overrides the block length.  A greedy block is issued without a
+        sync; a speculative one (``decode_block_spec``) waits for its
+        stop flags, one iteration behind what it issues."""
         block = block or self.block
         window, tlen, lim = self._inputs(text_window, text_len, limit)
-        tokens, _, state = dec.decode_block(
-            self.params, self.text_table, self.codebook, state, window,
-            tlen, lim, self.dcfg, block=block)
+        if self._spec:
+            tokens, _, state, _ = dec.decode_block_spec(
+                self.params, self.text_table, self.codebook, state, window,
+                tlen, lim, self.dcfg, block=block,
+                k_draft=self.scfg.spec_k_draft)
+        else:
+            tokens, _, state = dec.decode_block(
+                self.params, self.text_table, self.codebook, state, window,
+                tlen, lim, self.dcfg, block=block)
         self.decode_steps += block
         return PendingTokens(tokens), state
 

@@ -25,13 +25,22 @@ nothing here moves decode to a side stream.  The step is issued eagerly
 from the event loop (``_dispatch_step``), which holds the loop for the
 step's host launch cost; ``dispatch_s`` adds that time up.
 
-Not ported here: speculative rungs (the K3 slice; a checkpoint with draft
-heads under ``spec_decode`` raises) and the multi-device mesh pool
-(ROADMAP item 15; a ``mesh`` argument raises).
+Speculation: with ``spec_decode`` and draft heads in the params, a step
+is ``decode_block_spec_batch`` (attention through kernel K3) at
+``spec_k_draft`` drafts, or, with ``spec_k_ladder``, at the rung that
+``serve/spec_control.py::SpecController`` picks at dispatch, from the
+commits and iterations that earlier steps fetched with their tokens.
+Every rung gives the greedy step's tokens.  A speculative step waits on
+the card for its stop flags while it is issued (one iteration behind),
+so it holds the event loop for that time too.
+
+Not ported here: the multi-device mesh pool (ROADMAP item 15; a ``mesh``
+argument raises).
 """
 from __future__ import annotations
 
 import asyncio
+import statistics
 import time
 import traceback
 from collections import deque
@@ -44,15 +53,11 @@ import torch.nn.functional as F
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.serve.batch import MESH_NOT_PORTED
-from llmvox_tpu_torch.serve.engine import _Fetch, _to_device
+from llmvox_tpu_torch.serve.engine import _to_device
+from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
-from llmvox_tpu_torch.utils.device import resolve_device
+from llmvox_tpu_torch.utils.device import Fetch, resolve_device
 from llmvox_tpu_torch.utils.params import to_torch
-
-SPEC_NOT_PORTED = ("speculative decode in the pool (draft heads, "
-                   "decode_block_spec_batch, kernel K3) is not ported to "
-                   "llmvox_tpu_torch yet: it is the next slice, ROADMAP "
-                   "item 8")
 
 
 def _gather_rows(tokens: torch.Tensor, idx: torch.Tensor,
@@ -64,6 +69,11 @@ def _gather_rows(tokens: torch.Tensor, idx: torch.Tensor,
     if bucket <= b:
         return rows[:, :bucket]
     return F.pad(rows, (0, bucket - b))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _masked_reset(states: dec.DecodeState,
@@ -121,10 +131,6 @@ class DecodePool:
             raise NotImplementedError(MESH_NOT_PORTED)
         self.dcfg = dcfg or DecoderConfig()
         self.scfg = scfg or ServeConfig()
-        # the JAX pool speculates when spec_decode is on and the
-        # checkpoint carries draft heads; greedy tokens are no stand-in
-        if self.scfg.spec_decode and "draft_heads" in decoder_params:
-            raise NotImplementedError(SPEC_NOT_PORTED)
         self.device = resolve_device(device)
         if codec.device != self.device:
             raise ValueError(f"codec lies on {codec.device}, pool on "
@@ -152,6 +158,24 @@ class DecodePool:
                                                   cache_dtype, self.device)
         self._widths = ((self.block, self.big_block) if self.merge
                         else (self.block,))
+        # speculation engages, as in JAX, only when the checkpoint carries
+        # draft heads.  A ladder holds rung 0 (the greedy step) and the
+        # controller moves between rungs; every rung gives greedy's tokens.
+        self._spec = bool(self.scfg.spec_decode
+                          and "draft_heads" in self.params)
+        ladder = tuple(int(k) for k in self.scfg.spec_k_ladder)
+        self._spec_ctl = None
+        self._fixed_k = self.scfg.spec_k_draft if self._spec else 0
+        rungs = [self._fixed_k]
+        if self._spec and any(k > 0 for k in ladder):
+            rungs = sorted({k for k in ladder if k >= 0} | {0})
+            self._spec_ctl = SpecController(
+                rungs, k0=(self.scfg.spec_k_draft
+                           if self.scfg.spec_k_draft in rungs else None))
+        if self._spec:
+            dec.check_draft_heads(self.params, self.dcfg, max(rungs))
+        self._decode_fns = {(w, k): self._decode_fn(w, k)
+                            for w in self._widths for k in rungs}
         # fused first chunks vocode at the bucket of the step's largest
         # fused dump, capped here (dumps never exceed the block)
         self._fuse_bucket = codec.bucket_for(min(self.block,
@@ -217,6 +241,21 @@ class DecodePool:
         if self._wake is not None and (fused_dump > 0 or not self._inflight):
             self._wake.set()
         return fut
+
+    def _decode_fn(self, width: int, k: int):
+        """The pool step at one (width, rung): rung 0 is the greedy block
+        (attention through K2), rung k > 0 the speculative block at k
+        drafts (K3).  Each returns (tokens, n, states, iters), iters None
+        for the greedy block; ``states`` defaults to the pool's."""
+        def step(windows, text_lens, limits, states=None):
+            states = self.states if states is None else states
+            args = (self.params, self.text_table, self.codebook, states,
+                    windows, text_lens, limits, self.dcfg)
+            if k == 0:
+                return (*dec.decode_block_batch(*args, block=width), None)
+            return dec.decode_block_spec_batch(*args, block=width,
+                                               k_draft=k)
+        return step
 
     def _apply_resets(self) -> None:
         idxs = [i for i, s in enumerate(self.slots) if s.pending_reset]
@@ -302,10 +341,11 @@ class DecodePool:
                 + [a for fidx, flens, _ in groups for a in (fidx, flens)]),
                 self.device)
             n = windows.size
-            tokens, _, self.states = dec.decode_block_batch(
-                self.params, self.text_table, self.codebook, self.states,
-                t[:n].view(self.B, width), t[n:n + self.B],
-                t[n + self.B:n + 2 * self.B], self.dcfg, block=width)
+            rung = (self._spec_ctl.next_k() if self._spec_ctl is not None
+                    else self._fixed_k)
+            tokens, nprod, self.states, iters = self._decode_fns[
+                (width, rung)](t[:n].view(self.B, width), t[n:n + self.B],
+                               t[n + self.B:n + 2 * self.B])
             wavs = []
             off = n + 2 * self.B
             for _, _, bucket in groups:
@@ -315,8 +355,15 @@ class DecodePool:
                 rows = _gather_rows(tokens, fidx, bucket)
                 wavs.append(self.codec.decode_codes_device(rows, flens))
                 self.synth_calls += 1
+            # accept statistics for the adaptive controller come back with
+            # the step: each slot's commits and iterations (active slots
+            # only are read; a merged pick appears once)
+            feedback = None
+            if self._spec_ctl is not None and iters is not None:
+                feedback = (rung, [i for i, _ in picks])
+                wavs = [nprod, iters] + wavs
             # tokens (exact in f32) and audio come back in one copy
-            fetch = _Fetch(torch.cat([tokens.reshape(-1).float()]
+            fetch = Fetch(torch.cat([tokens.reshape(-1).float()]
                                      + [w.reshape(-1).float() for w in wavs]))
         except BaseException as exc:
             # requests were popped at dispatch: fail them now or their
@@ -329,7 +376,7 @@ class DecodePool:
         self.decode_steps += width
         self.dispatch_s += time.perf_counter() - t0
         shapes = (width, [w.shape for w in wavs])
-        return heads, fused, fetch, shapes
+        return heads, fused, fetch, shapes, feedback
 
     def _unpack(self, arr: np.ndarray, shapes) -> Tuple[np.ndarray, List]:
         width, wav_shapes = shapes
@@ -344,9 +391,14 @@ class DecodePool:
 
     async def _resolve_step(self, inflight: Tuple) -> None:
         """Fetch one in-flight step's results and resolve its futures."""
-        heads, fused, fetch, shapes = inflight
+        heads, fused, fetch, shapes, feedback = inflight
         toks, wavs_h = self._unpack(await asyncio.to_thread(fetch.get),
                                     shapes)
+        if feedback is not None:
+            (rung, act), (nprod, iters) = feedback, wavs_h[:2]
+            wavs_h = wavs_h[2:]
+            self._spec_ctl.observe(rung, float(sum(nprod[i] for i in act)),
+                                   float(sum(iters[i] for i in act)))
         # slot -> (flat synth row, dump): rows follow the FUSED list
         # order, not the heads order
         fused_slots = {i: (j, req.fused_dump)
@@ -478,21 +530,20 @@ class DecodePool:
                 await asyncio.sleep(0)
 
     def warmup(self) -> None:
-        """Run each step width, each fused-chunk bucket and each synth
-        bucket once before traffic.  Eager PyTorch compiles nothing per
-        shape, so one pass builds the kernel and warms the allocator and
-        the library handles (the JAX pool runs each width twice and the
-        reset->step cycle for XLA's executables and TPU layouts)."""
+        """Run each step (width and rung), each fused-chunk bucket and each
+        synth bucket once before traffic, and calibrate the ladder's
+        rungs.  Eager PyTorch compiles nothing per shape, so one pass
+        builds the kernels and warms the allocator and the library handles
+        (the JAX pool runs each width twice and the reset->step cycle for
+        XLA's executables and TPU layouts)."""
         ones = np.ones((self.B,), np.int32)
-        for w in self._widths:
+        for w, k in sorted(self._decode_fns):
             windows = np.full((self.B, w), self.dcfg.pad_token_id, np.int32)
             t = _to_device(np.concatenate([windows.ravel(), ones, ones]),
                            self.device)
             n = windows.size
-            tokens, _, self.states = dec.decode_block_batch(
-                self.params, self.text_table, self.codebook, self.states,
-                t[:n].view(self.B, w), t[n:n + self.B], t[n + self.B:],
-                self.dcfg, block=w)
+            tokens, _, self.states, _ = self._decode_fns[(w, k)](
+                t[:n].view(self.B, w), t[n:n + self.B], t[n + self.B:])
         idx = torch.zeros((self.SYNTH_BATCH,), dtype=torch.int32,
                           device=self.device)
         lens = torch.ones((self.SYNTH_BATCH,), dtype=torch.int32,
@@ -503,18 +554,67 @@ class DecodePool:
         for s in self.slots:
             s.pending_reset = True
         self._apply_resets()
+        if self._spec_ctl is not None and not self._spec_ctl.cost_ms:
+            self._spec_ctl.cost_ms = self._calibrate_spec_costs()
         for bucket in self.codec.buckets:
             # lengths reach the bucket: decode_codes_ragged pads to the
             # bucket of the longest row
             self.codec.decode_codes_ragged(
                 np.zeros((self.SYNTH_BATCH, bucket), np.int32),
                 np.full((self.SYNTH_BATCH,), bucket, np.int32))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
+
+    def _calibrate_spec_costs(self, repeats: int = 7) -> Dict[int, float]:
+        """Each rung's cost on a throwaway state: ms per ITERATION issued
+        for a speculative rung, ms per TOKEN for rung 0 (a greedy
+        "iteration" commits one token).  Runs at warmup, once the kernels
+        are built.  Each rung runs one untimed step; then ``repeats``
+        rounds time every rung once, in an order that rotates from round
+        to round, each step alone between two device syncs.  A rung's
+        cost is the median of its rounds, so a slow stretch of a shared
+        host falls on every rung alike and one outlier moves nothing."""
+        pad = self.dcfg.pad_token_id
+        windows = torch.full((self.B, self.block), pad, dtype=torch.int32,
+                             device=self.device)
+        tl = torch.zeros((self.B,), dtype=torch.int32, device=self.device)
+        lim = torch.full((self.B,), self.block, dtype=torch.int32,
+                         device=self.device)
+        all_live = torch.ones((self.B,), dtype=torch.bool,
+                              device=self.device)
+        rungs = sorted({k for (_w, k) in self._decode_fns})
+        st = dec.init_decode_state_batch(self.dcfg, self.B, self.cache_dtype,
+                                         self.device)
+        for k in rungs:
+            st = _masked_reset(st, all_live)
+            _, _, st, _ = self._decode_fns[(self.block, k)](windows, tl, lim,
+                                                            states=st)
+        samples: Dict[int, List[float]] = {k: [] for k in rungs}
+        for r in range(repeats):
+            for k in rungs[r % len(rungs):] + rungs[:r % len(rungs)]:
+                st = _masked_reset(st, all_live)
+                _sync(self.device)
+                it0 = dec.SPEC_ITERATIONS
+                t0 = time.perf_counter()
+                _, _, st, _ = self._decode_fns[(self.block, k)](
+                    windows, tl, lim, states=st)
+                _sync(self.device)
+                dt_ms = (time.perf_counter() - t0) * 1000.0
+                units = self.block if k == 0 else dec.SPEC_ITERATIONS - it0
+                samples[k].append(dt_ms / max(units, 1))
+        del st
+        return {k: statistics.median(v) for k, v in samples.items()}
+
+    def spec_stats(self) -> Optional[Dict]:
+        """Speculation state for /stats: None when spec is off."""
+        if self._spec_ctl is not None:
+            return self._spec_ctl.stats()
+        if self._spec:
+            return {"k": self._fixed_k, "ladder": [self._fixed_k]}
+        return None
 
     def stats(self) -> Dict:
         """Operational counters for GET /stats (serve/server.py)."""
-        return {
+        out = {
             "capacity": self.B,
             "active": self.active_count,
             "steps": self.steps,
@@ -522,6 +622,10 @@ class DecodePool:
             "synth_calls": self.synth_calls,
             "block": self.block,
         }
+        spec = self.spec_stats()
+        if spec is not None:
+            out["spec"] = spec
+        return out
 
     def start(self) -> None:
         if self._synth_task is None:

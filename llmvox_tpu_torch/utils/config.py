@@ -53,6 +53,10 @@ class DecoderConfig:
 
     ln_eps: float = 1e-5
 
+    # speculative decode: head j drafts the token j+1 positions past the
+    # next one from a position's final hidden state; 0 = no draft heads
+    n_draft_heads: int = 0
+
     @property
     def head_dim(self) -> int:
         assert self.n_embd % self.n_head == 0
@@ -111,9 +115,9 @@ class CodecConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs.  The same flags as the JAX server; the port serves
-    ``/tts`` on the dedicated dual replicas or through the pool, and the
-    LLM, ASR, speculative and quantization knobs are parsed but not yet
-    used."""
+    ``/tts`` on the dedicated dual replicas or through the pool, with or
+    without speculative decode, and the LLM, ASR and quantization knobs
+    are parsed but not yet used."""
 
     chat_type: str = "text"  # ['text','voice','multimodal','visual_speech']
 

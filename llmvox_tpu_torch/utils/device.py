@@ -3,10 +3,12 @@
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``.
 Without a card it raises instead of moving to the CPU: the CPU runs the
 plain PyTorch versions of the kernels, and only a caller that asks for it
-(``device="cpu"``, as the tests do) gets that path.
+(``device="cpu"``, as the tests do) gets that path.  ``Fetch`` brings a
+result back from the card without blocking the issuing thread.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,3 +29,23 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+class Fetch:
+    """One device-to-host copy, started now and waited for on ``get``."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host, self.event = t, None
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()

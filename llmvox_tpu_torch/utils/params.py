@@ -112,6 +112,10 @@ def init_decoder_params(seed: int, cfg: DecoderConfig) -> Dict:
     }
     if cfg.bias:
         params["lnf_b"] = np.zeros((c,), np.float32)
+    if cfg.n_draft_heads > 0:
+        # drawn last, so the other weights do not depend on the head count
+        params["draft_heads"] = _normal(
+            rng, (cfg.n_draft_heads, c, cfg.vocab_size), 0.02)
     return params
 
 

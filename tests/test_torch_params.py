@@ -108,7 +108,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import llmvox_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             llmvox_tpu_torch.__path__, "llmvox_tpu_torch.")]
-        for n in ("serve.pool", "serve.batch", "ops.cuda_batched_attn"):
+        for n in ("serve.pool", "serve.batch", "ops.cuda_batched_attn",
+                  "serve.spec_control", "ops.cuda_verify_attn"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)

@@ -370,16 +370,27 @@ def test_pool_ladder_output_matches_jax_dedicated_scheduler(jeng):
 # ---------------------------------------------------------------------------
 
 def test_spec_decode_with_draft_heads_raises(jeng):
+    """Under ``spec_decode`` the pool speculates when the params carry
+    draft heads, and raises when the heads cannot serve its deepest rung
+    (speculation at k drafts reads heads 0..k-1), as the JAX step fails
+    to trace then.  Without draft heads it decodes greedily, as in JAX."""
     params, table, codec = _weights(jeng)
-    spec = dataclasses.replace(T_SERVE, spec_decode=True)
+    spec = dataclasses.replace(T_SERVE, spec_decode=True, spec_k_draft=3)
     codec = TWavCodec(codec, T_CODEC, device="cpu")
-    heads = dict(params, draft_heads={"w": np.zeros((2, 4, 4), np.float32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tpool.DecodePool(heads, table, codec, capacity=2, dcfg=T_DEC,
-                         scfg=spec, device="cpu")
-    # without draft heads the JAX pool decodes greedily too
-    tpool.DecodePool(params, table, codec, capacity=2, dcfg=T_DEC,
-                     scfg=spec, device="cpu")
+    c, v = T_DEC.n_embd, T_DEC.vocab_size
+    for bad in (np.zeros((2, c, v), np.float32),      # too few for k = 3
+                np.zeros((3, c + 1, v), np.float32),  # wrong width
+                {"w": np.zeros((3, c, v), np.float32)}):
+        with pytest.raises(ValueError, match="draft_heads"):
+            tpool.DecodePool(dict(params, draft_heads=bad), table, codec,
+                             capacity=2, dcfg=T_DEC, scfg=spec, device="cpu")
+    pool = tpool.DecodePool(
+        dict(params, draft_heads=np.zeros((3, c, v), np.float32)), table,
+        codec, capacity=2, dcfg=T_DEC, scfg=spec, device="cpu")
+    assert pool._spec and pool.stats()["spec"] == {"k": 3, "ladder": [3]}
+    greedy = tpool.DecodePool(params, table, codec, capacity=2, dcfg=T_DEC,
+                              scfg=spec, device="cpu")
+    assert not greedy._spec and "spec" not in greedy.stats()
 
 
 def test_pool_refuses_a_mesh_and_a_foreign_codec(jeng):
@@ -431,12 +442,47 @@ def test_cli_builds_the_pool_on_the_first_replica(flags, caps, monkeypatch):
 
 @pytest.mark.parametrize("flags, slice_", [
     (["--quantize", "w4"], "ROADMAP item 12"),
-    (["--spec_decode", "true"], "ROADMAP item 8"),
+    (["--spec_decode", "true", "--pool_capacity", "4", "--spec_k_ladder",
+      "[0,2]"], None),
     (["--pool_mesh_dp", "2", "--pool_capacity", "8"], "ROADMAP item 15")])
-def test_cli_refuses_unported_flags(flags, slice_, capsys):
-    with pytest.raises(SystemExit):
-        serve_main(["--device", "cpu", "--random_seed", "0"] + flags)
-    assert slice_ in capsys.readouterr().err
+def test_cli_refuses_unported_flags(flags, slice_, capsys, monkeypatch):
+    """``--quantize`` and ``--pool_mesh_dp > 1`` are refused, each naming
+    the ROADMAP item that brings it.  ``--spec_decode`` is served: with
+    ``--random_seed`` the random decoder carries draft heads for the
+    deepest rung, and the engines and the pool speculate."""
+    if slice_ is not None:
+        with pytest.raises(SystemExit):
+            serve_main(["--device", "cpu", "--random_seed", "0"] + flags)
+        assert slice_ in capsys.readouterr().err
+        return
+    from llmvox_tpu_torch.serve import __main__ as cli
+    from llmvox_tpu_torch.serve import server as tserver
+    got = {}
+
+    class _NoRun:
+        def run(self):
+            pass
+
+    def fake_build_server(cfg, engines, pool=None):
+        got.update(cfg=cfg, engines=engines, pool=pool)
+        return _NoRun()
+
+    monkeypatch.setattr(cli, "DecoderConfig", lambda: T_DEC)
+    monkeypatch.setattr(tserver, "build_server", fake_build_server)
+    codec_flags = [a for f in ("vq_bins", "vq_dim", "backbone_input_channels",
+                               "backbone_dim", "backbone_intermediate_dim",
+                               "backbone_num_layers", "n_fft", "hop_length")
+                   for a in (f"--{f}", str(getattr(CODEC_CFG, f)))]
+    serve_main(["--device", "cpu", "--random_seed", "0", "--decode_block",
+                "8", "--chunk_buckets", "[4,8,16,32]", "--spec_k_draft", "3"]
+               + codec_flags + flags)
+    pool, engines = got["pool"], got["engines"]
+    assert got["cfg"].spec_decode and all(e._spec for e in engines)
+    assert tuple(pool.params["draft_heads"].shape) == (
+        3, T_DEC.n_embd, T_DEC.vocab_size)
+    assert pool.stats()["spec"]["ladder"] == [0, 2]
+    assert sorted(pool._decode_fns) == [
+        (w, k) for w in (pool.block, pool.big_block) for k in (0, 2)]
 
 
 # ---------------------------------------------------------------------------
