@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
-    python3 chip_smoke.py --kernels    # phases 1, 2, 5 and 8 only
+    python3 chip_smoke.py --kernels    # phases 1, 2, 5, 8 and 11 only
 
 Phases, each of which raises on failure (exit code non-zero, no result):
   1. the card's name and power limit; build every kernel from the sources
@@ -44,6 +44,19 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      requests on a 16-slot spec pool, one round on the adaptive ladder
      (0, 2, 4).  K3's launch count in the JSON line is the bf16 spec pool
      rounds'.
+ 11. kernel K4 (the int4 weight matmul of ``--quantize w4``) against its
+     plain version at every served M (1, 5, 16, 48, 80) and the deployed
+     decoder's four weight shapes, f32 and bf16; its bf16 times with the
+     weight copies cycled past L2, beside the byte bound, the plain
+     version, a dense bf16 ``torch.matmul`` and, where the installed
+     torch has it, ``torch._weight_int4pack_mm``;
+ 12. quantized serving at full width: for w8, w8a8 and w4, 64 f32 tokens
+     from the B=1 engine on the card equal the CPU's, the bf16 32-token
+     block's host and graph times beside the dense block's, the stored
+     bytes; for w4, an f32 spec block at B=16, k=4 equal to greedy, and a
+     4-way concurrent bf16 ``/tts`` round on a 16-slot w4 pool.  K4
+     launches 4 * n_layer times per step or iteration issued; its count in
+     the JSON line is the pool round's.
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -287,6 +300,26 @@ def synth_len(tokens, eoa) -> int:
     return len(tokens) - (1 if tokens and tokens[-1] == eoa else 0)
 
 
+def block_times(eng, n_blocks: int = 8) -> list:
+    """Host ms of each of ``n_blocks`` decode blocks of ``eng`` from
+    position 0, each fetched before the next is issued (EOA off in the
+    engine's config: the blocks must run full)."""
+    ids = list(np.frombuffer(TEXT.encode(), np.uint8).astype(np.int32) + 3)
+    buf = np.full(n_blocks * eng.block + len(ids), eng.dcfg.pad_token_id,
+                  np.int32)
+    buf[:len(ids)] = ids
+    state = eng.new_state()
+    times = []
+    for i in range(n_blocks):
+        t0 = time.perf_counter()
+        got, state = eng.decode_block(
+            state, buf[i * eng.block:(i + 1) * eng.block], len(ids),
+            eng.block)
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert len(got) == eng.block
+    return times
+
+
 def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
     """The deployed configs by default; smaller ones and the CPU only to
     rehearse the script's control flow."""
@@ -348,20 +381,7 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
         "identical")
     del g32, c32
 
-    # decode time per 32-token block, each fetched before the next is
-    # issued, over positions 0..255
-    ids = list(np.frombuffer(TEXT.encode(), np.uint8).astype(np.int32) + 3)
-    buf = np.full(8 * deep.block + len(ids), dcfg.pad_token_id, np.int32)
-    buf[:len(ids)] = ids
-    state = deep.new_state()
-    block_ms = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        got, state = deep.decode_block(
-            state, buf[i * deep.block:(i + 1) * deep.block], len(ids),
-            deep.block)
-        block_ms.append((time.perf_counter() - t0) * 1e3)
-        assert len(got) == deep.block
+    block_ms = block_times(deep)
     log(f"[offline] decode ms per {deep.block}-token block (pos 0..255, "
         f"bf16, host clock, issue to fetch): "
         f"{', '.join(f'{x:.1f}' for x in block_ms)}; median "
@@ -385,12 +405,13 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
 # phase 4: the server
 # ---------------------------------------------------------------------------
 
-def phase_block_graph(weights, batch: int = 0) -> None:
+def phase_block_graph(weights, batch: int = 0) -> float:
     """One 32-token bf16 decode block (EOA off, pos 0..31) eagerly and as a
     CUDA graph: the graph must give the same tokens, and its replay time
     is the device's busy time for the block, without the host's launch
     gaps that the eager block pays.  With ``batch`` B > 0 the block is the
-    pool's batched one (``decode_block_batch``, K2) over B streams."""
+    pool's batched one (``decode_block_batch``, K2) over B streams.
+    Returns the replay's device ms."""
     from llmvox_tpu_torch.models import decoder as dec
     dcfg = dataclasses.replace(weights[3], eoa_token_id=-1)
     eng = make_engine((*weights[:3], dcfg, *weights[4:]), "cuda",
@@ -453,6 +474,7 @@ def phase_block_graph(weights, batch: int = 0) -> None:
         f"{eager:.1f} ms (host clock, median of 5), CUDA graph replay "
         f"{graph_ms:.2f} ms (device busy time), same tokens; the card is "
         f"idle {100 * (1 - graph_ms / eager):.1f}% of the eager block")
+    return graph_ms
 
 
 class _Server:
@@ -1312,6 +1334,362 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: K4 against its plain version
+# ---------------------------------------------------------------------------
+
+# the deployed decoder's w4 weights, (Cin, Cout), groups of 256 rows
+K4_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "wfc": (768, 3072),
+             "wproj": (3072, 768)}
+# every served M: the B=1 step, the B=1 spec verify (k=4), the 16-slot
+# pool, and the spec pool's rungs k=2 and k=4 at B=16
+K4_M = (1, 5, 16, 48, 80)
+# K4 and its plain version form the same exact bf16 x bf16 products and
+# sum them in f32 in another order: f32 differs by sum-order noise, a bf16
+# output by one bf16 ulp (K1's limits, with f32 at 1e-5)
+K4_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+          torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
+L2_BYTES = 50e6
+
+
+def k4_bound_ms(m: int, cin: int, cout: int, groups: int, dtype) -> tuple:
+    """Least time for one call: the packed weight, its scales, x and the
+    output once over HBM's rate; or 2*M*Cin*Cout flops over the peak rate
+    of the bf16 operands; whichever is longer."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = cin // 2 * cout + groups * cout * es + m * cin * es + \
+        m * cout * es
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * cin * cout / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _int4pack_weight(q, s):
+    """The one-off repack of an Int4Tensor for ``torch._weight_int4pack_mm``
+    (unsigned nibbles n + 8 with zero points 0, (Cout, Cin) packed by
+    ``_convert_weight_to_int4pack``): the library yardstick, never used by
+    the port."""
+    from llmvox_tpu_torch.ops import quant
+    n = quant.unpack_int4(q).to(torch.int32)
+    u = (n + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(
+        (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([s[:, 0, :].to(torch.bfloat16),
+                      torch.zeros_like(s[:, 0, :], dtype=torch.bfloat16)],
+                     dim=-1).contiguous()
+    return packed, sz
+
+
+def phase_k4() -> dict:
+    """K4 against its plain version at every served M and weight shape, f32
+    and bf16 (bf16 scales, as bf16 serving casts them); then the bf16 times
+    per call with the weight copies cycled so each call reads from HBM."""
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    max_err = 0.0
+    timings = {}
+    for name, (cin, cout) in K4_SHAPES.items():
+        w = quant.quantize_weight4(0.02 * torch.randn(cin, cout,
+                                                      generator=gen))
+        groups = w.s.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, s = w.q.to(dev), w.s.to(dev, dtype)
+            err = 0.0
+            for m in K4_M:
+                x = torch.randn(m, cin, generator=gen).to(dev, dtype)
+                got = cuda_int4_mm.int4_matmul(x, q, s)
+                ref = cuda_int4_mm.plain_int4_matmul(x, q, s)
+                torch.cuda.synchronize()
+                assert got.shape == (m, cout) and got.dtype == dtype
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           **K4_TOL[dtype])
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+            max_err = max(max_err, err)
+            log(f"[k4] {str(dtype):15s} {name:5s} {cin}->{cout} ({groups} "
+                f"groups) ok at M {K4_M}, max |err| {err:.3g}")
+        for m in K4_M:
+            timings[(name, m)] = _time_k4(w, m, gen)
+    return {"max_abs_err": max_err, "timings": timings}
+
+
+def _time_k4(w, m, gen) -> dict:
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    dev = torch.device("cuda")
+    cin, cout = w.shape
+    groups = w.s.shape[0]
+    x = torch.randn(m, cin, generator=gen).to(dev, torch.bfloat16)
+    # enough distinct copies that a cycle of calls exceeds the 50 MB L2
+    n = int(2 * L2_BYTES // w.q.numel()) + 1
+    qs = [w.q.to(dev) for _ in range(n)]
+    s = w.s.to(dev, torch.bfloat16)
+    dense = quant.dequantize(quant.Int4Tensor(qs[0], s), torch.bfloat16)
+    ds = [dense.clone() for _ in range(int(2 * L2_BYTES // (dense.numel()
+                                                            * 2)) + 1)]
+    idx = [0]
+
+    def nxt(pool):
+        idx[0] = (idx[0] + 1) % len(pool)
+        return pool[idx[0]]
+
+    def run_kernel():
+        cuda_int4_mm.int4_matmul(x, nxt(qs), s)
+
+    def run_plain():
+        cuda_int4_mm.plain_int4_matmul(x, nxt(qs), s)
+
+    def run_dense():
+        torch.matmul(x, nxt(ds))
+
+    ref = cuda_int4_mm.int4_matmul(x, qs[0], s).float()
+    lib = torch.matmul(x, dense).float()
+    gap = ((lib - ref).norm() / ref.norm()).item()
+    assert gap < 1e-2, gap
+    t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain),
+         "dense_bf16_ms": graph_ms(run_dense)}
+    t["int4pack_ms"] = None
+    if hasattr(torch, "_weight_int4pack_mm"):
+        try:
+            packs = [_int4pack_weight(q, s) for q in qs]
+            group = cin // groups
+            y = torch._weight_int4pack_mm(x, packs[0][0], group, packs[0][1])
+            gap4 = ((y.float() - ref).norm() / ref.norm()).item()
+            assert gap4 < 1e-2, gap4
+
+            def run_int4pack():
+                p = nxt(packs)
+                torch._weight_int4pack_mm(x, p[0], group, p[1])
+
+            t["int4pack_ms"] = graph_ms(run_int4pack)
+        except (RuntimeError, AssertionError, TypeError) as e:
+            log(f"[k4] torch._weight_int4pack_mm not usable here: "
+                f"{type(e).__name__}: {str(e)[:160]}")
+    t["library_ms"] = t["dense_bf16_ms"]
+    t["library"] = "torch.matmul, dense bf16 weight"
+    t["bound_ms"], t["bound_by"] = k4_bound_ms(m, cin, cout, groups,
+                                               torch.bfloat16)
+    log(f"[k4] bf16 {cin}->{cout} M={m:2d}: device time per call (CUDA "
+        f"graph, {n} weight copies) kernel {t['ms'] * 1e3:.2f} us, plain "
+        f"{t['plain_ms'] * 1e3:.2f} us, dense bf16 matmul "
+        f"{t['dense_bf16_ms'] * 1e3:.2f} us, _weight_int4pack_mm "
+        + (f"{t['int4pack_ms'] * 1e3:.2f} us" if t["int4pack_ms"] else "n/a")
+        + f", bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 12: quantized serving at full width
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("w8", "w8a8", "w4")
+
+
+def _quantized(weights, mode):
+    from llmvox_tpu_torch.ops import quant
+    return (quant.quantize_decoder_params(weights[0], mode), *weights[1:])
+
+
+def _cpu_logits_after(eng, prefix) -> torch.Tensor:
+    """The f32 logits of the CPU engine ``eng`` at the step after
+    ``prefix``, its own greedy tokens for ``TEXT`` (EOA off): the prefix
+    re-decoded, then one more step as ``decode_block`` takes it."""
+    from llmvox_tpu_torch.models import decoder as dec
+    from llmvox_tpu_torch.ops import nn
+    from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
+    cfg = eng.dcfg
+    ids = ByT5Tokenizer().encode(TEXT.strip()) + [cfg.text_eos_id]
+    d = len(prefix)
+    buf = np.full(len(ids) + d + 1, cfg.pad_token_id, np.int32)
+    buf[:len(ids)] = ids
+    i32 = dict(dtype=torch.int32, device=eng.device)
+    toks, _, state = dec.decode_block(
+        eng.params, eng.text_table, eng.codebook, eng.new_state(),
+        torch.from_numpy(buf[:max(d, 1)]).to(eng.device),
+        torch.tensor(len(ids), **i32), torch.tensor(d, **i32), cfg,
+        block=max(d, 1))
+    assert toks[:d].tolist() == list(prefix)
+    temb = eng.text_table[int(buf[d]) if d < len(ids) else cfg.pad_token_id]
+    sfeat = (eng.codebook[prefix[-1]] if d else
+             torch.zeros_like(eng.codebook[0]))
+    x = nn.l2_normalize(torch.cat([temb, sfeat])).float()
+    return dec._decode_one(eng.params, cfg, x, state, return_logits=True)[1]
+
+
+def near_tie(logits, want: int, got: int, what) -> float:
+    """Assert that ``want`` is the argmax of the f32 ``logits`` and that
+    ``got`` trails it by under 1% of the logits' standard deviation (the
+    top-2 gap of 4096 such logits is ~25% on average); returns the gap in
+    percent of the std.  w8a8 and w4 round activations (to int8, to bf16
+    in K4), so a last-bit f32 difference between two computations of a
+    sum can move one rounding and, at such a near tie, the argmax."""
+    gap = (logits[want] - logits[got]).item()
+    std = logits.std().item()
+    assert int(logits.argmax()) == want and 0 <= gap < 0.01 * std, (
+        what, want, got, gap, std)
+    return 100 * gap / std
+
+
+def check_chain(card, cpu, cpu_eng, what) -> str:
+    """Card tokens against the CPU's: equal, or equal up to a step where
+    the CPU's logits of the two tokens nearly tie (``near_tie``), after
+    which the chains go their own ways.  Returns a description."""
+    if card == cpu:
+        return f"{len(card)} tokens identical"
+    d = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
+    pct = near_tie(_cpu_logits_after(cpu_eng, cpu[:d]), cpu[d], card[d],
+                   (what, d, card, cpu))
+    return (f"identical for {d} tokens, then a near tie at step {d}: the "
+            f"CPU's logits of {cpu[d]} and {card[d]} differ by {pct:.3f}% "
+            f"of their std")
+
+
+def phase_quant(engines, weights, device="cuda") -> dict:
+    """For w8, w8a8 and w4 on the random seeded weights: the stored bytes;
+    64 f32 tokens (EOA off) from the B=1 engine on the card equal to the
+    CPU port's; the bf16 32-token block's host time beside the dense
+    one's, and its device time as a CUDA graph.  For w4: an f32 spec
+    block at B=16, k=4 (K4 at M=80) equal to the greedy block, and one
+    4-way concurrent bf16 ``/tts`` round on a 16-slot w4 pool.  K4
+    launches exactly 4 * n_layer times per step or iteration issued (and
+    never outside w4); the peak device memory is printed."""
+    from llmvox_tpu_torch.models import decoder as dec
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.serve.server import build_server
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    no_eoa = dataclasses.replace(dcfg, eoa_token_id=-1)
+    per_step = 4 * dcfg.n_layer
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"bytes": {"dense f32": quant.quantized_bytes(dec_p)}}
+    deep = make_engine((dec_p, codec_p, table, no_eoa, ccfg, scfg), device,
+                       torch.bfloat16)
+    out["block_ms"] = {"dense": statistics.median(block_times(deep))}
+    if on_card:
+        out["graph_ms"] = {"dense": phase_block_graph(
+            (dec_p, *weights[1:]))}
+    del deep
+    for mode in QUANT_MODES:
+        qw = _quantized(weights, mode)
+        out["bytes"][mode] = quant.quantized_bytes(qw[0])
+        qdeep = (qw[0], codec_p, table, no_eoa, ccfg, scfg)
+        g32 = make_engine(qdeep, device, torch.float32)
+        c32 = make_engine(qdeep, "cpu", torch.float32)
+        cuda_int4_mm.LAUNCHES = 0
+        steps0 = g32.decode_steps
+        _, tg = g32.tts(TEXT, max_tokens=64)
+        launches = cuda_int4_mm.LAUNCHES
+        steps = g32.decode_steps - steps0
+        _, tc = c32.tts(TEXT, max_tokens=64)
+        assert len(tg) == len(tc) == 64, (len(tg), len(tc))
+        same = check_chain(tg, tc, c32, mode)
+        assert launches == (per_step * steps if mode == "w4" else 0) and (
+            steps > 0), (mode, launches, steps)
+        del g32, c32
+        eng = make_engine(qdeep, device, torch.bfloat16)
+        out["block_ms"][mode] = statistics.median(block_times(eng))
+        del eng
+        if on_card:
+            out["graph_ms"][mode] = phase_block_graph(qw)
+        log(f"[quant] {mode:4s}: decoder {out['bytes'][mode]} bytes stored "
+            f"(dense f32 {out['bytes']['dense f32']}); f32 card vs f32 CPU, "
+            f"EOA off: {same} (K4 launches {launches} = "
+            f"{per_step if mode == 'w4' else 0} x {steps} steps); bf16 "
+            f"32-token block {out['block_ms'][mode]:.1f} ms (dense "
+            f"{out['block_ms']['dense']:.1f} ms, host clock, median of 8)")
+
+    # w4 speculation at B=16, k=4: every verify linear is K4 at M=80
+    w4 = _quantized(with_draft_heads(weights), "w4")
+    assert not isinstance(w4[0]["draft_heads"], quant.QUANTIZED)
+    eng = make_engine((w4[0], codec_p, table, no_eoa, ccfg, scfg), device,
+                      torch.float32)
+    n, b = 32, K3_B
+    win_np, tlen = _spec_windows(b, n, dcfg.pad_token_id)
+    win = torch.from_numpy(win_np).to(device)
+    tl = torch.full((b,), tlen, dtype=torch.int32, device=device)
+    lim = torch.full((b,), n, dtype=torch.int32, device=device)
+    args = (eng.params, eng.text_table, eng.codebook)
+    cuda_int4_mm.LAUNCHES = 0
+    want, _, _, logits = dec.decode_block_batch(
+        *args, dec.init_decode_state_batch(no_eoa, b, torch.float32, device),
+        win, tl, lim, no_eoa, block=n, return_logits=True)
+    want, logits = want.cpu(), logits.cpu()
+    greedy_launches = cuda_int4_mm.LAUNCHES
+    cuda_int4_mm.LAUNCHES = 0
+    it0 = dec.SPEC_ITERATIONS
+    toks, cnt, _, iters = dec.decode_block_spec_batch(
+        *args, dec.init_decode_state_batch(no_eoa, b, torch.float32, device),
+        win, tl, lim, no_eoa, block=n, k_draft=SPEC_K)
+    toks = toks.cpu()
+    issued = dec.SPEC_ITERATIONS - it0
+    spec_launches = cuda_int4_mm.LAUNCHES
+    assert greedy_launches == per_step * n, greedy_launches
+    assert spec_launches == per_step * issued > 0, (spec_launches, issued)
+    assert (cnt.cpu() == n).all() and (toks >= 0).all(), (cnt, toks)
+    # each stream: greedy's tokens, or greedy's up to a near tie in the
+    # greedy block's own logits (the verify forward sums in another order)
+    ties = []
+    for row in range(b):
+        diff = (toks[row] != want[row]).nonzero()
+        if len(diff):
+            d = int(diff[0])
+            ties.append((row, d, near_tie(logits[row, d], int(want[row, d]),
+                                          int(toks[row, d]), ("spec", row,
+                                                              d))))
+    log(f"[quant] w4 f32 spec block, B={b}, k={SPEC_K} (K4 at M="
+        f"{b * (SPEC_K + 1)}), draft heads: {b - len(ties)} of {b} streams "
+        f"equal the w4 greedy block's {n} tokens, the others up to a near "
+        f"tie (stream, step, gap in % of the logits' std: {ties}); "
+        f"iterations max {int(iters.max())}, issued {issued}; K4 launches "
+        f"{spec_launches} = {per_step} x {issued} (greedy: "
+        f"{greedy_launches} = {per_step} x {n} steps)")
+    del eng
+
+    # one 4-way bf16 round on a 16-slot w4 pool, EOA off
+    w4 = _quantized(weights, "w4")
+    cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
+    sched = (expected_chunks([0] * 2 * cap, scfg.initial_dump_size_1, scfg,
+                             -1)
+             + expected_chunks([0] * 2 * cap, scfg.initial_dump_size_2, scfg,
+                               -1))
+    port = _free_port()
+    cfg = dataclasses.replace(scfg, api_port=port, pool_capacity=16,
+                              quantize="w4")
+    pool = DecodePool(w4[0], table, engines[0].codec, capacity=16,
+                      dcfg=no_eoa, scfg=cfg, device=device,
+                      cache_dtype=torch.bfloat16)
+    assert type(pool.params["h"]["wfc"]) is quant.Int4Tensor
+    srv = build_server(cfg, engines, pool=pool)
+    cuda_int4_mm.LAUNCHES = 0
+    steps0 = pool.decode_steps
+    with _Server(srv, port):
+        res, wall = _concurrent_round(port, 4, ccfg.hop_length,
+                                      ccfg.sample_rate)
+    for sizes, *_ in res:
+        assert sizes == sched, (sizes, sched)
+    steps = pool.decode_steps - steps0
+    assert cuda_int4_mm.LAUNCHES == per_step * steps > 0, (
+        cuda_int4_mm.LAUNCHES, steps)
+    audio = sum(r[3] for r in res)
+    out["pool"] = {"ttfa_ms": [r[1] * 1e3 for r in res],
+                   "aggregate": audio / wall}
+    out["k4_launches"] = cuda_int4_mm.LAUNCHES
+    log(f"[quant] w4 pool (16 slots), 4 concurrent bf16 requests: chunks "
+        f"{sched} each; first audio "
+        f"{', '.join(f'{t:.1f}' for t in out['pool']['ttfa_ms'])} ms; "
+        f"{audio:.2f} s audio in {wall:.2f} s, aggregate "
+        f"{audio / wall:.2f} s of audio per second; K4 launches "
+        f"{cuda_int4_mm.LAUNCHES} = {per_step} x {steps} token steps")
+    del pool, srv
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[quant] peak device memory in phase 12: "
+            f"{out['peak_gb']:.2f} GB")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1321,7 +1699,8 @@ def main(argv) -> int:
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
-    launches = pool_launches = spec_launches = None
+    k4 = phase_k4()
+    launches = pool_launches = spec_launches = quant_launches = None
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -1331,6 +1710,7 @@ def main(argv) -> int:
         pool_launches = phase_pool_server(engines, weights)
         phase_spec_offline(weights)
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
+        quant_launches = phase_quant(engines, weights)["k4_launches"]
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -1361,7 +1741,20 @@ def main(argv) -> int:
                                ("ms", "bound_ms", "plain_ms", "library_ms")}
                         for name, t in k3["timings"].items()
                         if name != k3_name}}
-    log(json.dumps({"kernels": [entry, entry2, entry3]}))
+    k4_main = ("wproj", 1)
+    entry4 = {"name": "K4 int4_matmul", "route": "cuda",
+              "source": "llmvox_tpu_torch/csrc/int4_matmul.cu",
+              "replaces": "llmvox_tpu/ops/pallas_quant.py:82",
+              "tpu": "llmvox_tpu/ops/pallas_quant.py::_int4_mm",
+              "launches": quant_launches, "max_abs_err": k4["max_abs_err"],
+              "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
+              **k4["timings"][k4_main],
+              "other": {f"{name} M={m}": {key: t[key] for key in
+                                          ("ms", "bound_ms", "plain_ms",
+                                           "library_ms", "int4pack_ms")}
+                        for (name, m), t in k4["timings"].items()
+                        if (name, m) != k4_main}}
+    log(json.dumps({"kernels": [entry, entry2, entry3, entry4]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

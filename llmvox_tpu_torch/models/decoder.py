@@ -23,6 +23,11 @@ per stream in one ``k_draft + 1``-position forward whose attention is
 kernel K3.  JAX runs it as a ``lax.while_loop`` that ends when no stream
 is active; here the loop's stop test comes back to the host one
 iteration late (see ``decode_block_spec_batch``).
+
+Quantized params (``ops/quant.py``, ``--quantize``) flow through every
+path unchanged: ``v[layer]`` of a stacked container is that layer's 2-D
+container, ``nn.linear`` dispatches on it (w4 through kernel K4), and the
+head stays a weight-only int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
@@ -92,8 +97,9 @@ def _decode_one(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
         x = x + nn.linear(m, p["wproj"], p.get("bproj"))[0]
     x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
     # the head accumulates in f32 even under bf16 params (products of bf16
-    # values are exact in f32), so the argmax matches an f32 softmax-argmax
-    logits = x.float() @ params["head"].float()
+    # values are exact in f32), so the argmax matches an f32 softmax-argmax;
+    # a quantized head dequantizes in x's dtype first, as JAX's does
+    logits = x.float() @ nn.dense_weight(params["head"], x.dtype).float()
     token = torch.argmax(logits).to(torch.int32)
     if return_logits:
         return token, logits
@@ -168,11 +174,12 @@ def init_decode_state_batch(cfg: DecoderConfig, batch: int,
 
 
 def _decode_one_batch(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
-                      state: DecodeState) -> torch.Tensor:
+                      state: DecodeState):
     """Batched transformer step: x (B, C), caches (L, B, S, C), pos (B,).
 
     Writes each stream's k/v row at its ``pos`` into the caches (in place)
-    and returns the (B,) int32 argmax tokens.  A stream at ``pos >= S``
+    and returns the (B,) int32 argmax tokens and the (B, vocab) f32
+    logits.  A stream at ``pos >= S``
     reads the last ``wpe`` row and writes no cache row: the JAX step
     clamps the ``wpe`` gather and drops an out-of-range scatter."""
     b = x.shape[0]
@@ -199,15 +206,15 @@ def _decode_one_batch(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
         m = nn.gelu_tanh(nn.linear(hnorm, p["wfc"], p.get("bfc")))
         x = x + nn.linear(m, p["wproj"], p.get("bproj"))
     x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
-    logits = x.float() @ params["head"].float()
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = x.float() @ nn.dense_weight(params["head"], x.dtype).float()
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
 def decode_block_batch(params: Dict, text_table: torch.Tensor,
                        codebook: torch.Tensor, states: DecodeState,
                        text_windows: torch.Tensor, text_lens: torch.Tensor,
                        limits: torch.Tensor, cfg: DecoderConfig,
-                       block: int = 32):
+                       block: int = 32, return_logits: bool = False):
     """Multi-stream ``decode_block``: B independent streams advance
     together without a host sync, each with its own window, text length
     and limit; the per-stream rules are ``decode_block``'s.
@@ -216,11 +223,12 @@ def decode_block_batch(params: Dict, text_table: torch.Tensor,
       states: batched DecodeState (caches (L, B, S, C); pos/prev/done (B,)).
       text_windows: (B, block) int32; text_lens, limits: (B,) int32.
     Returns:
-      (tokens (B, block) int32 with -1 at inactive steps, n (B,), states)
+      (tokens (B, block) int32 with -1 at inactive steps, n (B,), states),
+      and with ``return_logits`` each step's f32 logits (B, block, vocab)
     """
     compute_dtype = states.k_cache.dtype
     pos, prev, done = states.pos, states.prev_token, states.done
-    outs = []
+    outs, step_logits = [], []
     for i in range(block):
         active = (limits > i) & ~done
         tid = torch.where(pos < text_lens, text_windows[:, i],
@@ -230,18 +238,21 @@ def decode_block_batch(params: Dict, text_table: torch.Tensor,
                             codebook.index_select(0, prev))
         x = nn.l2_normalize(torch.cat([temb, sfeat], dim=-1)).to(
             compute_dtype)
-        tokens = _decode_one_batch(params, cfg, x,
-                                   DecodeState(states.k_cache,
-                                               states.v_cache, pos, prev,
-                                               done))
+        tokens, logits = _decode_one_batch(
+            params, cfg, x,
+            DecodeState(states.k_cache, states.v_cache, pos, prev, done))
+        if return_logits:
+            step_logits.append(logits)
         pos = torch.where(active, pos + 1, pos)
         prev = torch.where(active, tokens, prev)
         done = done | (active & (tokens == cfg.eoa_token_id))
         outs.append(torch.where(active, tokens, -1))
     tokens = torch.stack(outs, dim=1)
     n = (tokens >= 0).sum(dim=-1, dtype=torch.int32)
-    return tokens, n, DecodeState(states.k_cache, states.v_cache, pos, prev,
-                                  done)
+    states = DecodeState(states.k_cache, states.v_cache, pos, prev, done)
+    if return_logits:
+        return tokens, n, states, torch.stack(step_logits, dim=1)
+    return tokens, n, states
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +316,7 @@ def _decode_many_batch(params: Dict, cfg: DecoderConfig, xs: torch.Tensor,
         m = nn.gelu_tanh(nn.linear(hnorm, p["wfc"], p.get("bfc")))
         x = x + nn.linear(m, p["wproj"], p.get("bproj"))
     x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
-    logits = x.float() @ params["head"].float()
+    logits = x.float() @ nn.dense_weight(params["head"], x.dtype).float()
     return torch.argmax(logits, dim=-1).to(torch.int32), x
 
 

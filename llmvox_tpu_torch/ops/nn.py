@@ -14,6 +14,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+
 
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
@@ -98,11 +100,29 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     return y
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense_weight(w, dtype) -> torch.Tensor:
+    """A matmul weight at ``dtype``: plain tensors cast, quantized
+    containers (``ops/quant.py``) dequantize in ``dtype``."""
+    if isinstance(w, quant.QUANTIZED):
+        return quant.dequantize(w, dtype)
+    return w.to(dtype)
+
+
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
     """Dense layer, ``w`` is (Cin, Cout).  The product takes x's dtype
-    (bf16 in gives bf16 out, accumulated in f32 by the matmul)."""
-    y = x @ w.to(x.dtype)
+    (bf16 in gives bf16 out, accumulated in f32 by the matmul).
+
+    ``w`` may be quantized, as JAX's ``linear`` dispatches: an
+    ``Int8Linear`` runs ``int8_matmul``, a 2-D ``Int4Tensor`` kernel K4 (its
+    plain version on CPU tensors), and a ``QuantizedTensor`` dequantizes
+    into the matmul operand in x's dtype."""
+    if isinstance(w, quant.Int8Linear):
+        y = quant.int8_matmul(x, w)
+    elif isinstance(w, quant.Int4Tensor) and w.q.dim() == 2:
+        y = cuda_int4_mm.int4_matmul(x, w.q, w.s)
+    else:
+        y = x @ dense_weight(w, x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

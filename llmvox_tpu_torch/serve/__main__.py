@@ -14,10 +14,13 @@ ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
 speculates with the checkpoint's draft heads (``--spec_k_draft`` drafts,
 or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
 ``--random_seed`` the random decoder then carries random draft heads.
+``--quantize w8 | w8a8 | w4`` quantizes the speech decoder's matmul
+weights after loading (random ones too), before the replicas and the pool
+are built; w4 runs its matmuls through kernel K4.
 
     python -m llmvox_tpu_torch.serve --random_seed 0 \\
         --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
-        [--spec_decode true]
+        [--spec_decode true] [--quantize w4]
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from llmvox_tpu_torch.utils.config import (
 
 def main(argv=None) -> None:
     from llmvox_tpu_torch.codec.codec import WavCodec
+    from llmvox_tpu_torch.ops import quant
     from llmvox_tpu_torch.serve.engine import TTSEngine
     from llmvox_tpu_torch.serve.pool import DecodePool, PoolLadder
     from llmvox_tpu_torch.serve.server import build_server
@@ -50,9 +54,10 @@ def main(argv=None) -> None:
     cfg = apply_cli_overrides(ServeConfig(), args)
     ccfg = apply_cli_overrides(CodecConfig(), args)
     if cfg.quantize:
-        parser.error("--quantize is not ported to llmvox_tpu_torch yet: the "
-                     "int4 kernel K4 and quantized serving are ROADMAP item "
-                     "12")
+        try:
+            quant._mode_cls(cfg.quantize)
+        except ValueError as e:
+            parser.error(str(e))
     if cfg.pool_mesh_dp > 1:
         parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
                      "yet: the multi-device pool is ROADMAP item 15")
@@ -73,6 +78,10 @@ def main(argv=None) -> None:
                                 if k in DecoderConfig.__dataclass_fields__})
         table = np.load(args.byt5_table)["table"]
         codec_params = P.load_params_npz(cfg.wav_model_path)
+    if cfg.quantize:
+        dec_params = quant.quantize_decoder_params(dec_params, cfg.quantize)
+        print(f"quantization ({cfg.quantize}): speech decoder, "
+              f"{quant.quantized_bytes(dec_params)} bytes", flush=True)
 
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)

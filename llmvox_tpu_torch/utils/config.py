@@ -197,6 +197,13 @@ class ServeConfig:
     spec_decode: bool = False
     spec_k_draft: int = 4
     spec_k_ladder: Tuple[int, ...] = ()
+    # Quantization of the serving models' matmul weights (the port serves
+    # the speech decoder's).  "" = off; "w8" = weight-only (weights store
+    # int8 + per-output-channel scales, dequantized into the matmul
+    # operand); "w8a8" = int8 x int8 compute with dynamic per-token
+    # activation quantization (lm heads stay weight-only); "w4" =
+    # weight-only int4 with group-wise scales (two 4-bit weights per byte,
+    # 4x fewer weight bytes than bf16; lm heads stay w8).  ops/quant.py.
     quantize: str = ""
 
     pool_capacity: int = 0        # 0: dedicated replicas

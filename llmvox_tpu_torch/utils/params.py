@@ -4,8 +4,8 @@ Parameters are plain nested dicts (and lists) keyed exactly as in the JAX
 package, with the same layouts.  ``load_params_npz`` reads the flat
 ``.npz`` files that ``llmvox_tpu.train.checkpoint.save_params_npz`` writes
 (keys are ``/``-joined pytree paths, list indices encoded as ``#i``);
-``to_torch`` turns such a tree (or a JAX pytree after ``jax.device_get``)
-into tensors on a device.
+``to_torch`` turns such a tree (or a JAX pytree after ``jax.device_get``,
+quantized containers included) into tensors on a device.
 
 ``init_decoder_params`` and ``init_codec_params`` draw random weights with
 the keys, shapes and distributions of the JAX initialisers
@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from llmvox_tpu_torch.ops import quant
 from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
 
 
@@ -54,12 +55,29 @@ def load_meta(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _quantized_class(node):
+    """The port's container class for a quantized weight: one of the
+    port's own, or the JAX package's NamedTuple of the same name (from
+    ``jax.device_get`` of a quantized tree), known by its name and its
+    ``q`` and ``s`` fields since the port cannot import it."""
+    cls = quant.CONTAINERS.get(type(node).__name__)
+    if cls is not None and hasattr(node, "q") and hasattr(node, "s"):
+        return cls
+    return None
+
+
 def to_torch(tree, device, dtype: Optional[torch.dtype] = None):
     """Nested dict/list of arrays -> the same structure of tensors on
     ``device``.  ``dtype`` casts floating leaves only; integer leaves keep
-    their type."""
+    their type.  Quantized containers (``ops/quant.py``, or the JAX
+    package's) become the port's, their ``q`` kept int8 and their scales
+    ``s`` cast, as JAX's engines cast a quantized tree."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+    cls = _quantized_class(tree)
+    if cls is not None:
+        return cls(q=to_torch(tree.q, device, dtype),
+                   s=to_torch(tree.s, device, dtype))
     if isinstance(tree, (list, tuple)):
         return [to_torch(v, device, dtype) for v in tree]
     if isinstance(tree, torch.Tensor):

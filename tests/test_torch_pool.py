@@ -441,13 +441,17 @@ def test_cli_builds_the_pool_on_the_first_replica(flags, caps, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, slice_", [
-    (["--quantize", "w4"], "ROADMAP item 12"),
+    (["--quantize", "w4", "--pool_capacity", "4"], None),
+    (["--quantize", "w3"], "unknown quantization mode 'w3'"),
     (["--spec_decode", "true", "--pool_capacity", "4", "--spec_k_ladder",
       "[0,2]"], None),
     (["--pool_mesh_dp", "2", "--pool_capacity", "8"], "ROADMAP item 15")])
 def test_cli_refuses_unported_flags(flags, slice_, capsys, monkeypatch):
-    """``--quantize`` and ``--pool_mesh_dp > 1`` are refused, each naming
-    the ROADMAP item that brings it.  ``--spec_decode`` is served: with
+    """``--pool_mesh_dp > 1`` is refused, naming the ROADMAP item that
+    brings it, and an unknown ``--quantize`` mode with the quantizer's
+    message.  ``--quantize w4`` is served: the random decoder's matmul
+    weights are int4 in the engines and the pool, scales in the compute
+    dtype, the head int8.  ``--spec_decode`` is served: with
     ``--random_seed`` the random decoder carries draft heads for the
     deepest rung, and the engines and the pool speculate."""
     if slice_ is not None:
@@ -477,6 +481,17 @@ def test_cli_refuses_unported_flags(flags, slice_, capsys, monkeypatch):
                 "8", "--chunk_buckets", "[4,8,16,32]", "--spec_k_draft", "3"]
                + codec_flags + flags)
     pool, engines = got["pool"], got["engines"]
+    if got["cfg"].quantize:
+        from llmvox_tpu_torch.ops import quant as tq
+        for holder in engines + [pool]:
+            h = holder.params["h"]
+            assert all(type(h[k]) is tq.Int4Tensor
+                       for k in ("wqkv", "wo", "wfc", "wproj"))
+            assert h["wfc"].q.dtype == torch.int8
+            assert h["wfc"].s.dtype == torch.bfloat16
+            assert type(holder.params["head"]) is tq.QuantizedTensor
+        assert not pool._spec
+        return
     assert got["cfg"].spec_decode and all(e._spec for e in engines)
     assert tuple(pool.params["draft_heads"].shape) == (
         3, T_DEC.n_embd, T_DEC.vocab_size)
