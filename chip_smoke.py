@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --kernels    # phases 1, 2, 5, 8 and 11 only
+    python3 chip_smoke.py --block-graphs [--root DIR]
+        # a measurement aid, checked by nothing: the B=1 dense and w4 graph
+        # blocks only, of the package in DIR (to compare two checkouts)
 
 Phases, each of which raises on failure (exit code non-zero, no result):
   1. the card's name and power limit; build every kernel from the sources
      in ``llmvox_tpu_torch/csrc`` (nvcc's register/shared-memory report is
-     printed);
+     printed, and K1's cluster size);
   2. kernel K1 (decode attention) against its plain PyTorch version at the
      deployed decoder's width, every layer view of a (4, 8192, 768) cache,
-     f32 and bf16; its times beside the byte bound and a library yardstick;
+     f32 and bf16, at the row partition's edges, twice (bitwise equal);
+     then at head widths the deployed decoder does not use (rows that are
+     not 16-byte aligned, heads over 128 f32 wide that take fewer warps);
+     its bf16 times at pos 127, 511, 4095 and 8191, beside the byte bound
+     and a library yardstick; with more than one card, K1 and K4 on each
+     other card too (a kernel's shared-memory limit is set per device);
   3. the offline main path at full width with random seeded weights:
      ``TTSEngine.tts`` in bf16, f32 on the card against f32 on the CPU, the
      kernel's launch count on that path, decode and synthesis times;
@@ -46,10 +54,10 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      rounds'.
  11. kernel K4 (the int4 weight matmul of ``--quantize w4``) against its
      plain version at every served M (1, 5, 16, 48, 80) and the deployed
-     decoder's four weight shapes, f32 and bf16; its bf16 times with the
-     weight copies cycled past L2, beside the byte bound, the plain
-     version, a dense bf16 ``torch.matmul`` and, where the installed
-     torch has it, ``torch._weight_int4pack_mm``;
+     decoder's four weight shapes, f32 and bf16, twice (bitwise equal);
+     its bf16 times with the weight copies cycled past L2, beside the
+     byte bound, the plain version, a dense bf16 ``torch.matmul`` and,
+     where the installed torch has it, ``torch._weight_int4pack_mm``;
  12. quantized serving at full width: for w8, w8a8 and w4, 64 f32 tokens
      from the B=1 engine on the card equal the CPU's, the bf16 32-token
      block's host and graph times beside the dense block's, the stored
@@ -160,6 +168,9 @@ def phase_card_and_build() -> str:
             if "ptxas info" in line and ("registers" in line
                                          or "Compiling" in line):
                 log(f"[build] {line.strip()}")
+    from llmvox_tpu_torch.ops import cuda_attn
+    log(f"[build] K1 launches clusters of {cuda_attn.CLUSTER} blocks per "
+        f"head")
     return card
 
 
@@ -192,12 +203,34 @@ def k1_bound_ms(pos: int, c: int, dtype) -> tuple:
                                  "operations")
 
 
+# today's positions plus the edges of the row partition (NB-1, NB, NB+1 for
+# NB = 8 blocks a head, the last and first pos past rank 0 alone (64 rows),
+# pos+1 that no 8-row tile divides, the last row S-1)
+K1_POS = (0, 1, 7, 8, 9, 63, 64, 99, 127, 255, 256, 511, 1000, 4095, 8191)
+K1_TIMED = (127, 511, 4095, 8191)
+# (dtype, width, heads) off the deployed shape, each on its own code path:
+# bf16 head 100 (rows not 16-byte aligned: staged by plain loads), f32 head
+# 256 (16 vectors a lane, 3 warps a block) and f32 head 130 (both: plain
+# loads, 16 vectors a lane, 6 warps)
+K1_ODD = ((torch.bfloat16, 800, 8), (torch.float32, 1024, 4),
+          (torch.float32, 1040, 8))
+K1_ODD_S = 2048
+
+
+def k1_warps(d: int, itemsize: int) -> int:
+    """Warps a K1 block runs for head width d (``n_warps_for`` in the
+    kernel: 8, or as many as a 4-stage ring of 8-row K and V tiles a warp
+    fits in 200 KiB)."""
+    row = -(-d * itemsize // 16) * 16
+    return min(8, 200 * 1024 // (4 * 2 * 8 * row))
+
+
 def phase_k1() -> dict:
-    from llmvox_tpu_torch.ops import attention, cuda_attn
     from llmvox_tpu_torch.utils.config import DecoderConfig
     cfg = DecoderConfig()
     L, S, C, H = cfg.n_layer, cfg.block_size, cfg.n_embd, cfg.n_head
     D = C // H
+    assert S - 1 in K1_POS
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     max_err = 0.0
@@ -206,24 +239,78 @@ def phase_k1() -> dict:
         k = torch.randn(L, S, C, generator=gen).to(dev, dtype)
         v = torch.randn(L, S, C, generator=gen).to(dev, dtype)
         q = torch.randn(C, generator=gen).to(dev, dtype)
-        for pos in (0, 1, 255, 256, 511, 4095, 8191):
+        for pos in K1_POS:
             p = torch.tensor(pos, dtype=torch.int32, device=dev)
-            err = 0.0
-            for layer in range(L):
-                got = cuda_attn.decode_attention(q, k[layer], v[layer], p, H)
-                ref = attention.decode_attention(q, k[layer], v[layer], p,
-                                                 n_head=H)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got.float(), ref.float(),
-                                           **K1_TOL[dtype])
-                err = max(err, (got.float() - ref.float()).abs().max().item())
+            err = max(_k1_check(q, k[layer], v[layer], p, H, dtype,
+                                (pos, layer)) for layer in range(L))
             max_err = max(max_err, err)
-            log(f"[k1] {str(dtype):15s} pos {pos:5d} ok, max |err| over "
-                f"{L} layers {err:.3g}")
-            if dtype is torch.bfloat16 and pos in (511, 4095, 8191):
+            log(f"[k1] {str(dtype):15s} pos {pos:5d} ok, bitwise "
+                f"repeatable, max |err| over {L} layers {err:.3g}")
+            if dtype is torch.bfloat16 and pos in K1_TIMED:
                 timings[pos] = _time_k1(q, k, v, p, pos, H, D, dtype)
         del k, v
+    for dtype, c, h in K1_ODD:
+        w = k1_warps(c // h, torch.finfo(dtype).bits // 8)
+        k = torch.randn(K1_ODD_S, c, generator=gen).to(dev, dtype)
+        v = torch.randn(K1_ODD_S, c, generator=gen).to(dev, dtype)
+        q = torch.randn(c, generator=gen).to(dev, dtype)
+        at = (0, 8 * w - 1, 8 * w, 8 * w + 1, 1000, K1_ODD_S - 1)
+        err = max(_k1_check(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                                  device=dev), h, dtype,
+                            (c, h, pos)) for pos in at)
+        max_err = max(max_err, err)
+        log(f"[k1] {str(dtype):15s} width {c}, {h} heads of {c // h} ({w} "
+            f"warps a block) ok at pos {at}, bitwise repeatable, max |err| "
+            f"{err:.3g}")
     return {"max_abs_err": max_err, "timings": timings}
+
+
+def _k1_check(q, k, v, p, H, dtype, what) -> float:
+    """K1 twice against its plain version: bitwise equal, within K1_TOL;
+    the largest error."""
+    from llmvox_tpu_torch.ops import attention, cuda_attn
+    ref = attention.decode_attention(q, k, v, p, n_head=H)
+    got = cuda_attn.decode_attention(q, k, v, p, H)
+    again = cuda_attn.decode_attention(q, k, v, p, H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **K1_TOL[dtype])
+    assert torch.equal(got, again), ("K1 not deterministic", dtype, what)
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def phase_other_cards() -> None:
+    """With more than one card: K1 (bf16, deployed width, pos 300) and K4
+    (bf16, wfc at M=80) launched on card 0 and then on every other card,
+    each against its plain version, as a second dedicated replica
+    (``--tts_device_2``) launches them."""
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    from llmvox_tpu_torch.utils.config import DecoderConfig
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("[cards] one card: K1 and K4 on other cards not checked")
+        return
+    cfg = DecoderConfig()
+    c, h = cfg.n_embd, cfg.n_head
+    gen = torch.Generator().manual_seed(6)
+    kv = [torch.randn(cfg.block_size, c, generator=gen) for _ in range(2)]
+    q = torch.randn(c, generator=gen)
+    w = quant.quantize_weight4(0.02 * torch.randn(*K4_SHAPES["wfc"],
+                                                  generator=gen))
+    x = torch.randn(80, K4_SHAPES["wfc"][0], generator=gen)
+    bf = torch.bfloat16
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        k1 = _k1_check(q.to(dev, bf), kv[0].to(dev, bf), kv[1].to(dev, bf),
+                       torch.tensor(300, dtype=torch.int32, device=dev), h,
+                       bf, ("card", i))
+        xs, qs, ss = x.to(dev, bf), w.q.to(dev), w.s.to(dev, bf)
+        got = cuda_int4_mm.int4_matmul(xs, qs, ss)
+        ref = cuda_int4_mm.plain_int4_matmul(xs, qs, ss)
+        torch.cuda.synchronize(dev)
+        torch.testing.assert_close(got.float(), ref.float(), **K4_TOL[bf])
+        log(f"[cards] cuda:{i} {torch.cuda.get_device_name(i)}: K1 ok (max "
+            f"|err| {k1:.3g}), K4 wfc M=80 ok (max |err| "
+            f"{(got.float() - ref.float()).abs().max().item():.3g})")
 
 
 def _time_k1(q, k, v, p, pos, H, D, dtype) -> dict:
@@ -1400,15 +1487,19 @@ def phase_k4() -> dict:
             for m in K4_M:
                 x = torch.randn(m, cin, generator=gen).to(dev, dtype)
                 got = cuda_int4_mm.int4_matmul(x, q, s)
+                again = cuda_int4_mm.int4_matmul(x, q, s)
                 ref = cuda_int4_mm.plain_int4_matmul(x, q, s)
                 torch.cuda.synchronize()
                 assert got.shape == (m, cout) and got.dtype == dtype
+                assert torch.equal(got, again), ("K4 not deterministic",
+                                                 name, dtype, m)
                 torch.testing.assert_close(got.float(), ref.float(),
                                            **K4_TOL[dtype])
                 err = max(err, (got.float() - ref.float()).abs().max().item())
             max_err = max(max_err, err)
             log(f"[k4] {str(dtype):15s} {name:5s} {cin}->{cout} ({groups} "
-                f"groups) ok at M {K4_M}, max |err| {err:.3g}")
+                f"groups) ok at M {K4_M}, bitwise repeatable, max |err| "
+                f"{err:.3g}")
         for m in K4_M:
             timings[(name, m)] = _time_k4(w, m, gen)
     return {"max_abs_err": max_err, "timings": timings}
@@ -1598,7 +1689,10 @@ def phase_quant(engines, weights, device="cuda") -> dict:
             f"EOA off: {same} (K4 launches {launches} = "
             f"{per_step if mode == 'w4' else 0} x {steps} steps); bf16 "
             f"32-token block {out['block_ms'][mode]:.1f} ms (dense "
-            f"{out['block_ms']['dense']:.1f} ms, host clock, median of 8)")
+            f"{out['block_ms']['dense']:.1f} ms, host clock, median of 8)"
+            + (f", as a CUDA graph {out['graph_ms'][mode]:.2f} ms (dense "
+               f"{out['graph_ms']['dense']:.2f} ms, device time)"
+               if on_card else ""))
 
     # w4 speculation at B=16, k=4: every verify linear is K4 at M=80
     w4 = _quantized(with_draft_heads(weights), "w4")
@@ -1690,16 +1784,53 @@ def phase_quant(engines, weights, device="cuda") -> dict:
     return out
 
 
+def block_graphs(argv) -> int:
+    """``--block-graphs [--root DIR]``: only the B=1 bf16 32-token block as
+    a CUDA graph, dense and w4, with ``llmvox_tpu_torch`` imported from DIR
+    (another checkout, e.g. the parent commit) when given, so two versions
+    are timed by one script on one card, one process each.  A measurement
+    aid for comparing two checkouts: no check of the smoke run uses it, and
+    phase 12 prints the same graph block times of this checkout."""
+    if "--root" in argv:
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
+    from llmvox_tpu_torch.ops import build
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
+    import llmvox_tpu_torch
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[block-graphs] package {os.path.dirname(llmvox_tpu_torch.__file__)}"
+        f" on {card}")
+    build.build_all()
+    dcfg, ccfg = DecoderConfig(), CodecConfig()
+    weights = (P.init_decoder_params(0, dcfg), P.init_codec_params(1, ccfg),
+               P.random_text_table(2, dcfg), dcfg, ccfg,
+               smoke_serve_config())
+    out = {mode: [phase_block_graph(w) for _ in range(3)]
+           for mode, w in (("dense", weights),
+                           ("w4", _quantized(weights, "w4")))}
+    log(json.dumps({"block_graph_ms": out, "card": card}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--block-graphs" in argv:
+        return block_graphs(argv)
     kernels_only = "--kernels" in argv
     card = phase_card_and_build()
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
     k4 = phase_k4()
+    phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
     if not kernels_only:
         engines, weights = phase_offline()
@@ -1717,7 +1848,11 @@ def main(argv) -> int:
              "replaces": "llmvox_tpu/ops/pallas_attn.py:693",
              "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_decode_attention",
              "launches": launches, "max_abs_err": k1["max_abs_err"],
-             "pos": 8191, "dtype": "bfloat16", **deep}
+             "pos": 8191, "dtype": "bfloat16", **deep,
+             "other": {f"pos {pos}": {key: t[key] for key in
+                                      ("ms", "bound_ms", "plain_ms",
+                                       "library_ms")}
+                       for pos, t in k1["timings"].items() if pos != 8191}}
     k2_deep = k2["timings"]["uniform 8191"]
     entry2 = {"name": "K2 batched_decode_attention", "route": "cuda",
               "source": "llmvox_tpu_torch/csrc/batched_decode_attention.cu",

@@ -9,38 +9,74 @@
 // Bound on an H100 SXM: the work is a memory-bound read of the filled cache
 // rows, bytes = 2 * (pos+1) * C * sizeof(T) (q and the output add 2*C*sizeof(T)).
 // At pos = 8191, C = 768 in bf16 that is ~25 MB, ~7.5 us at 3.35 TB/s.  The
-// arithmetic is 4 * (pos+1) * C flops, far below the card's rate.  At
-// shallow positions the bytes are few and launch latency, not the bytes,
+// arithmetic is 4 * (pos+1) * C flops, far below the card's rate; with one
+// query it is a matrix-vector product, so tensor cores have nothing to do.
+// At served depths (a few hundred rows, under 1 MB) latency, not the bytes,
 // sets the time.
 //
-// Design.  A single token with 8 heads cannot fill 132 SMs, so the cache
-// rows are split (flash-decoding):
-//   pass 1, grid (n_head, ceil(S / kSplit)): each block takes kSplit rows of
-//     one head.  It reads `pos` from device memory, so the launch never needs
-//     a host value and the grid is sized by S; a block whose first row lies
-//     past `pos` writes an empty partial (m = -inf, l = 0) and exits.  The
-//     other blocks compute each row's score with a warp-wide dot product
-//     (q kept in registers, one lane per 32nd element, so head_dim need not
-//     be a power of two), keep the scores in shared memory, take the block
-//     max, and accumulate l = sum exp(s - m) and acc = sum exp(s - m) * v in
-//     f32 per warp, then across warps.  The partial (m, l, acc[D]) goes to
-//     scratch memory that the caller allocates.
-//   pass 2, grid (n_head): combines the filled splits,
-//     M = max m_i, l = sum l_i e^(m_i - M), out = sum acc_i e^(m_i - M) / l,
-//     and casts to the output type.
-// The kernels allocate nothing and do not synchronise; they run on the
-// caller's stream.  Faster versions (16-byte loads, cp.async/TMA staging,
-// fewer splits at low pos, one fused pass) are later work.
+// Design: one launch, grid (n_head, NB), the NB blocks of a head forming one
+// thread-block cluster.  NB = kCluster = 8, the portable cluster size (16
+// needs the non-portable attribute and measured slower at served depths,
+// PERF.md).
+//   - Rows split by the device's pos.  Every block reads `pos` from device
+//     memory and takes an equal share of rows 0..pos, rounded up to 8-row
+//     tiles, so at pos 100 seven of eight blocks take up to 16 rows and at
+//     pos 8191 each takes 1024.  The grid depends on n_head alone, so the
+//     launch is capturable in a CUDA graph.  A block with no rows contributes
+//     the empty partial (m = -inf, l = 0).  While the rows fit one tile a
+//     warp (pos < 64) rank 0 takes them all, the other blocks exit, and rank
+//     0 writes the output with no exchange: measured faster there.
+//   - One pass over the rows.  Each warp owns 8 rows of every block tile
+//     (8 * warps rows) and fills its own 4-stage ring in shared memory with
+//     16-byte cp.async copies, the K and V rows of a tile together (the copies
+//     of a tile are dealt to the lanes once, all lanes busy), so three tiles
+//     are in flight while one is computed and a warp needs only __syncwarp,
+//     never a block barrier, in the loop.
+//   - Four lanes per row: each reads its 16-byte slices of the K row from
+//     shared memory against q held in registers (pre-scaled by
+//     log2(e)/sqrt(D)), two shuffles finish the score, and the same lanes
+//     accumulate p * V over the same slices.  Online softmax (base 2) in f32
+//     with the warp's running max (three shuffles a tile), so the rescale of
+//     l and acc is warp-uniform and skipped while the max holds.  The warp's
+//     eight row slots are summed by a fixed butterfly at the end.
+//   - Combine: the warps of a block merge their partials in warp order
+//     through shared memory.  Each block pushes its partial (m, l, acc[D])
+//     into slot `rank` of rank 0's shared memory (map_shared_rank), with one
+//     split cluster barrier: arrive at the start, wait before the first push
+//     (every block has started), arrive with release after the pushes and
+//     wait with acquire.  Rank 0 then merges the slots in rank order
+//     (deterministic run to run; an empty partial weighs 0 without forming
+//     exp(-inf - -inf)) and writes the output.  No global scratch.
+// Tensor cores are not used: one query is a matrix-vector product.  Caches
+// whose rows are not 16-byte aligned (head_dim * sizeof(T) not a multiple of
+// 16) are staged by plain loads instead of cp.async.  Wide heads take fewer
+// warps a block (n_warps_for: the ring must fit), which moves the rank-0-
+// alone threshold to 8 rows a warp.  The kernel allocates nothing and does
+// not synchronise; it runs on the caller's stream.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSplit = 256;        // cache rows per pass-1 block
-constexpr int kWarps = 8;          // warps per pass-1 block
-constexpr int kMaxDPerLane = 8;    // head_dim <= 256
-constexpr int kMaxD = 32 * kMaxDPerLane;
+constexpr int kRows = 8;            // rows per warp per tile (a quad each)
+constexpr int kStages = 4;          // per-warp ring depth
+constexpr int kWarps = 8;
+constexpr int kMaxD = 256;
+constexpr int kCluster = 8;         // blocks per head, one cluster
+constexpr int kSmemBudget = 200 * 1024;   // for the ring
+constexpr int kSmemMax = 227 * 1024;      // the ring and the partials
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T> struct Vec;
+template <> struct Vec<float> { static constexpr int n = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int n = 8; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -51,181 +87,415 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// one 16-byte vector of shared memory as floats
+__device__ __forceinline__ void load16(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
 }
-
-__device__ __forceinline__ float warp_max(float x) {
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Scratch layout, n = n_head * n_split: m[n], l[n], acc[n * D].
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ pos_ptr,
-             float* __restrict__ scratch, int S, int C, int D, int n_split,
-             float scale) {
-  const int h = blockIdx.x;
-  const int split = blockIdx.y;
-  const int n = gridDim.x * n_split;
-  const int idx = h * n_split + split;
-  float* m_out = scratch;
-  float* l_out = scratch + n;
-  float* acc_out = scratch + 2 * n;
-
-  const int pos = *pos_ptr;
-  const int row0 = split * kSplit;
-  if (row0 > pos) {
-    if (threadIdx.x == 0) {
-      m_out[idx] = -INFINITY;
-      l_out[idx] = 0.f;
-    }
-    return;
+  for (int i = 0; i < 4; ++i) {        // a bf16 is the top half of an f32
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  const int nrows = min(min(kSplit, pos + 1 - row0), S - row0);
+}
+
+// split cluster barrier: arrive (relaxed or release), then wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// q . k over one 16-byte vector of k in shared memory
+template <typename T>
+__device__ __forceinline__ float dot16(const float* q, const T* k) {
+  constexpr int VEC = Vec<T>::n;
+  float f[VEC];
+  load16(k, f);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) s += q[e] * f[e];
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// NVL: 16-byte vectors of a head row per lane (4 lanes a row), at most.
+template <typename T, int NVL>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ pos_ptr,
+              T* __restrict__ out, int S, int C, int D, float qscale,
+              int vec_ok) {
+  constexpr int VEC = Vec<T>::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = blockIdx.x;
+  const int rank = (int)cluster.block_rank();
+  constexpr int nb = kCluster;
+  const int n_warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int NVP = (D + VEC - 1) / VEC;       // vectors per row, padded
+  const int DP = NVP * VEC;                  // padded row in shared memory
 
-  __shared__ float s_score[kSplit];
-  __shared__ float s_l[kWarps];
-  __shared__ float s_acc[kWarps][kMaxD];
+  const int n = min(*pos_ptr + 1, S);
+  // up to one tile a warp, rank 0 takes every row with no exchange (the
+  // exchange costs more than it saves there); beyond, equal 8-row shares
+  const bool alone = n <= kRows * n_warps;
+  const int chunk =
+      alone ? n : (((n + nb - 1) / nb) + kRows - 1) / kRows * kRows;
+  const int used = alone ? 1 : (n + chunk - 1) / chunk;   // blocks with rows
+  if (alone && rank != 0) return;
+  const int b0 = rank * chunk;
+  const int b1 = min(n, b0 + chunk);
+  const int tile_rows = kRows * n_warps;
+  const int first = b0 + kRows * warp;       // this warp's rows in tile 0
+  const int n_tiles = first < b1 ? (b1 - first + tile_rows - 1) / tile_rows
+                                 : 0;
 
-  float qr[kMaxDPerLane];
+  // the block's partials, pushed to rank 0: nb slots of (m, l, acc[D]),
+  // after the ring (peers write here while this block still computes)
+  float* recv = reinterpret_cast<float*>(
+      smem_raw + (size_t)n_warps * kStages * 2 * kRows * DP * sizeof(T));
+  if (!alone) cluster_arrive_relaxed();    // phase 1: this block has started
+
+  const int j = lane & 3;
+  T* my_ring = ring + (size_t)warp * kStages * 2 * kRows * DP;
+  auto slot_ptr = [&](int slot) { return my_ring + slot * 2 * kRows * DP; };
+
+  // The 16-byte copies of one tile (K and V, kRows rows, NVP vectors each)
+  // are dealt to the lanes once: copy c of this lane moves vector cv[c] of
+  // row cr[c] & 31 of K (cr[c] < 32) or of V; cr = -1 marks no copy.
+  constexpr int kCopies = 2 * kRows * 4 * NVL / 32;
+  int cr[kCopies], cv[kCopies];
+  const float inv_nvp = 1.f / NVP;   // exact quotients: idx < 2^12
 #pragma unroll
-  for (int j = 0; j < kMaxDPerLane; ++j) {
-    const int d = lane + 32 * j;
-    qr[j] = d < D ? to_f32(q[h * D + d]) : 0.f;
+  for (int c = 0; c < kCopies; ++c) {
+    const int idx = lane + 32 * c;
+    const int row = (int)((idx + 0.5f) * inv_nvp);   // idx / NVP
+    cr[c] = row < 2 * kRows ? row % kRows + 32 * (row / kRows) : -1;
+    cv[c] = idx - row * NVP;
   }
 
-  // scores: one row per warp at a time; rows carry no dependency, so the
-  // loads of successive rows overlap
-  for (int i = warp; i < nrows; i += kWarps) {
-    const T* kr = k + (size_t)(row0 + i) * C + h * D;
+  // stage the K and V rows of tile t into ring slot t % kStages
+  auto stage = [&](int t) {
+    if (t < n_tiles) {
+      const int row0 = first + t * tile_rows;
+      const int vt = min(kRows, b1 - row0);
+      T* dst = slot_ptr(t % kStages);
+      const size_t g0 = (size_t)row0 * C + (size_t)h * D;
+      if (vec_ok) {
+#pragma unroll
+        for (int c = 0; c < kCopies; ++c) {
+          const int r = cr[c] & 31, which = cr[c] >> 5;
+          if (cr[c] >= 0 && r < vt)
+            cp_async16(dst + (which * kRows + r) * DP + cv[c] * VEC,
+                       (which ? v : k) + g0 + (size_t)r * C + cv[c] * VEC);
+        }
+      } else {
+        for (int r = 0; r < vt; ++r) {
+          for (int x = lane; x < 2 * DP; x += 32) {
+            const int which = x >= DP;
+            const int d = x - which * DP;
+            dst[(which * kRows + r) * DP + d] =
+                d < D ? (which ? v : k)[g0 + (size_t)r * C + d] : T(0.f);
+          }
+        }
+      }
+    }
+    cp_async_commit();   // an empty group keeps the count uniform
+  };
+
+  // Each quad of lanes owns one row of the warp's 8-row tiles; lane j of
+  // the quad holds vectors j, j+4, ... of the row for both the score and
+  // the V product.  The running max is the warp's, so the rescale of l and
+  // acc is uniform across the warp and skipped when the max holds.
+  const int r_mine = lane >> 2;
+  float m = -INFINITY, l = 0.f;
+  float acc[NVL][VEC];
+#pragma unroll
+  for (int i = 0; i < NVL; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) stage(t);
+
+  // q slice of this lane (vectors j, j+4, ...), scaled into the exp2
+  // domain; loaded after the first tiles' copies are on their way
+  float qr[NVL][VEC];
+#pragma unroll
+  for (int i = 0; i < NVL; ++i) {
+    const int d0 = (j + 4 * i) * VEC;
+    if (vec_ok && d0 < D) {
+      load16(q + h * D + d0, qr[i]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[i][e] *= qscale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qr[i][e] = d0 + e < D ? to_f32(q[h * D + d0 + e]) * qscale : 0.f;
+    }
+  }
+  if (!alone) cluster_wait();  // phase 1 done (while the first tiles land)
+  for (int t = 0; t < n_tiles; ++t) {
+    stage(t + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const T* kr = slot_ptr(t % kStages) + r_mine * DP;
+    const T* vr = kr + kRows * DP;
+    const bool valid = r_mine < min(kRows, b1 - (first + t * tile_rows));
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxDPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) s += qr[j] * to_f32(kr[d]);
+    for (int i = 0; i < NVL; ++i)
+      if (j + 4 * i < NVP) s += dot16(qr[i], kr + (j + 4 * i) * VEC);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (!valid) s = -INFINITY;
+    float mt = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, 4));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+    if (mt > m) {                            // warp-uniform
+      const float alpha = exp2f(m - mt);     // 0 on the first tile
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < NVL; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[i][e] *= alpha;
+      m = mt;
     }
-    s = warp_sum(s);
-    if (lane == 0) s_score[i] = s * scale;
+    if (valid) {
+      const float p = exp2f(s - m);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < NVL; ++i)
+        if (j + 4 * i < NVP) {
+          float f[VEC];
+          load16(vr + (j + 4 * i) * VEC, f);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[i][e] += p * f[e];
+        }
+    }
+    __syncwarp();        // the slot is refilled by the next stage()
   }
+
+  cp_async_wait<0>();
   __syncthreads();
 
-  float m = -INFINITY;
-  for (int i = lane; i < nrows; i += 32) m = fmaxf(m, s_score[i]);
-  m = warp_max(m);
-
-  float acc[kMaxDPerLane];
+  // Merge every row slot of every warp through shared memory (the ring is
+  // free now): slot (w, r) holds m (the warp's), l and acc[D] of quad r of
+  // warp w.  Warps are weighted in warp order, slots summed in slot order.
+  const int ss = D + 3;                          // slot stride, in floats
+  float* stash = reinterpret_cast<float*>(smem_raw);
+  float* wsum = stash + n_warps * kRows * ss;    // per warp: l summed, weight
+  {
+    float* mine = stash + (warp * kRows + r_mine) * ss;
+    if (j == 0) {
+      mine[0] = m;
+      mine[1] = l;
+    }
+    if (n_tiles > 0) {
 #pragma unroll
-  for (int j = 0; j < kMaxDPerLane; ++j) acc[j] = 0.f;
-  float l = 0.f;
-  for (int i = warp; i < nrows; i += kWarps) {
-    const float p = expf(s_score[i] - m);
-    l += p;
-    const T* vr = v + (size_t)(row0 + i) * C + h * D;
+      for (int i = 0; i < NVL; ++i)
 #pragma unroll
-    for (int j = 0; j < kMaxDPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) acc[j] += p * to_f32(vr[d]);
+        for (int e = 0; e < VEC; ++e) {
+          const int d = (j + 4 * i) * VEC + e;
+          if (d < D) mine[2 + d] = acc[i][e];
+        }
     }
   }
-  if (lane == 0) s_l[warp] = l;
-#pragma unroll
-  for (int j = 0; j < kMaxDPerLane; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) s_acc[warp][d] = acc[j];
+  __syncthreads();
+  if (threadIdx.x < n_warps) {
+    float lw = 0.f;
+    for (int r = 0; r < kRows; ++r) lw += stash[(threadIdx.x * kRows + r) * ss + 1];
+    wsum[threadIdx.x] = lw;
   }
   __syncthreads();
+  {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (w < n_warps && wsum[w] > 0.f) M = fmaxf(M, stash[w * kRows * ss]);
+    float wt[kWarps];
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = w < n_warps ? wsum[w] : 0.f;
+      wt[w] = lw > 0.f ? exp2f(stash[w * kRows * ss] - M) : 0.f;
+      L += lw * wt[w];
+    }
+    auto block_acc = [&](int d) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (wt[w] != 0.f) {
+          float aw = 0.f;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            aw += stash[(w * kRows + r) * ss + 2 + d];
+          a += aw * wt[w];
+        }
+      return a;
+    };
+    if (alone) {         // the block's partial is the answer
+      const float inv = 1.f / L;
+      for (int d = threadIdx.x; d < D; d += blockDim.x)
+        store(out + h * D + d, block_acc(d) * inv);
+      return;
+    }
+    // push this block's partial into rank 0's slot `rank`
+    float* dst = cluster.map_shared_rank(recv + rank * (2 + D), 0);
+    for (int d = threadIdx.x; d < D; d += blockDim.x) dst[2 + d] = block_acc(d);
+    if (threadIdx.x == 0) {
+      dst[0] = M;
+      dst[1] = L;
+    }
+  }
+  cluster_arrive();            // phase 2: the pushes are visible to rank 0
+  cluster_wait();
+  if (rank != 0) return;
 
+  // combine the partials of the blocks with rows in rank order; an empty
+  // one weighs 0
+  float M = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r)
+    if (r < used && recv[r * (2 + D) + 1] > 0.f)
+      M = fmaxf(M, recv[r * (2 + D)]);
+  float wr[kCluster];
+  float L = 0.f;
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r) {
+    const float lr = r < used ? recv[r * (2 + D) + 1] : 0.f;
+    wr[r] = lr > 0.f ? exp2f(recv[r * (2 + D)] - M) : 0.f;
+    L += lr * wr[r];
+  }
+  const float inv = 1.f / L;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += s_acc[w][d];
-    acc_out[(size_t)idx * D + d] = a;
-  }
-  if (threadIdx.x == 0) {
-    float lt = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) lt += s_l[w];
-    m_out[idx] = m;
-    l_out[idx] = lt;
+    for (int r = 0; r < kCluster; ++r)
+      if (wr[r] != 0.f) a += recv[r * (2 + D) + 2 + d] * wr[r];
+    store(out + h * D + d, a * inv);
   }
 }
 
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ scratch,
-                               const int* __restrict__ pos_ptr,
-                               T* __restrict__ out, int D, int n_split) {
-  const int h = blockIdx.x;
-  const int n = gridDim.x * n_split;
-  const float* m_in = scratch + h * n_split;
-  const float* l_in = scratch + n + h * n_split;
-  const float* acc_in = scratch + 2 * n + (size_t)h * n_split * D;
-
-  const int pos = *pos_ptr;
-  const int filled = min(pos / kSplit + 1, n_split);
-  float mx = -INFINITY;
-  for (int i = 0; i < filled; ++i) mx = fmaxf(mx, m_in[i]);
-  float l = 0.f;
-  for (int i = 0; i < filled; ++i) l += l_in[i] * expf(m_in[i] - mx);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int i = 0; i < filled; ++i)
-      a += acc_in[(size_t)i * D + d] * expf(m_in[i] - mx);
-    store(out + h * D + d, a / l);
-  }
+int n_warps_for(int D, int es) {
+  const int dp_bytes = ((D * es + 15) / 16) * 16;
+  const int fit = kSmemBudget / (kStages * 2 * kRows * dp_bytes);
+  return fit < kWarps ? fit : kWarps;
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* pos,
-            void* out, float* scratch, int S, int C, int n_head,
-            cudaStream_t stream) {
+// A function attribute applies on the current device only, so the raised
+// shared-memory limit is set once on each device that launches the
+// instantiation (`done` holds one bit a device).
+template <typename F>
+cudaError_t raise_smem_limit(F kern, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemMax);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename T, int NVL>
+int launch_nvl(const void* q, const void* k, const void* v, const int* pos,
+               void* out, int S, int C, int n_head, cudaStream_t stream) {
+  auto kern = decode_kernel<T, NVL>;
+  static std::atomic<unsigned long long> configured{0};
+  const cudaError_t set = raise_smem_limit(kern, configured);
+  if (set != cudaSuccess) return (int)set;
   const int D = C / n_head;
-  const int n_split = (S + kSplit - 1) / kSplit;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  split_kernel<T><<<dim3(n_head, n_split), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, scratch, S, C, D, n_split, scale);
-  combine_kernel<T><<<n_head, 128, 0, stream>>>(scratch, pos,
-                                                static_cast<T*>(out), D,
-                                                n_split);
+  const int es = (int)sizeof(T);
+  const int warps = n_warps_for(D, es);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int dp = ((D * es + 15) / 16) * 16 / es;
+  // the ring (at the end it holds the row slots' partials, 8 * warps slots
+  // of D + 3 floats, which the ring's 64 * D * sizeof(T) bytes a warp
+  // exceed), then rank 0's receive slots
+  const size_t smem = (size_t)warps * kStages * 2 * kRows * dp * es +
+                      (size_t)kCluster * (2 + D) * sizeof(float);
+  const int vec_ok =
+      (D * es) % 16 == 0 && (C * es) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(v) % 16 == 0;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_head, kCluster);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = kCluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float qscale = (float)(kLog2e / sqrt((double)D));
+  return (int)cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, static_cast<T*>(out), S, C, D, qscale,
+      vec_ok);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* pos,
+           void* out, int S, int C, int n_head, cudaStream_t stream) {
+  const int vec = Vec<T>::n;
+  const int D = C / n_head;
+  const int nvl = ((D + vec - 1) / vec + 3) / 4;
+  if (nvl <= 3)
+    return launch_nvl<T, 3>(q, k, v, pos, out, S, C, n_head, stream);
+  if (nvl <= 8)
+    return launch_nvl<T, 8>(q, k, v, pos, out, S, C, n_head, stream);
+  return launch_nvl<T, 16>(q, k, v, pos, out, S, C, n_head, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch memory the caller must pass.
-int llmvox_decode_attention_scratch_floats(int S, int C, int n_head) {
-  const int n_split = (S + kSplit - 1) / kSplit;
-  return n_head * n_split * (2 + C / n_head);
-}
-
 // q (C,), k and v (S, C) row-major, out (C,), all of one type
 // (dtype: 0 = float32, 1 = bfloat16); pos is an int32 in device memory.
-// Returns a cudaError_t: 0 when both launches were accepted.
+// Returns a cudaError_t: 0 when the launch was accepted.
 int llmvox_decode_attention(const void* q, const void* k, const void* v,
-                            const void* pos, void* out, void* scratch, int S,
-                            int C, int n_head, int dtype, void* stream) {
+                            const void* pos, void* out, int S, int C,
+                            int n_head, int dtype, void* stream) {
   if (n_head <= 0 || C % n_head != 0 || C / n_head > kMaxD || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
-  float* sc = static_cast<float*>(scratch);
-  if (dtype == 0)
-    launch<float>(q, k, v, p, out, sc, S, C, n_head, st);
-  else if (dtype == 1)
-    launch<__nv_bfloat16>(q, k, v, p, out, sc, S, C, n_head, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch<float>(q, k, v, p, out, S, C, n_head, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, p, out, S, C, n_head, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

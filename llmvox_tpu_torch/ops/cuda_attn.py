@@ -10,6 +10,8 @@ Unlike the JAX kernel it takes one layer's ``(S, C)`` cache views and no
 ``layer`` scalar: the port's layer loop is Python, so ``k_cache[l]`` is a
 free view.  ``pos`` stays on the device (an int32 0-d tensor) and the
 launch reads no host value, so a decode block issues without a sync.
+The kernel is one clustered launch of ``CLUSTER`` blocks per head and
+needs no scratch memory.
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ from llmvox_tpu_torch.ops import attention, build
 LAUNCHES = 0
 _count_lock = threading.Lock()
 
+# Blocks per head, one thread-block cluster: ``kCluster`` in the kernel's
+# source, 8, the portable cluster size (16 measured slower at served
+# depths, PERF.md).
+CLUSTER = 8
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -34,13 +41,10 @@ def _entry():
     if _fn is None:
         lib = build.load("decode_attention")
         fn = lib.llmvox_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        sz = lib.llmvox_decode_attention_scratch_floats
-        sz.argtypes = [ctypes.c_int] * 3
-        sz.restype = ctypes.c_int
-        _fn = (fn, sz)
+        _fn = fn
     return _fn
 
 
@@ -77,16 +81,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check(q, k_cache, v_cache, pos, n_head)
-    fn, scratch_floats = _entry()
+    fn = _entry()
     s, c = k_cache.shape
     out = torch.empty_like(q)
-    scratch = torch.empty(scratch_floats(s, c, n_head), dtype=torch.float32,
-                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), s, c,
-                 n_head, _DTYPES[q.dtype], stream)
+                 pos.data_ptr(), out.data_ptr(), s, c, n_head,
+                 _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")

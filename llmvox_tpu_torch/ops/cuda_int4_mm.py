@@ -38,13 +38,10 @@ def _entry():
     if _fn is None:
         lib = build.load("int4_matmul")
         fn = lib.llmvox_int4_matmul
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        sz = lib.llmvox_int4_matmul_scratch_floats
-        sz.argtypes = [ctypes.c_int] * 3
-        sz.restype = ctypes.c_longlong
-        _fn = (fn, sz)
+        _fn = fn
     return _fn
 
 
@@ -102,19 +99,17 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor,
     _check(x, q, s)
     if x.device.type == "cpu":
         return plain_int4_matmul(x, q, s)
-    fn, scratch_floats = _entry()
+    fn = _entry()
     lead, cin = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, cin).contiguous()
     m = xf.shape[0]
     p, cout = q.shape
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(scratch_floats(m, p, cout), dtype=torch.float32,
-                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xf.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), m, p, cout, s.shape[0], _DTYPES[x.dtype],
-                 _DTYPES[s.dtype], stream)
+                 m, p, cout, s.shape[0], _DTYPES[x.dtype], _DTYPES[s.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: cudaError "
                            f"{err}")
