@@ -17,324 +17,523 @@
 // nq - 1, S - 1) of K and V once, plus q and the output:
 //   bytes = sum_b 2 * min(pos_b + nq, S) * C * sizeof(T) + 2 * B * nq * C *
 //   sizeof(T), over 3.35 TB/s.
-// At B = 16, full depth, C = 768 in bf16 that is ~403 MB, ~120 us, which
-// is K2's bound: the draft window adds no bytes.  The arithmetic,
-// 4 * nq * sum_b rows_b * C flops (~2.0 GFLOP at nq = 5, ~5.2 at nq = 13),
-// stays below what the CUDA cores do in f32 over the same 120 us, so the
-// kernel is memory-bound without tensor cores.
+// At B = 16, full depth, C = 768 in bf16 that is ~403 MB, ~120 us, K2's
+// bound: the draft window adds no bytes.  The arithmetic, 4 * C flops per
+// (query, attended row), is ~2.0 GFLOP at nq = 5 and ~5.2 at nq = 13: more
+// than half of what the CUDA cores do in f32 in those 120 us at nq = 13,
+// so in bf16 both products run on the tensor cores.
 //
-// Design: K2's split over S, with the draft window's queries sharing every
-// row that is read, and the two products of a split done as small GEMMs.
-//   pass 1, grid (n_head, ceil(S / kSplit), B), one thread per cache row
-//     of the split: each block takes kSplit rows of one head of one
-//     stream.  It reads its own pos[b] from device memory, so the launch
-//     needs no host value and the grid is sized by S and B; a block whose
-//     first row lies past its stream's last row min(pos[b] + nq - 1, S - 1)
-//     exits at once.  The nq query slices of the head sit in shared memory
-//     (zero rows up to MAXQ, 8 or 16).  Scores: each thread reads its K row
-//     ONCE, in 16-byte loads, and takes all MAXQ
-//     dot products from it, with no cross-lane reduction; the masked scores
-//     (row <= pos[b] + j) go to shared memory.  Per query: the block max,
-//     the probabilities in place, their sum.  Values: V is staged through
-//     shared memory kTile rows at a time (each row read once, 16-byte
-//     loads), and each thread owns one column d of a set of queries, so
-//     the accumulators need no reduction across threads and the result
-//     does not change from run to run.  The partial (m, l, acc[D]) per
-//     query goes to scratch memory that the caller allocates.
-//   pass 2, grid (n_head, nq, B): combines query j's splits that hold any
-//     of its rows, M = max m_i, l = sum l_i e^(m_i - M),
-//     out = sum acc_i e^(m_i - M) / l, and casts to the output type.
-// The kernels allocate nothing and do not synchronise; they run on the
-// caller's stream.  Faster versions (tensor cores for nq >= 8 with nq
-// padded to 8 or 16, cp.async/TMA staging, one fused pass) are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design: one launch, grid (n_head, kCluster, B); the kCluster = 8 blocks
+// of one (head, stream) form a thread-block cluster (attn_cluster.cuh), so
+// the grid depends on (n_head, B) alone and the launch is capturable in a
+// CUDA graph.
+//   - Rows split by the device's pos[b]: every block takes an equal share,
+//     in 16-row tiles, of rows 0..min(pos[b] + nq - 1, S - 1); while they
+//     fit one tile a warp, rank 0 takes them all, the others exit and rank
+//     0 writes the output with no exchange.
+//   - Each warp owns 16 rows of every block tile and streams its K and V
+//     rows through its own ring of 16-byte cp.async copies (rows past the
+//     share are zero-filled), so a warp needs only __syncwarp in the loop.
+//     Two stages (one tile landing while one is computed): 53 KB of ring
+//     fit three blocks an SM against four stages' two, so more of the 128
+//     clusters of B = 16 run at once; measured faster at every shape, by
+//     a third at served depths (PERF.md).
+//   - bf16: the queries sit in the M dimension of mma.sync m16n8k16 (nq up
+//     to 16 is one tile; rows j >= nq are zero and never written).  Their A
+//     fragments are loaded once and stay in registers.  Scores: the 16-row
+//     K tile is the B operand of two n8 tiles (ldmatrix, no transpose);
+//     bf16 x bf16 products are exact in f32, only the order of the sum
+//     differs from the plain version.  The online softmax runs per query in
+//     f32 (base 2), with the mask row <= pos[b] + j.  Value sum: the score
+//     accumulators of the two n8 tiles are exactly the A fragment of P for
+//     the k16 step over the tile's rows (no shuffle); P is split into
+//     hi = bf16(P) and lo = bf16(P - hi) and both go through an mma against
+//     V (ldmatrix.trans), so P is carried to ~2^-17 and no product is
+//     rounded to bf16 (P rounded to bf16 alone would break the tolerance).
+//   - f32: the same fragment ownership on the CUDA cores (TF32 is off in
+//     the port): each lane forms its eight scores from the queries in
+//     shared memory and the K tile, and its value sums from the quad's
+//     probabilities (shuffles) and the V tile.
+//   - Each block merges its warps in warp order, then pushes its partial
+//     (m, l, acc[D]) of query j into cluster rank j % 8, under one split
+//     cluster barrier; rank r merges the partials of its queries in rank
+//     order (deterministic run to run; an empty partial weighs 0) and
+//     writes them.  No global scratch.
+// The kernel allocates nothing and does not synchronise; it runs on the
+// caller's stream.
+#include <cooperative_groups.h>
+
+#include "attn_cluster.cuh"
+
+namespace cg = cooperative_groups;
+using namespace llmvox_attn;
 
 namespace {
 
-constexpr int kSplit = 256;        // cache rows per pass-1 block
-constexpr int kThreads = kSplit;   // one thread per row of the split
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;          // V rows staged in shared memory at once
-constexpr int kMaxQ = 16;          // queries per stream (k_draft + 1)
-constexpr int kMaxD = 128;         // head_dim
+constexpr int kTile = 16;           // rows per warp per tile
+constexpr int kStages = 2;          // per-warp ring depth (PERF.md)
+constexpr int kWarps = 4;
+constexpr int kMaxQ = 16;           // queries per stream (k_draft + 1)
+constexpr int kMaxD = 128;          // head_dim
+constexpr int kSmemBudget = 200 * 1024;   // the ring (and f32 queries)
+constexpr int kSmemMax = 227 * 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
 }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
 }
 
-// W consecutive elements (16 bytes) as floats; p is 16-byte aligned.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<float> {
-  static constexpr int W = 4;
-  __device__ static void load(const float* p, float* o) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int W = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// Scratch layout, n = B * n_head * n_split * nq partials indexed
-// ((b * n_head + h) * n_split + split) * nq + j: m[n], l[n], acc[n * D].
-// MAXQ >= nq.  Rows are read in 16-byte chunks: D * sizeof(T) and
-// C * sizeof(T) are multiples of 16 and k and v are 16-byte aligned (the
-// entry point refuses anything else).
-template <typename T, int MAXQ>
-__global__ void __launch_bounds__(kThreads)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ pos,
-             float* __restrict__ scratch, int S, int C, int D, int nq,
-             int n_split, float scale) {
+// Row stride in shared memory, in elements: bf16 rows are padded to whole
+// k16 steps plus 8 (16 bytes), so the eight rows of an ldmatrix land in
+// distinct banks; f32 rows by 4 (16 bytes) for the same reason.
+__host__ __device__ __forceinline__ int row_stride(int D, int es) {
+  return es == 2 ? (D + 15) / 16 * 16 + 8 : D + 4;
+}
+
+// Fragment ownership, the mma's: lane = 4 g + t holds, for queries g and
+// g + 8, the scores of tile rows 2t, 2t+1 (n8 tile 0) and 8+2t, 9+2t (n8
+// tile 1): s[tile][0..1] for query g, s[tile][2..3] for query g + 8; and
+// the outputs of columns 8 jd + 2t, +1: acc[jd][0..1] for query g,
+// acc[jd][2..3] for query g + 8.
+//
+// DT: the head width when fixed at compile time (the deployed 96), else 0
+// (any width up to kMaxD, read at run time).
+template <typename T, int DT>
+__global__ void __launch_bounds__(kWarps * 32)
+verify_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ pos,
+              T* __restrict__ out, int S, int C, int d_arg, int nq,
+              float qscale) {
+  constexpr bool kBF16 = sizeof(T) == 2;
+  constexpr int VEC = Vec<T>::n;
+  constexpr int kND = DT ? DT / 8 : kMaxD / 8;       // n8 column tiles
+  constexpr int kKS = (kND + 1) / 2;                 // k16 steps over D
+  const int D = DT ? DT : d_arg;
+  const int nd = D / 8;
+  const int ks_n = (D + 15) / 16;
+  const int DP = row_stride(D, (int)sizeof(T));
+  const int NVP = D / VEC;                           // 16-byte vectors a row
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int h = blockIdx.x;
-  const int split = blockIdx.y;
   const int b = blockIdx.z;
-  const int n_head = gridDim.x;
+  const int rank = (int)cluster.block_rank();
+  const int n_warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t tile_elems = (size_t)2 * kTile * DP;  // K and V of a tile
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* my_ring = ring + (size_t)warp * kStages * tile_elems;
+  // f32: the queries, zero rows up to kMaxQ, after the ring
+  float* qs = reinterpret_cast<float*>(
+      smem_raw + (size_t)n_warps * kStages * tile_elems * sizeof(T));
+  // the partials pushed to this rank: kCluster slots of the queries j with
+  // j % kCluster == rank, each (m, l, acc[D])
+  const int q_per_rank = (nq + kCluster - 1) / kCluster;
+  float* recv = qs + (kBF16 ? 0 : kMaxQ * DP);
+  const int slot_floats = q_per_rank * (2 + D);
+
   const int p = pos[b];
-  const int last = min(p + nq - 1, S - 1);
-  const int row0 = split * kSplit;
-  if (row0 > last) return;   // pass 2 reads no split past a query's rows
-  const int nrows = min(kSplit, last + 1 - row0);
-  const size_t n = (size_t)gridDim.z * n_head * n_split * nq;
-  const size_t base = ((size_t)(b * n_head + h) * n_split + split) * nq;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int n = min(p + nq, S);
+  const Share sh = share_rows(n, rank, kTile, n_warps);
+  if (sh.alone && rank != 0) return;
+  const int b1 = sh.b1;
+  const int tile_rows = kTile * n_warps;
+  const int first = sh.b0 + kTile * warp;    // this warp's rows in tile 0
+  const int n_tiles = first < b1 ? (b1 - first + tile_rows - 1) / tile_rows
+                                 : 0;
+  if (!sh.alone) cluster_arrive_relaxed();   // phase 1: this block started
 
-  __shared__ float s_q[MAXQ][kMaxD];
-  __shared__ float s_p[MAXQ][kSplit];
-  __shared__ float s_v[kTile][kMaxD];
-  __shared__ float s_m[MAXQ];
-  __shared__ float s_l[MAXQ];
+  const T* kb = k + (size_t)b * S * C + (size_t)h * D;
+  const T* vb = v + (size_t)b * S * C + (size_t)h * D;
+  const T* qb = q + (size_t)b * nq * C + (size_t)h * D;
 
-  const T* qb = q + (size_t)b * nq * C + h * D;
-  for (int e = tid; e < MAXQ * D; e += kThreads) {
-    const int j = e / D, d = e - j * D;
-    s_q[j][d] = j < nq ? to_f32(qb[(size_t)j * C + d]) : 0.f;
+  // bf16 with D not a whole number of k16 steps: the K columns past D are
+  // read by the score mma against zero queries, so they must be finite
+  if (kBF16 && DT == 0 && D % 16) {
+    for (int x = lane; x < kStages * 2 * kTile; x += 32)
+      for (int d = D; d < ks_n * 16; ++d) my_ring[x * DP + d] = T(0.f);
+    __syncwarp();
   }
-  __syncthreads();
 
-  // scores: each K row is read once, by one thread, for all queries
-  const T* kb = k + (size_t)b * S * C + h * D;
-  if (tid < nrows) {
-    const int r = row0 + tid;
-    const T* kr = kb + (size_t)r * C;
-    float s[MAXQ];
-#pragma unroll
-    for (int j = 0; j < MAXQ; ++j) s[j] = 0.f;
-    constexpr int W = Chunk<T>::W;
-    for (int d0 = 0; d0 < D; d0 += W) {
-      float kf[W];
-      Chunk<T>::load(kr + d0, kf);
-#pragma unroll
-      for (int j = 0; j < MAXQ; ++j)
-#pragma unroll
-        for (int e = 0; e < W; ++e) s[j] += s_q[j][d0 + e] * kf[e];
+  // stage the K and V rows of tile t into ring slot t % kStages; rows past
+  // the block's share are zero-filled (P is 0 there, and 0 * V must be 0)
+  auto stage = [&](int t) {
+    if (t < n_tiles) {
+      const int row0 = first + t * tile_rows;
+      const int vt = min(kTile, b1 - row0);
+      T* dst = my_ring + (size_t)(t % kStages) * tile_elems;
+      for (int c = lane; c < 2 * kTile * NVP; c += 32) {
+        const int r = c / NVP, x = c - r * NVP;      // r: K rows, then V
+        const int rr = r & (kTile - 1);
+        const T* src = (r < kTile ? kb : vb) + (size_t)(row0 + rr) * C +
+                       x * VEC;
+        cp_async16(dst + r * DP + x * VEC, rr < vt ? src : kb, rr < vt);
+      }
     }
+    cp_async_commit();   // an empty group keeps the count uniform
+  };
 #pragma unroll
-    for (int j = 0; j < MAXQ; ++j)
-      if (j < nq) s_p[j][tid] = r <= p + j ? s[j] * scale : -INFINITY;
-  }
-  __syncthreads();
+  for (int t = 0; t < kStages - 1; ++t) stage(t);
 
-  for (int j = warp; j < nq; j += kWarps) {
-    float m = -INFINITY;
-    for (int i = lane; i < nrows; i += 32) m = fmaxf(m, s_p[j][i]);
-    m = warp_max(m);
-    if (lane == 0) s_m[j] = m;
-  }
-  __syncthreads();
-  // probabilities in place; a query with no row in this split has m = -inf
-  for (int e = tid; e < nq * nrows; e += kThreads) {
-    const int j = e / nrows, i = e - j * nrows;
-    const float m = s_m[j];
-    s_p[j][i] = m == -INFINITY ? 0.f : expf(s_p[j][i] - m);
-  }
-  __syncthreads();
-  for (int j = warp; j < nq; j += kWarps) {
-    float l = 0.f;
-    for (int i = lane; i < nrows; i += 32) l += s_p[j][i];
-    l = warp_sum(l);
-    if (lane == 0) s_l[j] = l;
-  }
-
-  // values: thread (g, d) owns column d of queries g, g + groups, ...
-  const int groups = kThreads / D;   // >= 2: D <= kMaxD = kThreads / 2
-  const int g = tid / D, d = tid - g * D;
-  constexpr int kPer = MAXQ / 2;
-  float acc[kPer];
+  // the queries: bf16 A fragments in registers for the whole kernel; f32
+  // rows in shared memory
+  unsigned qa[kKS][4];
+  if constexpr (kBF16) {
 #pragma unroll
-  for (int t = 0; t < kPer; ++t) acc[t] = 0.f;
-  const T* vb = v + (size_t)b * S * C + h * D;
-  for (int t0 = 0; t0 < nrows; t0 += kTile) {
-    const int tn = min(kTile, nrows - t0);
-    constexpr int W = Chunk<T>::W;
-    const int per_row = D / W;
-    for (int e = tid; e < tn * per_row; e += kThreads) {
-      const int i = e / per_row, c = (e - i * per_row) * W;
-      float vf[W];
-      Chunk<T>::load(vb + (size_t)(row0 + t0 + i) * C + c, vf);
+    for (int ks = 0; ks < kKS; ++ks)
 #pragma unroll
-      for (int w = 0; w < W; ++w) s_v[i][c + w] = vf[w];
+      for (int e = 0; e < 4; ++e) {
+        const int j = g + 8 * (e & 1);
+        const int d = 16 * ks + 8 * (e >> 1) + 2 * t4;
+        qa[ks][e] = j < nq && d < D
+            ? *reinterpret_cast<const unsigned*>(qb + (size_t)j * C + d)
+            : 0u;
+      }
+  } else {
+    for (int x = threadIdx.x; x < kMaxQ * D; x += blockDim.x) {
+      const int j = x / D, d = x - j * D;
+      qs[j * DP + d] = j < nq ? to_f32(qb[(size_t)j * C + d]) : 0.f;
     }
     __syncthreads();
-    if (g < groups) {
-      for (int i = 0; i < tn; ++i) {
-        const float vv = s_v[i][d];
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kND][4];
 #pragma unroll
-        for (int t = 0; t < kPer; ++t) {
-          const int j = g + t * groups;
-          if (j < nq) acc[t] += s_p[j][t0 + i] * vv;
+  for (int jd = 0; jd < kND; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+
+  if (!sh.alone) cluster_wait();  // phase 1 done (while the first tiles land)
+  for (int t = 0; t < n_tiles; ++t) {
+    stage(t + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const T* kt = my_ring + (size_t)(t % kStages) * tile_elems;
+    const T* vt_ = kt + kTile * DP;
+    const int row0 = first + t * tile_rows;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if constexpr (kBF16) {
+      // lanes 0-7: rows 0-7 at column k0; 8-15: rows 0-7 at k0 + 8;
+      // 16-23: rows 8-15 at k0; 24-31: rows 8-15 at k0 + 8
+      const T* kl = kt + ((lane & 7) + 8 * (lane >> 4)) * DP +
+                    8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        if (DT == 0 && ks >= ks_n) break;
+        unsigned kf[4];
+        ldsm_x4(kf, kl + 16 * ks);
+        mma_bf16(s[0], qa[ks], kf[0], kf[1]);
+        mma_bf16(s[1], qa[ks], kf[2], kf[3]);
+      }
+    } else {
+      const float* kf = reinterpret_cast<const float*>(kt);
+      const float* q0 = qs + g * DP;
+      const float* q1 = qs + (g + 8) * DP;
+      for (int d = 0; d < D; d += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(q0 + d);
+        const float4 a1 = *reinterpret_cast<const float4*>(q1 + d);
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 kr = *reinterpret_cast<const float4*>(
+                kf + (8 * tt + 2 * t4 + e) * DP + d);
+            s[tt][e] += a0.x * kr.x + a0.y * kr.y + a0.z * kr.z + a0.w * kr.w;
+            s[tt][2 + e] +=
+                a1.x * kr.x + a1.y * kr.y + a1.z * kr.z + a1.w * kr.w;
+          }
+      }
+    }
+
+    // mask (row r attends query j iff r <= pos + j and r lies in the
+    // block's share), scale into the exp2 domain, online softmax per query
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      const int j = g + 8 * hq;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = row0 + 8 * tt + 2 * t4 + e;
+          float& x = s[tt][2 * hq + e];
+          x = (r < b1 && r <= p + j) ? x * qscale : -INFINITY;
+          mt = fmaxf(mt, x);
+        }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      if (mt > m[hq]) {                       // uniform over the quad
+        const float alpha = exp2f(m[hq] - mt);  // 0 on the first rows
+        l[hq] *= alpha;
+#pragma unroll
+        for (int jd = 0; jd < kND; ++jd) {
+          acc[jd][2 * hq] *= alpha;
+          acc[jd][2 * hq + 1] *= alpha;
+        }
+        m[hq] = mt;
+      }
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[tt][2 * hq + e];
+          x = x == -INFINITY ? 0.f : exp2f(x - m[hq]);
+          l[hq] += x;
+        }
+    }
+
+    // acc += P V over the tile's 16 rows
+    if constexpr (kBF16) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = s[e >> 1][2 * (e & 1)];
+        const float x1 = s[e >> 1][2 * (e & 1) + 1];
+        ph[e] = pack_bf16(x0, x1);
+        pl[e] = pack_bf16(x0 - bf16_lo(ph[e]), x1 - bf16_hi(ph[e]));
+      }
+      // lanes 0-15: rows 0-15 at column 8 jd; 16-31: rows 0-15 at
+      // 8 (jd + 1)
+      const T* vl = vt_ + (lane & 15) * DP + 8 * (lane >> 4);
+#pragma unroll
+      for (int jd = 0; jd < kND; jd += 2) {
+        if (DT == 0 && jd >= nd) break;
+        if (jd + 1 < kND && (DT != 0 || jd + 1 < nd)) {
+          unsigned vf[4];
+          ldsm_x4_t(vf, vl + 8 * jd);
+          mma_bf16(acc[jd], ph, vf[0], vf[1]);
+          mma_bf16(acc[jd], pl, vf[0], vf[1]);
+          mma_bf16(acc[jd + 1], ph, vf[2], vf[3]);
+          mma_bf16(acc[jd + 1], pl, vf[2], vf[3]);
+        } else {
+          unsigned vf[2];
+          ldsm_x2_t(vf, vt_ + (lane & 15) * DP + 8 * jd);
+          mma_bf16(acc[jd], ph, vf[0], vf[1]);
+          mma_bf16(acc[jd], pl, vf[0], vf[1]);
+        }
+      }
+    } else {
+      const float* vf = reinterpret_cast<const float*>(vt_);
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) {
+        const int src = 4 * g + ((r & 7) >> 1);
+        const float pa = __shfl_sync(0xffffffffu, s[r >> 3][r & 1], src);
+        const float pb = __shfl_sync(0xffffffffu, s[r >> 3][2 + (r & 1)], src);
+        const float* vr = vf + r * DP + 2 * t4;
+#pragma unroll
+        for (int jd = 0; jd < kND; ++jd) {
+          if (DT == 0 && jd >= nd) break;
+          const float2 x = *reinterpret_cast<const float2*>(vr + 8 * jd);
+          acc[jd][0] += pa * x.x;
+          acc[jd][1] += pa * x.y;
+          acc[jd][2] += pb * x.x;
+          acc[jd][3] += pb * x.y;
         }
       }
     }
-    __syncthreads();
+    __syncwarp();        // the slot is refilled by the next stage()
   }
 
-  if (g < groups) {
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Warp partials through shared memory (the ring is free now): warp w,
+  // query j holds (m, l, acc[D]) at stash[(w * kMaxQ + j) * (D + 2)].
+  const int ps = D + 2;
+  float* stash = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int j = g + t * groups;
-      if (j < nq) scratch[2 * n + (base + j) * D + d] = acc[t];
+  for (int hq = 0; hq < 2; ++hq) {
+    l[hq] += __shfl_xor_sync(0xffffffffu, l[hq], 1);
+    l[hq] += __shfl_xor_sync(0xffffffffu, l[hq], 2);
+    float* mine = stash + (warp * kMaxQ + g + 8 * hq) * ps;
+    if (t4 == 0) {
+      mine[0] = m[hq];
+      mine[1] = l[hq];
+    }
+#pragma unroll
+    for (int jd = 0; jd < kND; ++jd) {
+      if (DT == 0 && jd >= nd) break;
+      mine[2 + 8 * jd + 2 * t4] = acc[jd][2 * hq];
+      mine[3 + 8 * jd + 2 * t4] = acc[jd][2 * hq + 1];
     }
   }
-  if (tid < nq) {
-    scratch[base + tid] = s_m[tid];
-    scratch[n + base + tid] = s_l[tid];
-  }
-}
+  __syncthreads();
 
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ scratch,
-                               const int* __restrict__ pos,
-                               T* __restrict__ out, int S, int C, int D,
-                               int n_split) {
-  const int h = blockIdx.x;
-  const int j = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_head = gridDim.x;
-  const int nq = gridDim.y;
-  const size_t n = (size_t)gridDim.z * n_head * n_split * nq;
-  // split i of (b, h, j) is partial base + i * nq
-  const size_t base = (size_t)(b * n_head + h) * n_split * nq + j;
-  const float* m_in = scratch;
-  const float* l_in = scratch + n;
-  const float* acc_in = scratch + 2 * n;
-
-  // the splits that hold any of rows 0..min(pos[b] + j, S - 1); each of
-  // them has at least one row for query j, so every m_i is finite
-  const int filled = min(min(pos[b] + j, S - 1) / kSplit + 1, n_split);
-  float mx = -INFINITY;
-  for (int i = 0; i < filled; ++i) mx = fmaxf(mx, m_in[base + i * nq]);
-  float l = 0.f;
-  for (int i = 0; i < filled; ++i)
-    l += l_in[base + i * nq] * expf(m_in[base + i * nq] - mx);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  // The block's partial of query j, element c (0: m, 1: l, 2 + d: acc[d]),
+  // its warps merged in warp order.
+  auto block_part = [&](int j, int c) {
+    float M = -INFINITY;
+    for (int w = 0; w < n_warps; ++w) {
+      const float* pw = stash + (w * kMaxQ + j) * ps;
+      if (pw[1] > 0.f) M = fmaxf(M, pw[0]);
+    }
+    if (c == 0) return M;
     float a = 0.f;
-    for (int i = 0; i < filled; ++i) {
-      const size_t idx = base + (size_t)i * nq;
-      a += acc_in[idx * D + d] * expf(m_in[idx] - mx);
+    for (int w = 0; w < n_warps; ++w) {
+      const float* pw = stash + (w * kMaxQ + j) * ps;
+      const float wt = weight(pw[0], pw[1], M);
+      if (wt != 0.f) a += pw[c] * wt;
     }
-    store(out + ((size_t)b * nq + j) * C + h * D + d, a / l);
+    return a;
+  };
+
+  T* ob = out + (size_t)b * nq * C + (size_t)h * D;
+  if (sh.alone) {        // the block's partials are the answer
+    for (int x = threadIdx.x; x < nq * D; x += blockDim.x) {
+      const int j = x / D, d = x - j * D;
+      store(ob + (size_t)j * C + d, block_part(j, 2 + d) / block_part(j, 1));
+    }
+    return;
+  }
+  // push query j's partial into slot `rank` of cluster rank j % kCluster
+  for (int x = threadIdx.x; x < nq * ps; x += blockDim.x) {
+    const int j = x / ps, c = x - j * ps;
+    float* dst = cluster.map_shared_rank(
+        recv + rank * slot_floats + (j / kCluster) * ps + c, j % kCluster);
+    *dst = block_part(j, c);
+  }
+  cluster_arrive();            // phase 2: the pushes are visible
+  cluster_wait();
+
+  // combine this rank's queries over the blocks with rows, in rank order
+  for (int x = threadIdx.x; x < q_per_rank * D; x += blockDim.x) {
+    const int i = x / D, d = x - i * D;
+    const int j = rank + kCluster * i;
+    if (j >= nq) break;
+    const float* slot = recv + i * ps;
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      if (r < sh.used && slot[r * slot_floats + 1] > 0.f)
+        M = fmaxf(M, slot[r * slot_floats]);
+    float L = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      if (r >= sh.used) break;
+      const float* pr = slot + r * slot_floats;
+      const float wr = weight(pr[0], pr[1], M);
+      if (wr != 0.f) {
+        L += pr[1] * wr;
+        a += pr[2 + d] * wr;
+      }
+    }
+    store(ob + (size_t)j * C + d, a / L);
   }
 }
 
-template <typename T, int MAXQ>
-void launch_split(const void* q, const void* k, const void* v, const int* pos,
-                  float* scratch, int B, int S, int C, int n_head, int nq,
-                  int n_split, cudaStream_t stream) {
+int n_warps_for(int D, int es) {
+  const int tile = kStages * 2 * kTile * row_stride(D, es) * es;
+  const int queries = es == 4 ? kMaxQ * row_stride(D, es) * 4 : 0;
+  const int fit = (kSmemBudget - queries) / tile;
+  return fit < kWarps ? fit : kWarps;
+}
+
+template <typename T, int DT>
+int launch_dt(const void* q, const void* k, const void* v, const int* pos,
+              void* out, int B, int S, int C, int n_head, int nq,
+              cudaStream_t stream) {
+  auto kern = verify_kernel<T, DT>;
+  static std::atomic<unsigned long long> configured{0};
+  const cudaError_t set = raise_smem_limit(kern, configured, kSmemMax);
+  if (set != cudaSuccess) return (int)set;
   const int D = C / n_head;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  split_kernel<T, MAXQ><<<dim3(n_head, n_split, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, scratch, S, C, D, nq, n_split, scale);
+  const int es = (int)sizeof(T);
+  const int warps = n_warps_for(D, es);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int dp = row_stride(D, es);
+  const int q_per_rank = (nq + kCluster - 1) / kCluster;
+  // the rings (at the end they hold the warps' partials, warps * kMaxQ *
+  // (D + 2) floats, which a ring's kStages * 32 * DP * sizeof(T) bytes
+  // exceed),
+  // the f32 queries, then the receive slots
+  const size_t smem = (size_t)warps * kStages * 2 * kTile * dp * es +
+                      (es == 4 ? (size_t)kMaxQ * dp * 4 : 0) +
+                      (size_t)kCluster * q_per_rank * (2 + D) * 4;
+  const float qscale = (float)(kLog2e / sqrt((double)D));
+  return (int)launch_clusters(
+      kern, n_head, B, warps * 32, smem, stream, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), pos,
+      static_cast<T*>(out), S, C, D, nq, qscale);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, float* scratch, int B, int S, int C, int n_head, int nq,
+           void* out, int B, int S, int C, int n_head, int nq,
            cudaStream_t stream) {
   const int D = C / n_head;
   if ((D * sizeof(T)) % 16 != 0 || (C * sizeof(T)) % 16 != 0 ||
       ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
-       16) != 0)
+       16) != 0 ||
+      (sizeof(T) == 2 && (reinterpret_cast<uintptr_t>(q) % 4) != 0))
     return (int)cudaErrorInvalidValue;
-  const int n_split = (S + kSplit - 1) / kSplit;
-  if (nq <= 8)
-    launch_split<T, 8>(q, k, v, pos, scratch, B, S, C, n_head, nq, n_split,
-                       stream);
-  else
-    launch_split<T, kMaxQ>(q, k, v, pos, scratch, B, S, C, n_head, nq,
-                           n_split, stream);
-  combine_kernel<T><<<dim3(n_head, nq, B), 128, 0, stream>>>(
-      scratch, pos, static_cast<T*>(out), S, C, D, n_split);
-  return (int)cudaGetLastError();
+  if (D == 96)      // the deployed decoder's head
+    return launch_dt<T, 96>(q, k, v, pos, out, B, S, C, n_head, nq, stream);
+  return launch_dt<T, 0>(q, k, v, pos, out, B, S, C, n_head, nq, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch memory the caller must pass.
-long long llmvox_verify_attention_scratch_floats(int B, int S, int C,
-                                                 int n_head, int nq) {
-  const long long n_split = (S + kSplit - 1) / kSplit;
-  return (long long)B * n_head * n_split * nq * (2 + C / n_head);
-}
-
 // q (B, nq, C), k and v (B, S, C) row-major, out (B, nq, C), all of one
 // type (dtype: 0 = float32, 1 = bfloat16), with D and C rows a multiple of
 // 16 bytes and k and v 16-byte aligned; pos is B int32 values in device
-// memory.  Returns a cudaError_t: 0 when both launches were accepted.
+// memory.  Returns a cudaError_t: 0 when the launch was accepted.
 int llmvox_verify_attention(const void* q, const void* k, const void* v,
-                            const void* pos, void* out, void* scratch, int B,
-                            int S, int C, int n_head, int nq, int dtype,
-                            void* stream) {
+                            const void* pos, void* out, int B, int S, int C,
+                            int n_head, int nq, int dtype, void* stream) {
   if (n_head <= 0 || C % n_head != 0 || C / n_head > kMaxD || S <= 0 ||
-      (S + kSplit - 1) / kSplit > 65535 || B <= 0 || B > 65535 || nq <= 0 ||
-      nq > kMaxQ)
+      B <= 0 || B > 65535 || nq <= 0 || nq > kMaxQ)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
-  float* sc = static_cast<float*>(scratch);
-  if (dtype == 0) return launch<float>(q, k, v, p, out, sc, B, S, C, n_head,
-                                       nq, st);
+  if (dtype == 0)
+    return launch<float>(q, k, v, p, out, B, S, C, n_head, nq, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, p, out, sc, B, S, C, n_head, nq, st);
+    return launch<__nv_bfloat16>(q, k, v, p, out, B, S, C, n_head, nq, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,6 +31,7 @@ head stays a weight-only int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -41,8 +42,10 @@ from llmvox_tpu_torch.utils.config import DecoderConfig
 from llmvox_tpu_torch.utils.device import Fetch
 
 # Speculative iterations issued since the last reset; each runs one verify
-# forward, n_layer K3 launches on the card.
+# forward, n_layer K3 launches on the card.  Engines issue from their own
+# dispatch threads, so the count is taken under a lock.
 SPEC_ITERATIONS = 0
+_spec_lock = threading.Lock()
 
 
 class DecodeState(NamedTuple):
@@ -427,7 +430,8 @@ def decode_block_spec_batch(params: Dict, text_table: torch.Tensor,
         pos, prev = pos + m, last
         count = count + m
         iters = iters + active.to(torch.int32)
-        SPEC_ITERATIONS += 1
+        with _spec_lock:
+            SPEC_ITERATIONS += 1
         flags.append(Fetch(((count < limits) & ~done).any()))
     return (out[:, :block], count,
             DecodeState(states.k_cache, states.v_cache, pos, prev, done),

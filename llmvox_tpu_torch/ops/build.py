@@ -6,8 +6,9 @@ Nothing is compiled when a module is imported: the first kernel call (or
 ``build_all()``) compiles every source that has no up-to-date library,
 one ``nvcc`` per source, all started together.  Libraries go to
 ``build/llmvox_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Without ``nvcc`` the build raises.
+of the source, every shared header (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Without ``nvcc`` the build raises.
 """
 from __future__ import annotations
 
@@ -46,8 +47,15 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in headers():
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -10,7 +10,9 @@ inputs the kernel does not take, raise, on either path.
 Like K1's wrapper it takes one layer's ``(B, S, C)`` cache views, which
 are free in the port's Python layer loop, and no ``layer`` scalar.
 ``pos (B,)`` stays on the device and the launch reads no host value, so a
-pool step issues without a sync.
+pool step issues without a sync.  The kernel is one clustered launch of
+``CLUSTER`` blocks per (head, stream) and needs no scratch memory: the
+wrapper allocates only the output.
 """
 from __future__ import annotations
 
@@ -26,6 +28,12 @@ from llmvox_tpu_torch.ops import attention, build
 LAUNCHES = 0
 _count_lock = threading.Lock()
 
+# Blocks per (head, stream), one thread-block cluster: ``kCluster`` in
+# ``csrc/attn_cluster.cuh``.
+CLUSTER = 8
+
+# streams per call: the grid's z dimension
+MAX_STREAMS = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -35,13 +43,10 @@ def _entry():
     if _fn is None:
         lib = build.load("batched_decode_attention")
         fn = lib.llmvox_batched_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        sz = lib.llmvox_batched_decode_attention_scratch_floats
-        sz.argtypes = [ctypes.c_int] * 4
-        sz.restype = ctypes.c_longlong
-        _fn = (fn, sz)
+        _fn = fn
     return _fn
 
 
@@ -59,6 +64,9 @@ def _check(q, k, v, pos, n_head):
     if k.shape[0] != b or k.shape[2] != c or c % n_head:
         raise ValueError(f"q {tuple(q.shape)} vs caches {tuple(k.shape)}, "
                          f"n_head {n_head}")
+    if not 1 <= b <= MAX_STREAMS:
+        raise ValueError(f"{b} streams; the kernel's grid takes 1 to "
+                         f"{MAX_STREAMS}")
     if c // n_head > 256:
         raise ValueError(f"head_dim {c // n_head} > 256 is not supported")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
@@ -81,16 +89,14 @@ def batched_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return attention.batched_decode_attention(q, k_cache, v_cache, pos,
                                                   n_head=n_head)
-    fn, scratch_floats = _entry()
+    fn = _entry()
     b, s, c = k_cache.shape
     out = torch.empty_like(q)
-    scratch = torch.empty(scratch_floats(b, s, c, n_head),
-                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, s, c,
-                 n_head, _DTYPES[q.dtype], stream)
+                 pos.data_ptr(), out.data_ptr(), b, s, c, n_head,
+                 _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"batched_decode_attention kernel launch failed: "
                            f"cudaError {err}")

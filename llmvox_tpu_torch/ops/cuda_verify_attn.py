@@ -11,7 +11,9 @@ Like K1's and K2's wrappers it takes one layer's ``(B, S, C)`` cache
 views and no ``layer`` scalar.  ``pos (B,)`` stays on the device and the
 launch reads no host value.  The draft window is at most 16 queries
 (``k_draft <= 15``), the head width at most 128 and a multiple of 16
-bytes, and the caches 16-byte aligned.
+bytes, the caches 16-byte aligned and q 4-byte aligned.  The kernel is one
+clustered launch of ``CLUSTER`` blocks per (head, stream) and needs no
+scratch memory: the wrapper allocates only the output.
 """
 from __future__ import annotations
 
@@ -29,6 +31,11 @@ _count_lock = threading.Lock()
 
 MAX_QUERIES = 16
 MAX_HEAD_DIM = 128
+# Blocks per (head, stream), one thread-block cluster: ``kCluster`` in
+# ``csrc/attn_cluster.cuh``.
+CLUSTER = 8
+# streams per call: the grid's z dimension
+MAX_STREAMS = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
@@ -38,13 +45,10 @@ def _entry():
     if _fn is None:
         lib = build.load("verify_attention")
         fn = lib.llmvox_verify_attention
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        sz = lib.llmvox_verify_attention_scratch_floats
-        sz.argtypes = [ctypes.c_int] * 5
-        sz.restype = ctypes.c_longlong
-        _fn = (fn, sz)
+        _fn = fn
     return _fn
 
 
@@ -61,6 +65,9 @@ def _check(q, k, v, pos, n_head):
     if k.shape[0] != b or k.shape[2] != c or c % n_head:
         raise ValueError(f"q {tuple(q.shape)} vs caches {tuple(k.shape)}, "
                          f"n_head {n_head}")
+    if not 1 <= b <= MAX_STREAMS:
+        raise ValueError(f"{b} streams; the kernel's grid takes 1 to "
+                         f"{MAX_STREAMS}")
     if not 1 <= nq <= MAX_QUERIES:
         raise ValueError(f"{nq} queries per stream; the kernel takes 1 to "
                          f"{MAX_QUERIES}")
@@ -76,12 +83,15 @@ def _check(q, k, v, pos, n_head):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and pos.is_contiguous()):
         raise ValueError("q, caches and pos must be contiguous")
-    # the kernel reads cache rows in 16-byte loads
+    # the kernel reads cache rows in 16-byte copies and q in 4-byte pairs
     es = q.element_size()
     if (c // n_head * es) % 16 or (k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError(f"head rows of {c // n_head * es} bytes or caches "
                          f"not 16-byte aligned: the kernel reads 16-byte "
                          f"chunks")
+    if q.data_ptr() % 4:
+        raise ValueError("q not 4-byte aligned: the kernel reads its "
+                         "elements in pairs")
 
 
 def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -94,17 +104,15 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return attention.batched_verify_attention(q, k_cache, v_cache, pos,
                                                   n_head=n_head)
-    fn, scratch_floats = _entry()
+    fn = _entry()
     b, nq, c = q.shape
     s = k_cache.shape[1]
     out = torch.empty_like(q)
-    scratch = torch.empty(scratch_floats(b, s, c, n_head, nq),
-                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, s, c,
-                 n_head, nq, _DTYPES[q.dtype], stream)
+                 pos.data_ptr(), out.data_ptr(), b, s, c, n_head, nq,
+                 _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"verify_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -3,7 +3,9 @@
 The same flags as ``python -m llmvox_tpu.serve``: converted checkpoints
 (``--llmvox_checkpoint_path``, ``--wav_model_path``, ``--byt5_table``),
 the ServeConfig and CodecConfig fields, and the two TTS replicas on the
-CUDA devices ``--tts_device_1`` / ``--tts_device_2``.  Two flags are the
+CUDA devices ``--tts_device_1`` / ``--tts_device_2`` (clamped to the last
+card, as the JAX CLI does, so both replicas share card 0 on a one-card
+host).  Two flags are the
 port's own: ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 path) and ``--random_seed N``, which serves full-width random weights
 made from seed N instead of checkpoints (for smoke runs; the audio is
@@ -35,6 +37,17 @@ from llmvox_tpu_torch.utils.config import (
     apply_cli_overrides)
 
 
+def replica_devices(device: str, cfg: ServeConfig) -> list:
+    """The two replicas' devices: on ``cuda``, cards ``--tts_device_1`` and
+    ``--tts_device_2``, each clamped to the last card present
+    (``llmvox_tpu/serve/__main__.py`` takes ``devices[min(i, n - 1)]``)."""
+    if device != "cuda":
+        return [device, device]
+    last = torch.cuda.device_count() - 1
+    return [f"cuda:{max(0, min(i, last))}"
+            for i in (cfg.tts_device_1, cfg.tts_device_2)]
+
+
 def main(argv=None) -> None:
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.ops import quant
@@ -60,7 +73,7 @@ def main(argv=None) -> None:
             parser.error(str(e))
     if cfg.pool_mesh_dp > 1:
         parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
-                     "yet: the multi-device pool is ROADMAP item 15")
+                     "yet: the multi-device pool is ROADMAP queue 1 item 10")
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()
@@ -85,10 +98,7 @@ def main(argv=None) -> None:
 
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
-    if args.device == "cuda":
-        devices = [f"cuda:{cfg.tts_device_1}", f"cuda:{cfg.tts_device_2}"]
-    else:
-        devices = [args.device, args.device]
+    devices = replica_devices(args.device, cfg)
     engines = []
     for dev in devices:
         codec = WavCodec(codec_params, ccfg, buckets=cfg.chunk_buckets,

@@ -25,7 +25,7 @@ from llmvox_tpu_torch.utils.params import to_torch
 
 MESH_NOT_PORTED = ("multi-device pooled and batched decode (a mesh; "
                    "make_sharded_decode) is not ported to llmvox_tpu_torch "
-                   "yet: it is ROADMAP item 15")
+                   "yet: it is ROADMAP queue 1 item 10")
 
 
 class BatchTTS:

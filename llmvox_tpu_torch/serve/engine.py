@@ -6,7 +6,9 @@ sync (``models/decoder.py::decode_block``), and its inputs travel in one
 host-to-device copy from pinned memory.  Its result comes back in one
 device-to-host copy into pinned memory, started when the block is issued
 and waited for only by ``Pending*.fetch()``: the scheduler issues block
-i+1 on the chained state before it fetches block i.
+i+1 on the chained state before it fetches block i.  A block is hundreds
+of eager launches, so the scheduler issues it through ``dispatch``, on the
+device's dispatch thread, and the event loop stays free meanwhile.
 
 Under ``spec_decode``, with draft heads in the params, every block but a
 sentence's fused first one is speculative (``decode_block_spec``,
@@ -19,6 +21,7 @@ codec stays f32, and the final argmax accumulates in f32.
 from __future__ import annotations
 
 import asyncio
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,7 +34,8 @@ from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
 from llmvox_tpu_torch.utils.config import (CodecConfig, DecoderConfig,
                                            ServeConfig)
-from llmvox_tpu_torch.utils.device import Fetch, resolve_device
+from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
+                                           resolve_device)
 from llmvox_tpu_torch.utils.params import to_torch
 
 
@@ -133,6 +137,15 @@ class TTSEngine:
                                   self.scfg.spec_k_draft)
 
     # -- decode --------------------------------------------------------
+    async def dispatch(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` (``decode_block_async`` or
+        ``decode_block_fused_async``) on the device's dispatch thread,
+        awaited: the launches run in submission order, off the event
+        loop."""
+        return await asyncio.get_running_loop().run_in_executor(
+            dispatch_executor(self.device),
+            functools.partial(fn, *args, **kwargs))
+
     def new_state(self) -> dec.DecodeState:
         return dec.init_decode_state(self.dcfg, dtype=self.cache_dtype,
                                      device=self.device)

@@ -21,9 +21,19 @@ owns its own version.  Here the KV caches are written in place, and
 is correct only because every pool step and every reset is enqueued on
 the same CUDA stream, in dispatch order: a later step or reset cannot run
 on the device before an earlier step has read the state it needs.  So
-nothing here moves decode to a side stream.  The step is issued eagerly
-from the event loop (``_dispatch_step``), which holds the loop for the
-step's host launch cost; ``dispatch_s`` adds that time up.
+nothing here moves decode to a side stream.
+
+Dispatch.  A step is split in two (``_dispatch_step``).  The gather runs
+on the event loop: it takes the pending resets, pops the slot queues
+(which ``submit`` also touches) and builds the numpy windows.  The launch
+(the one pinned copy, the resets, the eager step, the fused vocodes and
+the fetch) runs on the device's dispatch thread
+(``utils/device.py::dispatch_executor``), so the loop stays free
+for arrivals and chunk writes while a step's hundreds of kernels are
+issued.  The loop does not wait for a launch to gather the next step:
+every read and write of ``self.states`` happens on that one thread, in
+submission order, as JAX's async dispatch keeps its programs in order.
+``dispatch_s`` adds up the host seconds of the gathers and the launches.
 
 Speculation: with ``spec_decode`` and draft heads in the params, a step
 is ``decode_block_spec_batch`` (attention through kernel K3) at
@@ -32,14 +42,15 @@ is ``decode_block_spec_batch`` (attention through kernel K3) at
 commits and iterations that earlier steps fetched with their tokens.
 Every rung gives the greedy step's tokens.  A speculative step waits on
 the card for its stop flags while it is issued (one iteration behind),
-so it holds the event loop for that time too.
+so its launch holds the dispatch thread for that time too.
 
-Not ported here: the multi-device mesh pool (ROADMAP item 15; a ``mesh``
-argument raises).
+Not ported here: the multi-device mesh pool (ROADMAP queue 1 item 10; a
+``mesh`` argument raises).
 """
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import statistics
 import time
 import traceback
@@ -56,7 +67,8 @@ from llmvox_tpu_torch.serve.batch import MESH_NOT_PORTED
 from llmvox_tpu_torch.serve.engine import _to_device
 from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
-from llmvox_tpu_torch.utils.device import Fetch, resolve_device
+from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
+                                           resolve_device)
 from llmvox_tpu_torch.utils.params import to_torch
 
 
@@ -86,6 +98,18 @@ def _masked_reset(states: dec.DecodeState,
         done=torch.where(mask, False, states.done))
 
 
+def _fail(heads, exc: BaseException) -> None:
+    """Fail the popped requests of a step that will not resolve them:
+    cancel them when the step was cancelled, else pass ``exc`` on."""
+    cancelled = isinstance(exc, asyncio.CancelledError)
+    for _, req, _ in heads:
+        if not req.future.done():
+            if cancelled:
+                req.future.cancel()
+            else:
+                req.future.set_exception(exc)
+
+
 class _Request:
     __slots__ = ("window", "text_len", "limit", "future", "fused_dump")
 
@@ -96,6 +120,23 @@ class _Request:
         self.future = future
         self.fused_dump = fused_dump  # >0: vocode the block's first N
                                       # tokens on the device with the decode
+
+
+class _Plan:
+    """A gathered step: what the dispatch thread launches."""
+    __slots__ = ("gather_s", "width", "rung", "heads", "fused", "groups",
+                 "reset", "host")
+
+    def __init__(self, gather_s, width, rung, heads, fused, groups, reset,
+                 host):
+        self.gather_s = gather_s  # host seconds the gather took
+        self.width = width
+        self.rung = rung
+        self.heads = heads        # (slot, request, token-row offset)
+        self.fused = fused        # (slot, request) of the fused heads
+        self.groups = groups      # (fused slot idx, fused dumps, bucket)
+        self.reset = reset        # any slot to reset before the step
+        self.host = host          # every input of the step, one int32 array
 
 
 class _Slot:
@@ -184,10 +225,12 @@ class DecodePool:
         self._task: Optional[asyncio.Task] = None
         self._wake: Optional[asyncio.Event] = None
         self._inflight = None
+        self._last_launch = None   # the newest launch handed over
         self.steps = 0
         self.merged_steps = 0
-        # decode steps dispatched (each step counts its width) and the
-        # host seconds the event loop spent issuing them
+        # decode steps launched (each step counts its width) and the host
+        # seconds spent issuing them, gather and launch (counted by the
+        # dispatch thread)
         self.decode_steps = 0
         self.dispatch_s = 0.0
         self._synth_q: Deque = deque()
@@ -257,18 +300,16 @@ class DecodePool:
                                                k_draft=k)
         return step
 
-    def _apply_resets(self) -> None:
-        idxs = [i for i, s in enumerate(self.slots) if s.pending_reset]
-        if not idxs:
-            return
-        # Resetting pos/prev/done suffices: cache rows beyond pos are
-        # never attended and are overwritten before they are read.
-        mask = np.zeros((self.B,), bool)
-        mask[idxs] = True
-        self.states = _masked_reset(self.states,
-                                    _to_device(mask, self.device))
-        for i in idxs:
-            self.slots[i].pending_reset = False
+    def _take_resets(self) -> np.ndarray:
+        """The (B,) reset mask of the slots with a pending reset, which are
+        marked done.  Resetting pos/prev/done suffices: cache rows beyond
+        pos are never attended and are overwritten before they are read."""
+        mask = np.zeros((self.B,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s.pending_reset:
+                mask[i] = 1
+                s.pending_reset = False
+        return mask
 
     def _pick(self) -> List[Tuple[int, List[_Request]]]:
         """Pop every non-empty slot queue's head, plus its second request
@@ -289,35 +330,31 @@ class DecodePool:
                 picks.append((i, rs))
         return picks
 
-    def _dispatch_step(self) -> Optional[Tuple]:
-        """Gather the queued requests and dispatch ONE batched decode step,
-        plus the fused first chunks' vocodes chained on its tokens, with
-        no host fetch.  Returns the in-flight record, or None when no work
-        is queued.  Requests are popped here, at dispatch, so the next
-        dispatch sees each slot's issue-ahead requests."""
+    def _gather(self) -> Optional[_Plan]:
+        """On the event loop: take the pending resets, pop every slot
+        queue's head (and merge partner) and build the step's host inputs;
+        None when no work is queued (the resets then wait for the next
+        step).  Requests are popped here, at dispatch, so the next gather
+        sees each slot's issue-ahead requests."""
         t0 = time.perf_counter()
-        self._apply_resets()
         picks = self._pick()
         if not picks:
             return None
+        reset = self._take_resets()
         merged = any(len(rs) == 2 for _, rs in picks)
         width = self.big_block if merged else self.block
-        self.merged_steps += int(merged)
-        # heads: (slot, request, token-row offset of this request)
-        heads: List[Tuple[int, _Request, int]] = []
+        heads: List[Tuple[int, _Request, int]] = [
+            (i, req, k * self.block)
+            for i, rs in picks for k, req in enumerate(rs)]
         try:
             windows = np.full((self.B, width), self.dcfg.pad_token_id,
                               np.int32)
             text_lens = np.zeros((self.B,), np.int32)
             limits = np.zeros((self.B,), np.int32)
-            for i, rs in picks:
-                off = 0
-                for req in rs:
-                    windows[i, off: off + self.block] = req.window
-                    text_lens[i] = req.text_len
-                    limits[i] += req.limit
-                    heads.append((i, req, off))
-                    off += self.block
+            for i, req, off in heads:
+                windows[i, off: off + self.block] = req.window
+                text_lens[i] = req.text_len
+                limits[i] += req.limit
             # fused first chunks in groups of SYNTH_BATCH (more fused
             # slots than that split into extra vocode calls); fused
             # requests never merge, so their tokens sit at row offset 0
@@ -334,49 +371,75 @@ class DecodePool:
                     min(max(req.fused_dump for _, req in part),
                         self._fuse_bucket))
                 groups.append((fidx, flens, bucket))
-            # every input of the step in one host-to-device copy from a
-            # fresh pinned buffer
-            t = _to_device(np.concatenate(
-                [windows.ravel(), text_lens, limits]
-                + [a for fidx, flens, _ in groups for a in (fidx, flens)]),
-                self.device)
-            n = windows.size
+            host = np.concatenate(
+                [windows.ravel(), text_lens, limits, reset]
+                + [a for fidx, flens, _ in groups for a in (fidx, flens)])
+            # the rung is picked here, on the loop, where the controller
+            # also observes the fetched steps
             rung = (self._spec_ctl.next_k() if self._spec_ctl is not None
                     else self._fixed_k)
-            tokens, nprod, self.states, iters = self._decode_fns[
-                (width, rung)](t[:n].view(self.B, width), t[n:n + self.B],
-                               t[n + self.B:n + 2 * self.B])
-            wavs = []
-            off = n + 2 * self.B
-            for _, _, bucket in groups:
-                fidx = t[off:off + self.SYNTH_BATCH]
-                flens = t[off + self.SYNTH_BATCH:off + 2 * self.SYNTH_BATCH]
-                off += 2 * self.SYNTH_BATCH
-                rows = _gather_rows(tokens, fidx, bucket)
-                wavs.append(self.codec.decode_codes_device(rows, flens))
-                self.synth_calls += 1
-            # accept statistics for the adaptive controller come back with
-            # the step: each slot's commits and iterations (active slots
-            # only are read; a merged pick appears once)
-            feedback = None
-            if self._spec_ctl is not None and iters is not None:
-                feedback = (rung, [i for i, _ in picks])
-                wavs = [nprod, iters] + wavs
-            # tokens (exact in f32) and audio come back in one copy
-            fetch = Fetch(torch.cat([tokens.reshape(-1).float()]
-                                     + [w.reshape(-1).float() for w in wavs]))
         except BaseException as exc:
-            # requests were popped at dispatch: fail them now or their
-            # waiters hang (the crash handler only sees the queues)
-            for _, req, _ in heads:
-                if not req.future.done():
-                    req.future.set_exception(exc)
+            _fail(heads, exc)
             raise
+        self.synth_calls += len(groups)
+        return _Plan(time.perf_counter() - t0, width, rung, heads, fused,
+                     groups, bool(reset.any()), host)
+
+    def _launch(self, plan: _Plan) -> Tuple:
+        """On the dispatch thread: the step's resets, ONE batched decode
+        step, and the fused first chunks' vocodes chained on its tokens,
+        with no host fetch.  Returns (the fetch started for the tokens and
+        audio, their shapes, the controller's feedback or None)."""
+        t0 = time.perf_counter()
+        # every input of the step in one host-to-device copy from a fresh
+        # pinned buffer
+        t = _to_device(plan.host, self.device)
+        n, b = self.B * plan.width, self.B
+        if plan.reset:
+            self.states = _masked_reset(self.states,
+                                        t[n + 2 * b:n + 3 * b].bool())
+        tokens, nprod, self.states, iters = self._decode_fns[
+            (plan.width, plan.rung)](t[:n].view(b, plan.width),
+                                     t[n:n + b], t[n + b:n + 2 * b])
+        wavs = []
+        off = n + 3 * b
+        for _, _, bucket in plan.groups:
+            fidx = t[off:off + self.SYNTH_BATCH]
+            flens = t[off + self.SYNTH_BATCH:off + 2 * self.SYNTH_BATCH]
+            off += 2 * self.SYNTH_BATCH
+            rows = _gather_rows(tokens, fidx, bucket)
+            wavs.append(self.codec.decode_codes_device(rows, flens))
+        # accept statistics for the adaptive controller come back with the
+        # step: each slot's commits and iterations (active slots only are
+        # read; a merged pick appears once)
+        feedback = None
+        if self._spec_ctl is not None and iters is not None:
+            feedback = (plan.rung, sorted({i for i, _, _ in plan.heads}))
+            wavs = [nprod, iters] + wavs
+        # tokens (exact in f32) and audio come back in one copy
+        fetch = Fetch(torch.cat([tokens.reshape(-1).float()]
+                                + [w.reshape(-1).float() for w in wavs]))
+        shapes = (plan.width, [w.shape for w in wavs])
+        # counted here, where the step is launched
         self.steps += 1
-        self.decode_steps += width
-        self.dispatch_s += time.perf_counter() - t0
-        shapes = (width, [w.shape for w in wavs])
-        return heads, fused, fetch, shapes, feedback
+        self.merged_steps += int(plan.width == 2 * self.block)
+        self.decode_steps += plan.width
+        self.dispatch_s += plan.gather_s + time.perf_counter() - t0
+        return fetch, shapes, feedback
+
+    def _dispatch_step(self) -> Optional[Tuple]:
+        """Gather on the loop and hand the launch to the dispatch thread,
+        without waiting for it.  Returns the in-flight record (the step's
+        popped requests, its fused heads, and its fetch task), or None when
+        no work is queued."""
+        plan = self._gather()
+        if plan is None:
+            return None
+        self._last_launch = dispatch_executor(self.device).submit(
+            self._launch, plan)
+        rec = (plan.heads, plan.fused)
+        return rec, asyncio.create_task(self._resolve_task(
+            rec, asyncio.wrap_future(self._last_launch)))
 
     def _unpack(self, arr: np.ndarray, shapes) -> Tuple[np.ndarray, List]:
         width, wav_shapes = shapes
@@ -389,9 +452,11 @@ class DecodePool:
             off += size
         return toks, wavs
 
-    async def _resolve_step(self, inflight: Tuple) -> None:
-        """Fetch one in-flight step's results and resolve its futures."""
-        heads, fused, fetch, shapes, feedback = inflight
+    async def _resolve_step(self, rec: Tuple, launch) -> None:
+        """Wait for one step's launch and fetch, then resolve its
+        futures."""
+        heads, fused = rec
+        fetch, shapes, feedback = await launch
         toks, wavs_h = self._unpack(await asyncio.to_thread(fetch.get),
                                     shapes)
         if feedback is not None:
@@ -419,20 +484,14 @@ class DecodePool:
             else:
                 req.future.set_result(out)
 
-    async def _resolve_task(self, inflight: Tuple) -> None:
-        """Per-step fetch task: a failed fetch fails its own step's
-        futures (they were popped at dispatch, so the crash handler can
-        no longer see them)."""
+    async def _resolve_task(self, rec: Tuple, launch) -> None:
+        """Per-step task: a failed launch or fetch fails its own step's
+        futures (they were popped at dispatch, so the crash handler can no
+        longer see them)."""
         try:
-            await self._resolve_step(inflight)
+            await self._resolve_step(rec, launch)
         except BaseException as exc:
-            cancelled = isinstance(exc, asyncio.CancelledError)
-            for _, req, _ in inflight[0]:
-                if not req.future.done():
-                    if cancelled:
-                        req.future.cancel()
-                    else:
-                        req.future.set_exception(exc)
+            _fail(rec[0], exc)
             raise
 
     async def _step_loop(self) -> None:
@@ -454,8 +513,7 @@ class DecodePool:
                 nxt = self._dispatch_step()
                 if nxt is None:
                     break
-                self._inflight.append(
-                    (nxt, asyncio.create_task(self._resolve_task(nxt))))
+                self._inflight.append(nxt)
             if self._inflight:
                 _, task = self._inflight[0]
                 if not task.done():
@@ -551,9 +609,8 @@ class DecodePool:
         for fb in [b for b in self.codec.buckets if b <= self._fuse_bucket]:
             self.codec.decode_codes_device(_gather_rows(tokens, idx, fb),
                                            lens)
-        for s in self.slots:
-            s.pending_reset = True
-        self._apply_resets()
+        self.states = _masked_reset(self.states, torch.ones(
+            (self.B,), dtype=torch.bool, device=self.device))
         if self._spec_ctl is not None and not self._spec_ctl.cost_ms:
             self._spec_ctl.cost_ms = self._calibrate_spec_costs()
         for bucket in self.codec.buckets:
@@ -671,6 +728,11 @@ class DecodePool:
                     if not req.future.done():
                         req.future.cancel()
         self._inflight = None
+        # the launches handed over run in order: once the newest is done,
+        # no step of the stopped loop touches the state after stop()
+        if self._last_launch is not None:
+            concurrent.futures.wait([self._last_launch])
+            self._last_launch = None
 
 
 class PoolLadder:

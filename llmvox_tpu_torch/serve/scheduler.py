@@ -174,6 +174,10 @@ class StreamingScheduler:
             first_block = 0  # only ever SHRINK the first device call
         can_fuse = (cfg.fused_first_chunk
                     and hasattr(engine, "decode_block_fused_async"))
+        # dedicated engines launch their blocks on their own dispatch
+        # thread (the loop awaits it); a pooled engine's calls only queue
+        # work for the pool, on the loop
+        dispatch = getattr(engine, "dispatch", None)
 
         st = _SentenceState()
         dec_state = engine.new_state()
@@ -354,15 +358,17 @@ class StreamingScheduler:
                             # sentence's first block: synthesize its
                             # first dump-size chunk in the same device
                             # call — one round trip to first audio
-                            nxt, dec_state = (
-                                engine.decode_block_fused_async(
-                                    dec_state, window,
-                                    len(st.text_ids), limit,
-                                    dump_size, block=cur))
+                            call = (engine.decode_block_fused_async,
+                                    dec_state, window, len(st.text_ids),
+                                    limit, dump_size)
                         else:
-                            nxt, dec_state = engine.decode_block_async(
-                                dec_state, window, len(st.text_ids),
-                                limit, block=cur)
+                            call = (engine.decode_block_async, dec_state,
+                                    window, len(st.text_ids), limit)
+                        if dispatch is not None:
+                            nxt, dec_state = await dispatch(*call,
+                                                            block=cur)
+                        else:
+                            nxt, dec_state = call[0](*call[1:], block=cur)
                         pending.append(nxt)
                         issued += limit
 

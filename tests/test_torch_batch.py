@@ -354,6 +354,7 @@ def test_tts_batch_matches_jax_batch_and_single_stream(stack):
 def test_batch_refuses_a_mesh(stack):
     params, table, _, codec = stack
     tcodec = TWavCodec(codec, T_CODEC, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 10"):
         TBatchTTS(params, table, tcodec, dcfg=T_DEC, device="cpu",
                   mesh=object())

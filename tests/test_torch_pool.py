@@ -394,7 +394,8 @@ def test_spec_decode_with_draft_heads_raises(jeng):
 
 
 def test_pool_refuses_a_mesh_and_a_foreign_codec(jeng):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 10"):
         _port_pool(jeng, 2, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -445,7 +446,8 @@ def test_cli_builds_the_pool_on_the_first_replica(flags, caps, monkeypatch):
     (["--quantize", "w3"], "unknown quantization mode 'w3'"),
     (["--spec_decode", "true", "--pool_capacity", "4", "--spec_k_ladder",
       "[0,2]"], None),
-    (["--pool_mesh_dp", "2", "--pool_capacity", "8"], "ROADMAP item 15")])
+    (["--pool_mesh_dp", "2", "--pool_capacity", "8"],
+     "ROADMAP queue 1 item 10")])
 def test_cli_refuses_unported_flags(flags, slice_, capsys, monkeypatch):
     """``--pool_mesh_dp > 1`` is refused, naming the ROADMAP item that
     brings it, and an unknown ``--quantize`` mode with the quantizer's
