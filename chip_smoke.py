@@ -28,7 +28,12 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      other card too (a kernel's shared-memory limit is set per device);
   3. the offline main path at full width with random seeded weights:
      ``TTSEngine.tts`` in bf16, f32 on the card against f32 on the CPU, the
-     kernel's launch count on that path, decode and synthesis times;
+     kernel's launch count on that path, decode and synthesis times.  From
+     here on engines, pools and codecs serve through CUDA graphs, which
+     each one's warmup captures (``utils/graphs.py``; a replay adds to the
+     kernels' launch counts what its capture counted), and every phase
+     asserts that nothing was captured after warmup; the engines that are
+     only a check's reference run eagerly;
   4. the HTTP server on two replicas answering three sequential
      ``POST /tts``; each stream's chunk sizes against the dump ladder,
      time to first audio, real-time factor and the event loop's lag (both
@@ -80,6 +85,13 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      4-way concurrent bf16 ``/tts`` round on a 16-slot w4 pool.  K4
      launches 4 * n_layer times per step or iteration issued; its count in
      the JSON line is the pool round's.
+ 13. serving through CUDA graphs against serving eagerly, in one process:
+     f32 rounds on the dedicated replicas, a 16-slot pool, the spec pool
+     on the (0, 2, 4) ladder and a w4 pool, each with graphs and eagerly
+     (the same chunks and tokens, PCM max |diff| <= 1e-5, printed); then
+     bf16 turns (graphs, eager, eager, graphs) without the lag ticker:
+     TTFA and RTF on the replicas, TTFA, aggregate and host ms per step
+     at 4 and 8 concurrent requests on a 16-slot pool.
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +99,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import os
 import socket
@@ -389,14 +402,43 @@ def smoke_serve_config():
                        api_host="127.0.0.1")
 
 
-def make_engine(weights, device, dtype):
+def make_engine(weights, device, dtype, graphs=None, warm=False):
+    """A replica and its codec; with ``warm`` on a card, its warmup (every
+    CUDA graph it serves through) runs here.  ``graphs=False`` makes an
+    eager engine, for the checks whose reference it is and the
+    graph-against-eager phase."""
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.serve.engine import TTSEngine
     dec_p, codec_p, table, dcfg, ccfg, scfg = weights
     codec = WavCodec(codec_p, ccfg, buckets=scfg.chunk_buckets,
-                     device=device)
-    return TTSEngine(dec_p, table, codec, dcfg, scfg, device=device,
-                     cache_dtype=dtype)
+                     device=device, graphs=graphs)
+    eng = TTSEngine(dec_p, table, codec, dcfg, scfg, device=device,
+                    cache_dtype=dtype, graphs=graphs)
+    if warm and (torch.device(device).type == "cuda" or graphs):
+        eng.warmup()
+    return eng
+
+
+def captures() -> int:
+    """CUDA graphs captured so far in this process."""
+    from llmvox_tpu_torch.utils import graphs
+    return graphs.CAPTURES
+
+
+def graphs_text() -> str:
+    from llmvox_tpu_torch.utils import graphs
+    return graphs.summary()
+
+
+def uploads_text(*sets) -> str:
+    """The first replays (graph uploads) of the given GraphSets, which
+    warmup makes after each capture: the largest and the sum, in ms."""
+    ts = [g.upload_s for gs in sets for g in gs.graphs.values()
+          if g.upload_s is not None]
+    if not ts:
+        return "no graph uploads (eager)"
+    return (f"first replays (graph uploads) at warmup: max "
+            f"{max(ts) * 1e3:.1f} ms, {sum(ts) * 1e3:.1f} ms over {len(ts)}")
 
 
 def synth_len(tokens, eoa) -> int:
@@ -441,8 +483,13 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
     t0 = time.perf_counter()
     for e in engines:
         e.warmup()
-    torch.cuda.synchronize()
-    log(f"[offline] warmup of both engines: {time.perf_counter() - t0:.2f} s")
+    _sync(device)
+    log(f"[offline] warmup of both engines: {time.perf_counter() - t0:.2f} s"
+        f" (blocks {engines[0].block_lengths()}, fused "
+        f"{engines[0].fused_variants()}, buckets {engines[0].codec.buckets});"
+        f" {graphs_text()}; engine 0's "
+        + uploads_text(engines[0]._blocks, engines[0]._fused,
+                       engines[0].codec._graphs))
 
     eng = engines[0]
     cuda_attn.LAUNCHES = 0
@@ -467,7 +514,10 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
     # chain then runs to the cap and the comparison covers every position.
     no_eoa = (*weights[:3], dataclasses.replace(dcfg, eoa_token_id=-1),
               *weights[4:])
-    deep = make_engine(no_eoa, device, torch.bfloat16)
+    deep = make_engine(no_eoa, device, torch.bfloat16, warm=True)
+    g32 = make_engine(no_eoa, device, torch.float32, warm=True)
+    c32 = make_engine(no_eoa, "cpu", torch.float32)
+    n_cap = captures()
     cuda_attn.LAUNCHES = 0
     wav, toks = deep.tts(TEXT, max_tokens=256)
     assert len(toks) == 256 and len(wav) == 256 * ccfg.hop_length
@@ -475,18 +525,24 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
     assert cuda_attn.LAUNCHES == dcfg.n_layer * deep.decode_steps > 0
     log(f"[offline] bf16 tts, EOA off: 256 tokens (pos 0..255), "
         f"{len(wav)} finite samples; K1 launches {cuda_attn.LAUNCHES}")
-    g32 = make_engine(no_eoa, device, torch.float32)
-    c32 = make_engine(no_eoa, "cpu", torch.float32)
+    # offline synthesis is eager: an utterance past the largest captured
+    # bucket decodes at its own length
+    n_long = deep.codec.buckets[-1] + 2 * deep.block
+    wav, toks = deep.tts(TEXT, max_tokens=n_long)
+    assert len(toks) == n_long and len(wav) == n_long * ccfg.hop_length
+    assert np.isfinite(wav).all(), "non-finite samples"
+    log(f"[offline] bf16 tts, EOA off: {n_long} tokens, past the largest "
+        f"bucket ({deep.codec.buckets[-1]}), {len(wav)} finite samples")
     _, tg = g32.tts(TEXT, max_tokens=64)
     _, tc = c32.tts(TEXT, max_tokens=64)
     assert len(tg) == 64 and tg == tc, (tg, tc)
-    log("[offline] f32 card vs f32 CPU (plain path), EOA off: 64 tokens "
-        "identical")
+    log("[offline] f32 card (CUDA graphs) vs f32 CPU (plain path), EOA "
+        "off: 64 tokens identical")
     del g32, c32
 
     block_ms = block_times(deep)
     log(f"[offline] decode ms per {deep.block}-token block (pos 0..255, "
-        f"bf16, host clock, issue to fetch): "
+        f"bf16, one CUDA graph replay, host clock, issue to fetch): "
         f"{', '.join(f'{x:.1f}' for x in block_ms)}; median "
         f"{statistics.median(block_ms):.1f}")
     del deep
@@ -499,8 +555,10 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
         for _ in range(3):
             eng.codec.decode_codes(codes)
         synth_ms[b] = (time.perf_counter() - t0) / 3 * 1e3
-    log("[offline] synthesis ms per bucket (f32, host to host): "
+    log("[offline] synthesis ms per bucket (f32, one CUDA graph replay, "
+        "host to host): "
         + ", ".join(f"{b}: {ms:.1f}" for b, ms in synth_ms.items()))
+    assert captures() == n_cap, "a CUDA graph was captured after warmup"
     return engines, weights
 
 
@@ -535,7 +593,7 @@ def phase_block_graph(weights, batch: int = 0) -> float:
         window = torch.from_numpy(ids[:n].copy()).cuda()
         text_len = torch.tensor(len(ids), dtype=torch.int32, device="cuda")
         limit = torch.tensor(n, dtype=torch.int32, device="cuda")
-        start = eng.new_state()
+        start = dec.init_decode_state(dcfg, torch.bfloat16, "cuda")
         step = dec.decode_block
 
     def run_block(state):
@@ -686,6 +744,7 @@ def phase_server(engines, weights, record=None) -> int:
 
     port = _free_port()
     cfg = dataclasses.replace(scfg, api_port=port)
+    n_cap = captures()
     with _Server(build_server(cfg, engines), port) as server:
         cuda_attn.LAUNCHES = 0
         steps0 = sum(e.decode_steps for e in engines)
@@ -715,8 +774,11 @@ def phase_server(engines, weights, record=None) -> int:
         launches = cuda_attn.LAUNCHES
         steps = sum(e.decode_steps for e in engines) - steps0
     assert launches == dcfg.n_layer * steps > 0, (launches, steps)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
     log(f"[server] K1 launches on the served path: {launches} = "
-        f"{dcfg.n_layer} layers x {steps} decode steps")
+        f"{dcfg.n_layer} layers x {steps} decode steps ("
+        f"{'CUDA graph replays' if engines[0]._blocks.enabled else 'eager'}"
+        f"); no capture while serving")
     return launches
 
 
@@ -924,7 +986,7 @@ def phase_batch(weights, device="cuda") -> None:
         assert k1 == 0 and k2 == dcfg.n_layer * steps > 0, (k1, k2, steps)
         if dtype is torch.float32:
             eng = make_engine((dec_p, codec_p, table, dcfg, ccfg, scfg),
-                              device, torch.float32)
+                              device, torch.float32, graphs=False)
             for text, row in zip(BATCH_TEXTS, rows):
                 want = eng.tts(text, max_tokens=n_tok)[1]
                 assert len(row) == n_tok and row == want, (row, want)
@@ -987,20 +1049,16 @@ def phase_pool_server(engines, weights, device="cuda") -> tuple:
     # its tokens emit EOA, so equal schedules mean equal tokens up to EOA.
     # Only f32 is held to the B=1 engine: a batched bf16 GEMM may round
     # differently from a B=1 one and move a near-tied argmax.
-    eng32 = make_engine(weights, device, torch.float32)
-    cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
-    want = []
-    for text, dump in ((REPLY, scfg.initial_dump_size_1),
-                       ("", scfg.initial_dump_size_2)):
-        want += expected_chunks(eng32.tts(text, max_tokens=cap)[1], dump,
-                                scfg, eoa)
-    del eng32
+    want = _greedy_schedule(weights, device)
     port = _free_port()
     cfg = dataclasses.replace(scfg, api_port=port, pool_capacity=8)
     pool = DecodePool(dec_p, table, codec, capacity=8, dcfg=dcfg, scfg=cfg,
                       device=device, cache_dtype=torch.float32)
-    with _Server(build_server(cfg, engines, pool=pool), port):
+    srv = build_server(cfg, engines, pool=pool)
+    n_cap = captures()
+    with _Server(srv, port):
         res, _ = _concurrent_round(port, 4, hop, sr)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
     for sizes, *_ in res:
         assert sizes == want, (sizes, want)
     log(f"[pool] f32 pool (8 slots), 4 concurrent requests: every stream's "
@@ -1010,6 +1068,7 @@ def phase_pool_server(engines, weights, device="cuda") -> tuple:
     # bf16 rounds with EOA off: every sentence runs to the length cap, so
     # each stream's schedule is the dump ladder's, whatever its tokens
     no_eoa = dataclasses.replace(dcfg, eoa_token_id=-1)
+    cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
     want = (expected_chunks([0] * 2 * cap, scfg.initial_dump_size_1, scfg,
                             -1)
             + expected_chunks([0] * 2 * cap, scfg.initial_dump_size_2, scfg,
@@ -1022,11 +1081,13 @@ def phase_pool_server(engines, weights, device="cuda") -> tuple:
     srv = build_server(cfg, engines, pool=pool)
     torch.cuda.synchronize()
     log(f"[pool] bf16 pool (16 slots) built and warmed in "
-        f"{time.perf_counter() - t0:.2f} s; expected chunks per request "
-        f"{want} (EOA off: sentences end at the length cap)")
+        f"{time.perf_counter() - t0:.2f} s ("
+        f"{uploads_text(pool._steps, pool._vocode)}); expected chunks per "
+        f"request {want} (EOA off: sentences end at the length cap)")
     cuda_attn.LAUNCHES = cuda_batched_attn.LAUNCHES = 0
     steps0 = pool.decode_steps
     lags = {}
+    n_cap = captures()
     with _Server(srv, port) as server:
         for n in (4, 8):
             st0 = dict(pool.stats(), disp=pool.dispatch_s,
@@ -1058,9 +1119,10 @@ def phase_pool_server(engines, weights, device="cuda") -> tuple:
     k1, k2 = cuda_attn.LAUNCHES, cuda_batched_attn.LAUNCHES
     steps = pool.decode_steps - steps0
     assert k1 == 0 and k2 == dcfg.n_layer * steps > 0, (k1, k2, steps)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
     log(f"[pool] stats {json.dumps(pool.stats())}; K2 launches on the pooled "
-        f"path: {k2} = {dcfg.n_layer} layers x {steps} token steps; K1 "
-        f"launches 0")
+        f"path: {k2} = {dcfg.n_layer} layers x {steps} token steps (CUDA "
+        f"graph replays); K1 launches 0; no capture while serving")
     return k2, lags
 
 
@@ -1300,8 +1362,9 @@ def phase_spec_offline(weights, device="cuda") -> dict:
 
         def greedy(batch):
             if batch == 1:
-                return dec.decode_block(*args, eng.new_state(), win[0], tl[0],
-                                        lim[0], dcfg, block=n)[0][None]
+                return dec.decode_block(
+                    *args, dec.init_decode_state(dcfg, dtype, device),
+                    win[0], tl[0], lim[0], dcfg, block=n)[0][None]
             return dec.decode_block_batch(
                 *args, dec.init_decode_state_batch(dcfg, b, dtype, device),
                 win, tl, lim, dcfg, block=n)[0]
@@ -1309,7 +1372,8 @@ def phase_spec_offline(weights, device="cuda") -> dict:
         def spec(batch, drafts):
             if batch == 1:
                 t, cnt, _, it = dec.decode_block_spec(
-                    *args, eng.new_state(), win[0], tl[0], lim[0], dcfg,
+                    *args, dec.init_decode_state(dcfg, dtype, device),
+                    win[0], tl[0], lim[0], dcfg,
                     block=n, k_draft=SPEC_K,
                     draft_tokens=None if drafts is None else drafts[0])
                 return t[None], cnt[None], it[None]
@@ -1389,7 +1453,7 @@ def _greedy_schedule(weights, device) -> list:
     """The chunk sizes one scripted ``/tts`` reply streams, from the f32
     greedy B=1 engine's tokens (phase 4's computation)."""
     _, _, _, dcfg, _, scfg = weights
-    eng = make_engine(weights, device, torch.float32)
+    eng = make_engine(weights, device, torch.float32, graphs=False)
     cap = 2 * (scfg.max_audio_length + scfg.initial_dump_size_2)
     want = []
     for text, dump in ((REPLY, scfg.initial_dump_size_1),
@@ -1424,14 +1488,15 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
     assert all(e._spec for e in eng32)
     # offline first, EOA off so that the chains run 128 tokens
     deep = (*weights[:3], dataclasses.replace(dcfg, eoa_token_id=-1), ccfg)
-    _, tg = make_engine((*deep, scfg), device, torch.float32).tts(
-        TEXT, max_tokens=128)
-    _, ts = make_engine((*deep, spec_cfg), device, torch.float32).tts(
-        TEXT, max_tokens=128)
+    _, tg = make_engine((*deep, scfg), device, torch.float32,
+                        graphs=False).tts(TEXT, max_tokens=128)
+    _, ts = make_engine((*deep, spec_cfg), device, torch.float32,
+                        graphs=False).tts(TEXT, max_tokens=128)
     assert len(tg) == 128 and ts == tg, (ts, tg)
     for e in eng32:
         e.warmup()
     port = _free_port()
+    n_cap = captures()
     with _Server(build_server(dataclasses.replace(spec_cfg, api_port=port),
                               eng32), port):
         it0 = dec.SPEC_ITERATIONS
@@ -1439,6 +1504,7 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
         chunks = post_chunks("127.0.0.1", port, "/tts",
                              {"text": "Say something."}, timeout=300)
         issued = dec.SPEC_ITERATIONS - it0
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
     sizes = [len(c) // 4 // hop for _, c in chunks]
     assert sizes == want, (sizes, want)
     assert cuda_verify_attn.LAUNCHES == dcfg.n_layer * issued > 0
@@ -1452,8 +1518,11 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
     pool = DecodePool(dec_p, table, codec, capacity=8, dcfg=dcfg, scfg=cfg,
                       device=device, cache_dtype=torch.float32)
     assert pool._spec
-    with _Server(build_server(cfg, engines, pool=pool), port):
+    srv = build_server(cfg, engines, pool=pool)
+    n_cap = captures()
+    with _Server(srv, port):
         res, _ = _concurrent_round(port, 4, hop, sr)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
     for sizes, *_ in res:
         assert sizes == want, (sizes, want)
     log(f"[spec-pool] f32 spec pool (8 slots, k={SPEC_K}), 4 concurrent "
@@ -1495,6 +1564,7 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
         cuda_attn.LAUNCHES = cuda_batched_attn.LAUNCHES = 0
         cuda_verify_attn.LAUNCHES = 0
         it0, steps0 = dec.SPEC_ITERATIONS, pool.decode_steps
+        n_cap = captures()
         with _Server(srv, port) as server:
             for n in rounds:
                 st0 = dict(pool.stats(), disp=pool.dispatch_s,
@@ -1529,6 +1599,7 @@ def phase_spec_server(engines, weights, device="cuda") -> dict:
         k1, k2 = cuda_attn.LAUNCHES, cuda_batched_attn.LAUNCHES
         k3 = cuda_verify_attn.LAUNCHES
         assert k1 == 0 and k3 == dcfg.n_layer * issued > 0, (k1, k3, issued)
+        assert captures() == n_cap, "a CUDA graph was captured while serving"
         tok_steps = pool.decode_steps - steps0
         if not ladder:
             assert k2 == 0, k2
@@ -1725,7 +1796,9 @@ def _cpu_forced_logits(eng, chain) -> list:
     from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
     cfg = eng.dcfg
     ids = ByT5Tokenizer().encode(TEXT.strip()) + [cfg.text_eos_id]
-    state = eng.new_state()
+    # the engine's static state: step d writes cache row d before it reads
+    # rows <= d, so what an earlier block left there is never read
+    state = eng.state
     out = []
     for d in range(len(chain)):
         temb = eng.text_table[ids[d] if d < len(ids) else cfg.pad_token_id]
@@ -1796,7 +1869,7 @@ def phase_quant(engines, weights, device="cuda") -> dict:
         torch.cuda.reset_peak_memory_stats()
     out = {"bytes": {"dense f32": quant.quantized_bytes(dec_p)}}
     deep = make_engine((dec_p, codec_p, table, no_eoa, ccfg, scfg), device,
-                       torch.bfloat16)
+                       torch.bfloat16, warm=True)
     out["block_ms"] = {"dense": statistics.median(block_times(deep))}
     if on_card:
         out["graph_ms"] = {"dense": phase_block_graph(
@@ -1806,7 +1879,7 @@ def phase_quant(engines, weights, device="cuda") -> dict:
         qw = _quantized(weights, mode)
         out["bytes"][mode] = quant.quantized_bytes(qw[0])
         qdeep = (qw[0], codec_p, table, no_eoa, ccfg, scfg)
-        g32 = make_engine(qdeep, device, torch.float32)
+        g32 = make_engine(qdeep, device, torch.float32, warm=True)
         c32 = make_engine(qdeep, "cpu", torch.float32)
         cuda_int4_mm.LAUNCHES = 0
         steps0 = g32.decode_steps
@@ -1819,7 +1892,7 @@ def phase_quant(engines, weights, device="cuda") -> dict:
         assert launches == (per_step * steps if mode == "w4" else 0) and (
             steps > 0), (mode, launches, steps)
         del g32, c32
-        eng = make_engine(qdeep, device, torch.bfloat16)
+        eng = make_engine(qdeep, device, torch.bfloat16, warm=True)
         out["block_ms"][mode] = statistics.median(block_times(eng))
         del eng
         if on_card:
@@ -1828,7 +1901,8 @@ def phase_quant(engines, weights, device="cuda") -> dict:
             f"(dense f32 {out['bytes']['dense f32']}); f32 card vs f32 CPU, "
             f"EOA off: {same} (K4 launches {launches} = "
             f"{per_step if mode == 'w4' else 0} x {steps} steps); bf16 "
-            f"32-token block {out['block_ms'][mode]:.1f} ms (dense "
+            f"32-token block (one graph replay) "
+            f"{out['block_ms'][mode]:.1f} ms (dense "
             f"{out['block_ms']['dense']:.1f} ms, host clock, median of 8)"
             + (f", as a CUDA graph {out['graph_ms'][mode]:.2f} ms (dense "
                f"{out['graph_ms']['dense']:.2f} ms, device time)"
@@ -1897,10 +1971,15 @@ def phase_quant(engines, weights, device="cuda") -> dict:
     assert type(pool.params["h"]["wfc"]) is quant.Int4Tensor
     srv = build_server(cfg, engines, pool=pool)
     cuda_int4_mm.LAUNCHES = 0
-    steps0 = pool.decode_steps
-    with _Server(srv, port):
+    steps0, disp0, n0 = pool.decode_steps, pool.dispatch_s, pool.steps
+    n_cap = captures()
+    with _Server(srv, port) as server:
+        lag = _LoopLag(server.loop)
         res, wall = _concurrent_round(port, 4, ccfg.hop_length,
                                       ccfg.sample_rate)
+        lag = lag.stop()
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
+    ms_step = 1e3 * (pool.dispatch_s - disp0) / max(pool.steps - n0, 1)
     for sizes, *_ in res:
         assert sizes == sched, (sizes, sched)
     steps = pool.decode_steps - steps0
@@ -1914,13 +1993,236 @@ def phase_quant(engines, weights, device="cuda") -> dict:
         f"{sched} each; first audio "
         f"{', '.join(f'{t:.1f}' for t in out['pool']['ttfa_ms'])} ms; "
         f"{audio:.2f} s audio in {wall:.2f} s, aggregate "
-        f"{audio / wall:.2f} s of audio per second; K4 launches "
-        f"{cuda_int4_mm.LAUNCHES} = {per_step} x {steps} token steps")
+        f"{audio / wall:.2f} s of audio per second; {ms_step:.2f} ms of "
+        f"host time per pool step; {_lag_text(lag)}; "
+        f"{uploads_text(pool._steps, pool._vocode)}"
+        f"; K4 launches {cuda_int4_mm.LAUNCHES} = {per_step} x {steps} "
+        f"token steps")
     del pool, srv
     if on_card:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[quant] peak device memory in phase 12: "
             f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving through CUDA graphs against serving eagerly
+# ---------------------------------------------------------------------------
+
+class _Logged:
+    """A served block's pending result that notes its tokens when fetched."""
+
+    def __init__(self, pending, out):
+        self.pending, self.out = pending, out
+
+    def _keep(self, got):
+        self.out.extend(got[0] if isinstance(got, tuple) else got)
+        return got
+
+    def fetch(self):
+        return self._keep(self.pending.fetch())
+
+    async def afetch(self):
+        return self._keep(await self.pending.afetch())
+
+
+class _TokenLog:
+    """While active, the tokens that every served engine (a dedicated
+    replica, or a pooled request's replica) fetches, in fetch order."""
+
+    def __enter__(self):
+        from llmvox_tpu_torch.serve.engine import TTSEngine
+        from llmvox_tpu_torch.serve.pool import PooledEngine
+        self.by_engine, self._saved = {}, []
+        for cls in (TTSEngine, PooledEngine):
+            for name in ("decode_block_async", "decode_block_fused_async"):
+                orig = cls.__dict__[name]
+                self._saved.append((cls, name, orig))
+                setattr(cls, name, self._wrap(orig))
+        return self
+
+    def _wrap(self, orig):
+        def call(eng, *args, **kwargs):
+            pending, state = orig(eng, *args, **kwargs)
+            return _Logged(pending, self.by_engine.setdefault(eng, [])), state
+        return call
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._saved:
+            setattr(cls, name, orig)
+
+    def streams(self) -> list:
+        return sorted(tuple(v) for v in self.by_engine.values())
+
+
+def _requests(port, n, hop, sr) -> list:
+    """``n`` concurrent ``POST /tts``; per request (chunk sizes in codes,
+    PCM, first audio s, wall s, audio s)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llmvox_tpu_torch.serve.client import post_chunks, to_wave
+
+    def one(i):
+        t0 = time.perf_counter()
+        chunks = post_chunks("127.0.0.1", port, "/tts",
+                             {"text": f"Request {i}."}, timeout=600)
+        wall = time.perf_counter() - t0
+        wav = to_wave(chunks)
+        assert chunks and np.isfinite(wav).all(), "no or non-finite audio"
+        return ([len(c) // 4 // hop for _, c in chunks], wav, chunks[0][0],
+                wall, len(wav) / sr)
+
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        return list(ex.map(one, range(n)))
+
+
+def _build(weights, kind, on, device, dtype, engines=None):
+    """Two replicas (``kind`` "dedicated"; ``engines`` if given) or a
+    16-slot pool with its own codec, with graphs (``on``) or eager, built
+    and warmed."""
+    from llmvox_tpu_torch.codec.codec import WavCodec
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    if kind == "dedicated":
+        return engines or [make_engine(weights, device, dtype, graphs=on,
+                                       warm=True) for _ in range(2)]
+    codec = WavCodec(codec_p, ccfg, buckets=scfg.chunk_buckets,
+                     device=device, graphs=on)
+    pool = DecodePool(dec_p, table, codec, capacity=16, dcfg=dcfg,
+                      scfg=dataclasses.replace(scfg, pool_capacity=16),
+                      device=device, cache_dtype=dtype, graphs=on)
+    pool.warmup()
+    _sync(device)
+    return pool
+
+
+def _serve(weights, obj, kind, n) -> tuple:
+    """``n`` requests on a fresh server over built engines or a pool:
+    one after another on the dedicated replicas, concurrently on the
+    pool.  Returns (per-request results of ``_requests``, the pool's host
+    ms per step or None); asserts that nothing was captured."""
+    from llmvox_tpu_torch.serve.scheduler import StreamingScheduler
+    from llmvox_tpu_torch.serve.server import TTSServer
+    from llmvox_tpu_torch.streams.scripted import ScriptedStream
+    _, _, _, _, ccfg, scfg = weights
+    port = _free_port()
+    cfg = dataclasses.replace(scfg, api_port=port)
+    stream = ScriptedStream([cfg.scripted_reply], eos_token=cfg.eos_token)
+    if kind == "dedicated":
+        srv = TTSServer(StreamingScheduler(obj, cfg), cfg, stream)
+    else:
+        srv = TTSServer(None, cfg, stream, pool=obj)
+        steps0, disp0 = obj.steps, obj.dispatch_s
+    n_cap = captures()
+    with _Server(srv, port):
+        if kind == "dedicated":
+            res = [_requests(port, 1, ccfg.hop_length, ccfg.sample_rate)[0]
+                   for _ in range(n)]
+        else:
+            res = _requests(port, n, ccfg.hop_length, ccfg.sample_rate)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
+    ms_step = (None if kind == "dedicated" else
+               1e3 * (obj.dispatch_s - disp0) / max(obj.steps - steps0, 1))
+    return res, ms_step
+
+
+def phase_graphs(engines, weights, device="cuda") -> dict:
+    """Served with CUDA graphs and again eagerly, in one process.  f32: the
+    dedicated replicas (one request), a 16-slot pool, the spec pool on the
+    (0, 2, 4) ladder and a 16-slot w4 pool (4 concurrent requests each):
+    the same chunks, the same tokens on every served stream, PCM within
+    1e-5.  bf16, in turns graph, eager, eager, graph, without the lag
+    ticker: TTFA and RTF on the dedicated replicas (3 requests), TTFA,
+    aggregate and the host ms per pool step at 4 and 8 concurrent
+    requests on a 16-slot pool (EOA off).  ``engines`` are phase 3's bf16
+    replicas, which serve through graphs."""
+    dcfg = weights[3]
+    cases = {"dedicated replicas": (weights, "dedicated"),
+             "pool": (weights, "pool"),
+             "spec pool, ladder (0, 2, 4)": (
+                 (*with_draft_heads(weights)[:5],
+                  dataclasses.replace(weights[5], spec_decode=True,
+                                      spec_k_draft=SPEC_K,
+                                      spec_k_ladder=(0, 2, SPEC_K))),
+                 "pool"),
+             "w4 pool": (_quantized(weights, "w4"), "pool")}
+    out = {"f32": {}, "bf16": {}}
+    for name, (w, kind) in cases.items():
+        n = 1 if kind == "dedicated" else 4
+        got = {}
+        for on in (True, False):
+            obj = _build(w, kind, on, device, torch.float32)
+            with _TokenLog() as toks:
+                res, _ = _serve(w, obj, kind, n)
+            got[on] = (res, toks.streams())
+            del obj
+            gc.collect()
+        (rg, sg), (re, se) = got[True], got[False]
+        assert [r[0] for r in rg] == [r[0] for r in re], name
+        assert sg == se and len(sg) >= 2 * n, (name, sg, se)
+        diff = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(rg, re))
+        assert diff <= 1e-5, (name, diff)
+        out["f32"][name] = diff
+        log(f"[graphs] f32 {name}: {n} request(s) with CUDA graphs and "
+            f"eagerly: chunks {rg[0][0]} alike, the same tokens on all "
+            f"{len(sg)} served streams ({sum(map(len, sg))} tokens), PCM "
+            f"max |diff| {diff:.3g}")
+
+    # bf16 timing, in turns
+    no_eoa = (*weights[:3], dataclasses.replace(dcfg, eoa_token_id=-1),
+              *weights[4:])
+    built = {}
+    for on in (True, False):
+        eng = _build(weights, "dedicated", on, device, torch.bfloat16,
+                     engines=engines if on else None)
+        pool = _build(no_eoa, "pool", on, device, torch.bfloat16)
+        # one untimed request each, so that both modes start warm alike
+        _serve(weights, eng, "dedicated", 1)
+        _serve(no_eoa, pool, "pool", 4)
+        built[on] = (eng, pool)
+    turns = {True: [], False: []}
+    for on in (True, False, False, True):
+        eng, pool = built[on]
+        ded, _ = _serve(weights, eng, "dedicated", 3)
+        rec = {"ttfa_ms": [r[2] * 1e3 for r in ded],
+               "rtf": [r[3] / r[4] for r in ded]}
+        for n in (4, 8):
+            t0 = time.perf_counter()
+            res, ms_step = _serve(no_eoa, pool, "pool", n)
+            wall = time.perf_counter() - t0
+            rec[f"pool {n}"] = {"ttfa_ms": [r[2] * 1e3 for r in res],
+                                "aggregate": sum(r[4] for r in res) / wall,
+                                "ms_per_step": ms_step}
+        turns[on].append(rec)
+    for on in (True, False):
+        mode = "graphs" if on else "eager"
+        rs = turns[on]
+        ttfa = [x for r in rs for x in r["ttfa_ms"]]
+        rtf = [x for r in rs for x in r["rtf"]]
+        summary = {"ttfa_ms": statistics.median(ttfa),
+                   "rtf": statistics.median(rtf)}
+        text = (f"[graphs] bf16 {mode} (2 turns): dedicated TTFA median "
+                f"{summary['ttfa_ms']:.1f} ms ({min(ttfa):.1f}-"
+                f"{max(ttfa):.1f}), RTF median {summary['rtf']:.3f} "
+                f"({min(rtf):.3f}-{max(rtf):.3f})")
+        for n in (4, 8):
+            pr = [r[f"pool {n}"] for r in rs]
+            pt = [x for r in pr for x in r["ttfa_ms"]]
+            summary[f"pool {n}"] = {
+                "ttfa_ms": statistics.median(pt),
+                "aggregate": [r["aggregate"] for r in pr],
+                "ms_per_step": [r["ms_per_step"] for r in pr]}
+            text += (f"; pool {n}-way TTFA median "
+                     f"{statistics.median(pt):.1f} ms, aggregate "
+                     + "/".join(f"{r['aggregate']:.2f}" for r in pr)
+                     + " s of audio per s, host ms per step "
+                     + "/".join(f"{r['ms_per_step']:.2f}" for r in pr))
+        out["bf16"][mode] = summary
+        log(text)
+    del built
+    gc.collect()
+    log(f"[graphs] {graphs_text()}")
+    log(json.dumps({"graphs_vs_eager": out}))
     return out
 
 
@@ -2121,6 +2423,7 @@ def main(argv) -> int:
         phase_spec_offline(weights)
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
         quant_launches = phase_quant(engines, weights)["k4_launches"]
+        phase_graphs(engines, weights)
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",

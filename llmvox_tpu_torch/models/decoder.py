@@ -22,7 +22,13 @@ the JAX functions of the same names) verifies ``k_draft`` drafted tokens
 per stream in one ``k_draft + 1``-position forward whose attention is
 kernel K3.  JAX runs it as a ``lax.while_loop`` that ends when no stream
 is active; here the loop's stop test comes back to the host one
-iteration late (see ``decode_block_spec_batch``).
+iteration late (``run_spec_loop``), and an iteration is a function of
+buffers it updates in place (``SpecBuffers``, ``spec_iteration``), so a
+served block replays one CUDA graph per iteration.
+
+Served blocks keep one static ``DecodeState`` per engine or pool and
+write the next state into it (``assign_state``), so a CUDA graph can
+capture a block (``utils/graphs.py``).
 
 Quantized params (``ops/quant.py``, ``--quantize``) flow through every
 path unchanged: ``v[layer]`` of a stacked container is that layer's 2-D
@@ -40,12 +46,14 @@ from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
     cuda_verify_attn, nn
 from llmvox_tpu_torch.utils.config import DecoderConfig
 from llmvox_tpu_torch.utils.device import Fetch
+from llmvox_tpu_torch.utils.graphs import register_counter
 
 # Speculative iterations issued since the last reset; each runs one verify
 # forward, n_layer K3 launches on the card.  Engines issue from their own
 # dispatch threads, so the count is taken under a lock.
 SPEC_ITERATIONS = 0
 _spec_lock = threading.Lock()
+register_counter(__name__, "SPEC_ITERATIONS", _spec_lock)
 
 
 class DecodeState(NamedTuple):
@@ -155,6 +163,26 @@ def decode_block(params: Dict, text_table: torch.Tensor,
     n = (tokens >= 0).sum(dtype=torch.int32)
     return tokens, n, DecodeState(state.k_cache, state.v_cache, pos, prev,
                                   done)
+
+
+def assign_state(dst: DecodeState, src: DecodeState) -> None:
+    """Copy ``src``'s pos, prev_token and done into ``dst``'s tensors (the
+    caches are the same tensors): the in-place form of a block's state
+    update, which keeps a static DecodeState static for a CUDA graph."""
+    dst.pos.copy_(src.pos)
+    dst.prev_token.copy_(src.prev_token)
+    dst.done.copy_(src.done)
+
+
+def masked_reset(states: DecodeState, mask: torch.Tensor) -> DecodeState:
+    """Zero ``pos``/``prev_token``/``done`` where the bool device ``mask``
+    (the shape of ``pos``) is set: a fixed-shape select, no host sync.
+    Resetting these suffices: cache rows beyond pos are never attended
+    and are overwritten before they are read."""
+    return states._replace(
+        pos=torch.where(mask, 0, states.pos),
+        prev_token=torch.where(mask, 0, states.prev_token),
+        done=torch.where(mask, False, states.done))
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +351,160 @@ def _decode_many_batch(params: Dict, cfg: DecoderConfig, xs: torch.Tensor,
     return torch.argmax(logits, dim=-1).to(torch.int32), x
 
 
+class SpecBuffers(NamedTuple):
+    """What a speculative block carries from one iteration to the next,
+    beside the DecodeState: B streams, ``block`` tokens, k drafts.  Every
+    iteration reads and writes these tensors in place, so a block is one
+    start and then iterations over the same buffers (one CUDA graph each
+    when served, ``serve/engine.py``, ``serve/pool.py``)."""
+
+    wpad: torch.Tensor    # (B, block + k + 1) int32: windows, then PAD
+    limits: torch.Tensor  # (B,) int32, clamped to block
+    d: torch.Tensor       # (B, k) int32: drafts for the next iteration
+    out: torch.Tensor     # (B, block + k + 1) int32: commits, else -1
+    count: torch.Tensor   # (B,) int32: tokens committed
+    iters: torch.Tensor   # (B,) int32: active iterations
+    flag: torch.Tensor    # () bool: is any stream still active
+    dpad: Optional[torch.Tensor]  # (B, block + k + 1) explicit drafts
+
+
+def spec_buffers(batch: int, block: int, k_draft: int, device,
+                 drafts: bool = False) -> SpecBuffers:
+    """Buffers of a speculative block; ``drafts`` for explicit drafts
+    instead of the draft heads."""
+    i32 = dict(dtype=torch.int32, device=device)
+    w = block + k_draft + 1
+    return SpecBuffers(
+        wpad=torch.zeros((batch, w), **i32),
+        limits=torch.zeros((batch,), **i32),
+        d=torch.zeros((batch, k_draft), **i32),
+        out=torch.full((batch, w), -1, **i32),
+        count=torch.zeros((batch,), **i32),
+        iters=torch.zeros((batch,), **i32),
+        flag=torch.zeros((), dtype=torch.bool, device=device),
+        dpad=torch.zeros((batch, w), **i32) if drafts else None)
+
+
+def spec_start(states: DecodeState, bufs: SpecBuffers,
+               text_windows: torch.Tensor, limits: torch.Tensor,
+               cfg: DecoderConfig,
+               draft_tokens: Optional[torch.Tensor] = None) -> None:
+    """Begin a speculative block in ``bufs``, in place: the windows padded
+    by k + 1 PAD ids, limits clamped to the block, no drafts (or the
+    first explicit ones), nothing committed, and the flag of the streams
+    active before the first iteration."""
+    kd = bufs.d.shape[1]
+    block = bufs.out.shape[1] - kd - 1
+    bufs.limits.copy_(limits.clamp(max=block))
+    bufs.wpad[:, :block].copy_(text_windows)
+    bufs.wpad[:, block:].fill_(cfg.pad_token_id)
+    if bufs.dpad is not None:
+        bufs.dpad[:, :block].copy_(draft_tokens.clamp_min(0))
+        bufs.dpad[:, block:].zero_()
+        bufs.d.copy_(bufs.dpad[:, :kd])
+    else:
+        bufs.d.zero_()
+    bufs.out.fill_(-1)
+    bufs.count.zero_()
+    bufs.iters.zero_()
+    bufs.flag.copy_(((bufs.count < bufs.limits) & ~states.done).any())
+
+
+def spec_iteration(params: Dict, text_table: torch.Tensor,
+                   codebook: torch.Tensor, states: DecodeState,
+                   bufs: SpecBuffers, text_lens: torch.Tensor,
+                   cfg: DecoderConfig,
+                   heads: Optional[torch.Tensor] = None) -> None:
+    """One iteration of a speculative block, in place on ``states`` and
+    ``bufs``: ONE forward over ``k + 1`` positions per stream; each active
+    stream commits slot 0 and its matching draft prefix, up to its limit
+    and its EOA, and drafts again from its last committed slot (with the
+    f32 draft ``heads`` (k, C, vocab), or from ``bufs.dpad``).  A stream
+    that is not active commits nothing and keeps its state; its forward
+    writes only cache rows at and above its ``pos``.  Ends with the flag
+    of the streams still active."""
+    global SPEC_ITERATIONS
+    dev = states.pos.device
+    compute_dtype = states.k_cache.dtype
+    bsz, kd = bufs.d.shape
+    pad, eoa = cfg.pad_token_id, cfg.eoa_token_id
+    offs1 = torch.arange(kd + 1, dtype=torch.int32, device=dev)
+    count, limits, d = bufs.count, bufs.limits, bufs.d
+    pos, prev, done = states.pos, states.prev_token, states.done
+    active = (count < limits) & ~done
+    prevs = torch.cat([prev[:, None], d], dim=1)                  # (B, kd+1)
+    tseg = bufs.wpad.gather(1, (count[:, None] + offs1).long())
+    post = pos[:, None] + offs1
+    tids = torch.where(post < text_lens[:, None], tseg, pad)
+    tembs = text_table.index_select(0, tids.reshape(-1)).view(
+        bsz, kd + 1, -1)
+    sfeats = torch.where(
+        (post == 0)[..., None], 0.0,
+        codebook.index_select(0, prevs.reshape(-1)).view(bsz, kd + 1, -1))
+    xs = nn.l2_normalize(torch.cat([tembs, sfeats], dim=-1)).to(
+        compute_dtype)
+    a, hidden = _decode_many_batch(params, cfg, xs, states, kd + 1)
+
+    # each stream commits slot 0 and its matching draft prefix
+    prefix_ok = torch.cat([
+        torch.ones((bsz, 1), dtype=torch.bool, device=dev),
+        torch.cumprod((d == a[:, :kd]).to(torch.int32), dim=1).bool()],
+        dim=1)
+    eoa_before = torch.cat([
+        torch.zeros((bsz, 1), dtype=torch.bool, device=dev),
+        torch.cumsum((a == eoa).to(torch.int32), dim=1)[:, :-1] > 0],
+        dim=1)
+    commit = (active[:, None] & prefix_ok
+              & (count[:, None] + offs1 < limits[:, None]) & ~eoa_before)
+    m = commit.sum(dim=1, dtype=torch.int32)
+    sel = (m - 1).clamp_min(0).long()[:, None]
+    last = torch.where(m > 0, a.gather(1, sel)[:, 0], prev)
+    new_done = done | (commit & (a == eoa)).any(dim=1)
+
+    # the next drafts, from each stream's last committed slot
+    if bufs.dpad is not None:
+        new_d = bufs.dpad.gather(1, ((count + m)[:, None]
+                                     + offs1[:kd]).long())
+    else:
+        h_last = hidden.gather(
+            1, sel[..., None].expand(bsz, 1, hidden.shape[-1]))[:, 0]
+        new_d = torch.einsum("bc,kcv->bkv", h_last.float(), heads).argmax(
+            dim=-1).to(torch.int32)
+
+    # a frozen stream writes -1 at [count..count+kd], where out is -1
+    bufs.out.scatter_(1, (count[:, None] + offs1).long(),
+                      torch.where(commit, a, -1))
+    pos.add_(m)
+    prev.copy_(last)
+    done.copy_(new_done)
+    count.add_(m)
+    bufs.iters.add_(active.to(torch.int32))
+    d.copy_(new_d)
+    bufs.flag.copy_(((count < limits) & ~done).any())
+    with _spec_lock:
+        SPEC_ITERATIONS += 1
+
+
+def run_spec_loop(start, iterate, flag: torch.Tensor, block: int) -> None:
+    """Issue one speculative block: ``start()``, then up to ``block`` calls
+    of ``iterate()`` (eager bodies, or one graph replay each).  JAX's
+    ``lax.while_loop`` runs until no stream is active.  Here the 0-d
+    ``flag`` is copied to pinned host memory after each call without
+    blocking, and the host waits for iteration i's flag only before it
+    issues iteration i+2, so it stays one iteration ahead of the card.
+    So one iteration more than JAX's is issued (none more than
+    ``block``): it is masked and commits nothing.  The copies are issued
+    here, outside any graph: an event recorded inside a capture cannot be
+    waited for."""
+    start()
+    flags = [Fetch(flag)]      # flags[i]: is any stream active before i
+    for i in range(block):
+        if i >= 1 and not bool(flags[i - 1].get()):
+            break
+        iterate()
+        flags.append(Fetch(flag))
+
+
 def decode_block_spec_batch(params: Dict, text_table: torch.Tensor,
                             codebook: torch.Tensor, states: DecodeState,
                             text_windows: torch.Tensor,
@@ -333,109 +515,36 @@ def decode_block_spec_batch(params: Dict, text_table: torch.Tensor,
     """Speculative ``decode_block_batch``: the same tokens for any drafts,
     in fewer iterations when drafts are good.
 
-    Each iteration runs ONE forward over ``k_draft + 1`` positions per
-    stream: slot 0 conditioned on the stream's committed previous token
-    (always exact), slots 1..k on the drafts carried from the previous
-    iteration (``params["draft_heads"]`` on the hidden state at the
-    stream's last committed slot, or the explicit ``draft_tokens``
-    (B, block) stream).  Each active stream commits slot 0 plus the prefix
-    whose drafts matched, up to its limit and its EOA; rejected slots'
-    cache rows lie above ``pos`` and are overwritten before anything
-    attends to them.  Limits above ``block`` count as ``block``.
-
-    The loop: JAX's ``lax.while_loop`` runs until no stream is active.
-    Here each iteration ends by copying "any stream active" to pinned host
-    memory without blocking, and the host waits for iteration i's flag
-    only before it issues iteration i+2, so it stays one iteration ahead
-    of the card.  So one iteration more than JAX's is issued (none more
-    than ``block``): it is masked, commits nothing and leaves ``pos``,
-    ``prev_token``, ``done`` and ``iters`` as they were; it writes only
-    cache rows at and above ``pos``.  ``SPEC_ITERATIONS`` counts the
-    iterations issued.
+    Each iteration (``spec_iteration``) runs ONE forward over
+    ``k_draft + 1`` positions per stream: slot 0 conditioned on the
+    stream's committed previous token (always exact), slots 1..k on the
+    drafts carried from the previous iteration (``params["draft_heads"]``
+    on the hidden state at the stream's last committed slot, or the
+    explicit ``draft_tokens`` (B, block) stream).  Each active stream
+    commits slot 0 plus the prefix whose drafts matched, up to its limit
+    and its EOA; rejected slots' cache rows lie above ``pos`` and are
+    overwritten before anything attends to them.  Limits above ``block``
+    count as ``block``.  The loop is ``run_spec_loop``'s, one iteration
+    ahead of the card; ``SPEC_ITERATIONS`` counts the iterations issued.
+    The caches are written in place; ``states``' pos, prev_token and
+    done are not (the returned state holds new ones).
 
     Returns (tokens (B, block) int32 with -1 at inactive slots, n (B,),
     states, iters (B,): each stream's active iterations, as JAX counts
     them)."""
-    global SPEC_ITERATIONS
-    dev = states.pos.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    compute_dtype = states.k_cache.dtype
-    bsz, kd = states.pos.shape[0], k_draft
-    pad, eoa = cfg.pad_token_id, cfg.eoa_token_id
-    limits = limits.clamp(max=block)
-    wpad = torch.cat([text_windows.to(torch.int32),
-                      torch.full((bsz, kd + 1), pad, **i32)], dim=1)
-    offs1 = torch.arange(kd + 1, **i32)
-    if draft_tokens is not None:
-        dpad = torch.cat([draft_tokens.to(torch.int32).clamp_min(0),
-                          torch.zeros((bsz, kd + 1), **i32)], dim=1)
-        d = dpad[:, :kd]
-    else:
-        heads = params["draft_heads"][:kd].float()
-        d = torch.zeros((bsz, kd), **i32)
-    out = torch.full((bsz, block + kd + 1), -1, **i32)
-    count = torch.zeros((bsz,), **i32)
-    iters = torch.zeros((bsz,), **i32)
-    pos, prev, done = states.pos, states.prev_token, states.done
-    # flags[i]: is any stream active before iteration i
-    flags = [Fetch(((count < limits) & ~done).any())]
-    for i in range(block):
-        if i >= 1 and not bool(flags[i - 1].get()):
-            break
-        active = (count < limits) & ~done
-        prevs = torch.cat([prev[:, None], d], dim=1)              # (B, kd+1)
-        tseg = wpad.gather(1, (count[:, None] + offs1).long())
-        post = pos[:, None] + offs1
-        tids = torch.where(post < text_lens[:, None], tseg, pad)
-        tembs = text_table.index_select(0, tids.reshape(-1)).view(
-            bsz, kd + 1, -1)
-        sfeats = torch.where(
-            (post == 0)[..., None], 0.0,
-            codebook.index_select(0, prevs.reshape(-1)).view(bsz, kd + 1, -1))
-        xs = nn.l2_normalize(torch.cat([tembs, sfeats], dim=-1)).to(
-            compute_dtype)
-        a, hidden = _decode_many_batch(
-            params, cfg, xs,
-            DecodeState(states.k_cache, states.v_cache, pos, prev, done),
-            kd + 1)
-
-        # each stream commits slot 0 and its matching draft prefix
-        prefix_ok = torch.cat([
-            torch.ones((bsz, 1), dtype=torch.bool, device=dev),
-            torch.cumprod((d == a[:, :kd]).to(torch.int32), dim=1).bool()],
-            dim=1)
-        eoa_before = torch.cat([
-            torch.zeros((bsz, 1), dtype=torch.bool, device=dev),
-            torch.cumsum((a == eoa).to(torch.int32), dim=1)[:, :-1] > 0],
-            dim=1)
-        commit = (active[:, None] & prefix_ok
-                  & (count[:, None] + offs1 < limits[:, None]) & ~eoa_before)
-        m = commit.sum(dim=1, dtype=torch.int32)
-        sel = (m - 1).clamp_min(0).long()[:, None]
-        last = torch.where(m > 0, a.gather(1, sel)[:, 0], prev)
-        done = done | (commit & (a == eoa)).any(dim=1)
-
-        # the next drafts, from each stream's last committed slot
-        if draft_tokens is not None:
-            d = dpad.gather(1, ((count + m)[:, None] + offs1[:kd]).long())
-        else:
-            h_last = hidden.gather(
-                1, sel[..., None].expand(bsz, 1, hidden.shape[-1]))[:, 0]
-            d = torch.einsum("bc,kcv->bkv", h_last.float(), heads).argmax(
-                dim=-1).to(torch.int32)
-
-        # a frozen stream writes -1 at [count..count+kd], where out is -1
-        out.scatter_(1, (count[:, None] + offs1).long(),
-                     torch.where(commit, a, -1))
-        pos, prev = pos + m, last
-        count = count + m
-        iters = iters + active.to(torch.int32)
-        with _spec_lock:
-            SPEC_ITERATIONS += 1
-        flags.append(Fetch(((count < limits) & ~done).any()))
-    return (out[:, :block], count,
-            DecodeState(states.k_cache, states.v_cache, pos, prev, done),
-            iters)
+    bufs = spec_buffers(states.pos.shape[0], block, k_draft,
+                        states.pos.device, drafts=draft_tokens is not None)
+    heads = (None if draft_tokens is not None
+             else params["draft_heads"][:k_draft].float())
+    st = DecodeState(states.k_cache, states.v_cache, states.pos.clone(),
+                     states.prev_token.clone(), states.done.clone())
+    run_spec_loop(
+        lambda: spec_start(st, bufs, text_windows, limits, cfg,
+                           draft_tokens),
+        lambda: spec_iteration(params, text_table, codebook, st, bufs,
+                               text_lens, cfg, heads),
+        bufs.flag, block)
+    return bufs.out[:, :block], bufs.count, st, bufs.iters
 
 
 def decode_block_spec(params: Dict, text_table: torch.Tensor,

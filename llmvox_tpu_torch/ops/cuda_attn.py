@@ -21,11 +21,13 @@ import threading
 import torch
 
 from llmvox_tpu_torch.ops import attention, build
+from llmvox_tpu_torch.utils.graphs import register_counter
 
 # Kernel launches since the last reset (one per decode_attention call that
 # launched the CUDA kernel; the CPU path does not count).
 LAUNCHES = 0
 _count_lock = threading.Lock()
+register_counter(__name__, "LAUNCHES", _count_lock)
 
 # Blocks per head, one thread-block cluster: ``kCluster`` in the kernel's
 # source, 8, the portable cluster size (16 measured slower at served

@@ -23,11 +23,13 @@ import threading
 import torch
 
 from llmvox_tpu_torch.ops import build
+from llmvox_tpu_torch.utils.graphs import register_counter
 
 # Kernel launches since the last reset (one per call that launched the
 # CUDA kernel; the CPU path does not count).
 LAUNCHES = 0
 _count_lock = threading.Lock()
+register_counter(__name__, "LAUNCHES", _count_lock)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None

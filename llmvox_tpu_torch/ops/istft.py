@@ -8,10 +8,19 @@ into r hop-sized segments that are summed with r shifted adds.
 """
 from __future__ import annotations
 
+import threading
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
 
 from llmvox_tpu_torch.ops.nn import valid_mask
+
+# Hann windows on their devices, made once: a copy from pageable host
+# memory per call would sync the stream (every synthesis would wait for
+# the decode work queued before it), and a CUDA graph cannot capture it.
+_windows: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+_windows_lock = threading.Lock()
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -19,6 +28,18 @@ def hann_window(win_length: int) -> np.ndarray:
     n = np.arange(win_length)
     return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(
         np.float32)
+
+
+def device_window(win_length: int, device) -> torch.Tensor:
+    """The periodic Hann window as a tensor on ``device``, cached per
+    (length, device)."""
+    key = (win_length, torch.device(device))
+    with _windows_lock:
+        w = _windows.get(key)
+        if w is None:
+            w = _windows[key] = torch.from_numpy(
+                hann_window(win_length)).to(key[1])
+        return w
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
@@ -46,7 +67,7 @@ def istft_same(spec: torch.Tensor, *, n_fft: int, hop_length: int,
     pad = (win - hop_length) // 2
     b, t, nbins = spec.shape
     assert nbins == n_fft // 2 + 1
-    window = torch.from_numpy(hann_window(win)).to(spec.device)
+    window = device_window(win, spec.device)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1).float() * window
     env_frames = window.square().expand(1, t, win)
     if valid_len is not None:

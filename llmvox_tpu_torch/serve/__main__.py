@@ -18,7 +18,10 @@ or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
 ``--random_seed`` the random decoder then carries random draft heads.
 ``--quantize w8 | w8a8 | w4`` quantizes the speech decoder's matmul
 weights after loading (random ones too), before the replicas and the pool
-are built; w4 runs its matmuls through kernel K4.
+are built; w4 runs its matmuls through kernel K4.  On a card, warmup
+captures a CUDA graph for every decode block, pool step, speculative
+iteration and codec bucket that serving can reach, and prints how many,
+in how many seconds, and the graph pool's bytes, before the port listens.
 
     python -m llmvox_tpu_torch.serve --random_seed 0 \\
         --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
@@ -54,6 +57,7 @@ def main(argv=None) -> None:
     from llmvox_tpu_torch.serve.engine import TTSEngine
     from llmvox_tpu_torch.serve.pool import DecodePool, PoolLadder
     from llmvox_tpu_torch.serve.server import build_server
+    from llmvox_tpu_torch.utils import graphs
     from llmvox_tpu_torch.utils import params as P
 
     parser = argparse.ArgumentParser(
@@ -105,7 +109,8 @@ def main(argv=None) -> None:
                          device=dev)
         engines.append(TTSEngine(dec_params, table, codec, dcfg, cfg,
                                  device=dev, cache_dtype=dtype))
-    print("warming up (kernel build, decode blocks, synthesis buckets)...",
+    print("warming up (kernel build; a CUDA graph per decode block, fused "
+          "first chunk, speculative iteration and synthesis bucket)...",
           flush=True)
     for e in engines:
         e.warmup()
@@ -125,8 +130,11 @@ def main(argv=None) -> None:
                           device=devices[0], cache_dtype=dtype)
         print(f"continuous-batching pool: {cfg.pool_capacity} slots",
               flush=True)
-    # build_server warms the pool (step widths, synthesis buckets)
-    build_server(cfg, engines, pool=pool).run()
+    # build_server warms the pool (step widths and rungs, synthesis
+    # buckets); every capture happens before the port listens
+    server = build_server(cfg, engines, pool=pool)
+    print(graphs.summary(), flush=True)
+    server.run()
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ Counterpart of ``llmvox_tpu/serve/batch.py::BatchTTS``.  Every decode step
 reads the decoder weights once for all streams, the KV caches are batched
 (``models/decoder.py::decode_block_batch``, attention through kernel K2 on
 the card), and the streams' codes are vocoded in one ragged batched codec
-call (``WavCodec.decode_codes_ragged``).  The multi-device sharded decode
-(``make_sharded_decode``) is not ported: a ``mesh`` argument raises.
+call (``WavCodec.decode_codes_device``).  This offline path runs
+eagerly; serving goes through CUDA graphs (``utils/graphs.py``).  The
+multi-device sharded decode (``make_sharded_decode``) is not ported: a
+``mesh`` argument raises.
 """
 from __future__ import annotations
 
@@ -149,6 +151,11 @@ class BatchTTS:
         codes = np.zeros((len(synth), int(lengths.max())), np.int32)
         for i, seq in enumerate(synth):
             codes[i, : len(seq)] = seq
-        wavs = self.codec.decode_codes_ragged(codes, lengths)
-        return [w if synth[i] else np.zeros(0, np.float32)
-                for i, w in enumerate(wavs)]
+        # the offline batch path runs eagerly (it is not captured): the
+        # codec's ragged decode on the device, outside its graphs
+        wav = self.codec.decode_codes_device(
+            _to_device(self.codec.pad_ragged(codes, lengths), self.device),
+            _to_device(lengths, self.device)).cpu().numpy()
+        hop = self.codec.cfg.hop_length
+        return [wav[i, : int(lengths[i]) * hop] if synth[i]
+                else np.zeros(0, np.float32) for i in range(len(synth))]

@@ -15,19 +15,26 @@ applied lazily on the pool loop, before the next gather.  Up to
 fused first-chunk audio) come back in one device-to-host copy into pinned
 memory, started at dispatch and waited for on its own task.
 
-In-place state.  The JAX pool's state is immutable, so a step in flight
-owns its own version.  Here the KV caches are written in place, and
-``pos``/``prev_token``/``done`` are replaced by each step's outputs.  That
-is correct only because every pool step and every reset is enqueued on
-the same CUDA stream, in dispatch order: a later step or reset cannot run
-on the device before an earlier step has read the state it needs.  So
-nothing here moves decode to a side stream.
+In-place state and CUDA graphs.  The JAX pool's state is immutable, so
+a step in flight owns its own version.  Here the pool holds ONE static
+batched ``DecodeState``: a step reads its inputs from a static buffer
+(the reset mask, text lengths, limits, windows and the fused groups'
+rows, which the step's one host-to-device copy fills), applies the reset
+mask on the device, and writes its tokens and the next state in place
+(``utils/graphs.py``).  On a card ``warmup`` captures each (width, rung)
+of ``_decode_fns`` (a greedy step, or a speculative start and iteration)
+and the fused groups' gather and vocode per (width, bucket), and a step
+is replays of those graphs; anything else raises.  That is correct only
+because every step is issued on one thread, on one CUDA stream, in
+dispatch order: a later step cannot run on the device before an earlier
+step's results have been copied out.  So nothing here moves decode to a
+side stream.
 
 Dispatch.  A step is split in two (``_dispatch_step``).  The gather runs
 on the event loop: it takes the pending resets, pops the slot queues
 (which ``submit`` also touches) and builds the numpy windows.  The launch
-(the one pinned copy, the resets, the eager step, the fused vocodes and
-the fetch) runs on the device's dispatch thread
+(the one pinned copy, the step's replays, the fused vocodes and the
+fetch) runs on the device's dispatch thread
 (``utils/device.py::dispatch_executor``), so the loop stays free
 for arrivals and chunk writes while a step's hundreds of kernels are
 issued.  The loop does not wait for a launch to gather the next step:
@@ -64,11 +71,11 @@ import torch.nn.functional as F
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.serve.batch import MESH_NOT_PORTED
-from llmvox_tpu_torch.serve.engine import _to_device
 from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
 from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
                                            resolve_device)
+from llmvox_tpu_torch.utils.graphs import GraphSet, fill, settle, use_graphs
 from llmvox_tpu_torch.utils.params import to_torch
 
 
@@ -88,14 +95,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _masked_reset(states: dec.DecodeState,
-                  mask: torch.Tensor) -> dec.DecodeState:
-    """Zero ``pos``/``prev_token``/``done`` of the rows in the (B,) bool
-    device ``mask``: a fixed-shape select, no host sync."""
-    return states._replace(
-        pos=torch.where(mask, 0, states.pos),
-        prev_token=torch.where(mask, 0, states.prev_token),
-        done=torch.where(mask, False, states.done))
+_masked_reset = dec.masked_reset
 
 
 def _fail(heads, exc: BaseException) -> None:
@@ -125,17 +125,15 @@ class _Request:
 class _Plan:
     """A gathered step: what the dispatch thread launches."""
     __slots__ = ("gather_s", "width", "rung", "heads", "fused", "groups",
-                 "reset", "host")
+                 "host")
 
-    def __init__(self, gather_s, width, rung, heads, fused, groups, reset,
-                 host):
+    def __init__(self, gather_s, width, rung, heads, fused, groups, host):
         self.gather_s = gather_s  # host seconds the gather took
         self.width = width
         self.rung = rung
         self.heads = heads        # (slot, request, token-row offset)
         self.fused = fused        # (slot, request) of the fused heads
         self.groups = groups      # (fused slot idx, fused dumps, bucket)
-        self.reset = reset        # any slot to reset before the step
         self.host = host          # every input of the step, one int32 array
 
 
@@ -167,7 +165,8 @@ class DecodePool:
                  dcfg: Optional[DecoderConfig] = None,
                  scfg: Optional[ServeConfig] = None, *, device="cuda",
                  cache_dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: Optional[torch.dtype] = None, mesh=None):
+                 param_dtype: Optional[torch.dtype] = None, mesh=None,
+                 graphs: Optional[bool] = None):
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
         self.dcfg = dcfg or DecoderConfig()
@@ -215,12 +214,32 @@ class DecodePool:
                            if self.scfg.spec_k_draft in rungs else None))
         if self._spec:
             dec.check_draft_heads(self.params, self.dcfg, max(rungs))
-        self._decode_fns = {(w, k): self._decode_fn(w, k)
-                            for w in self._widths for k in rungs}
+            self._heads = self.params["draft_heads"][:max(rungs)].float()
         # fused first chunks vocode at the bucket of the step's largest
         # fused dump, capped here (dumps never exceed the block)
         self._fuse_bucket = codec.bucket_for(min(self.block,
                                                  max(codec.buckets)))
+        # static buffers: the step's inputs (reset mask, text lengths,
+        # limits, windows, then each fused group's slots and dumps), one
+        # fused group's rows for its vocode, each width's tokens
+        nb = 2 * self.SYNTH_BATCH
+        self._in = torch.zeros(
+            (3 * self.B + self.B * self.big_block
+             + -(-self.B // self.SYNTH_BATCH) * nb,),
+            dtype=torch.int32, device=self.device)
+        self._fused_in = torch.ones((nb,), dtype=torch.int32,
+                                    device=self.device)
+        self._tok = {w: torch.full((self.B, w), -1, dtype=torch.int32,
+                                   device=self.device)
+                     for w in self._widths}
+        self._spec_bufs: Dict[Tuple[int, int], dec.SpecBuffers] = {}
+        use = use_graphs(self.device, graphs)
+        self._steps = GraphSet("pool step", self.device, use,
+                               self._make_step)
+        self._vocode = GraphSet("pool fused vocode", self.device, use,
+                                self._make_vocode)
+        self._decode_fns = {(w, k): self._decode_fn(w, k)
+                            for w in self._widths for k in rungs}
         self.slots = [_Slot() for _ in range(self.B)]
         self._task: Optional[asyncio.Task] = None
         self._wake: Optional[asyncio.Event] = None
@@ -285,19 +304,76 @@ class DecodePool:
             self._wake.set()
         return fut
 
+    def _make_step(self, key: Tuple[int, int, str]):
+        """(width, 0, "step"): the greedy block (attention through K2);
+        (width, k, "start") and (width, k, "iter"): the speculative
+        block's start and iteration at k drafts (K3).  Each applies the
+        reset mask first where it begins a block."""
+        w, k, part = key
+        b = self.B
+        reset = self._in[:b]
+        tl, lim = self._in[b:2 * b], self._in[2 * b:3 * b]
+        windows = self._in[3 * b:3 * b + b * w].view(b, w)
+        tokens = self._tok[w]
+
+        def apply_reset():
+            dec.assign_state(self.states,
+                             _masked_reset(self.states, reset.bool()))
+
+        if k == 0:
+            n = torch.zeros((b,), dtype=torch.int32, device=self.device)
+
+            def body():
+                apply_reset()
+                toks, nprod, new = dec.decode_block_batch(
+                    self.params, self.text_table, self.codebook,
+                    self.states, windows, tl, lim, self.dcfg, block=w)
+                dec.assign_state(self.states, new)
+                tokens.copy_(toks)
+                n.copy_(nprod)
+            return body, (tokens, n, None)
+        if (w, k) not in self._spec_bufs:
+            self._spec_bufs[(w, k)] = dec.spec_buffers(b, w, k, self.device)
+        bufs = self._spec_bufs[(w, k)]
+        if part == "start":
+            def body():
+                apply_reset()
+                dec.spec_start(self.states, bufs, windows, lim, self.dcfg)
+        else:
+            def body():
+                dec.spec_iteration(self.params, self.text_table,
+                                   self.codebook, self.states, bufs, tl,
+                                   self.dcfg, self._heads[:k])
+        return body, bufs
+
+    def _make_vocode(self, key: Tuple[int, int]):
+        """One fused group of a width-``w`` step at ``bucket``: its slots'
+        token rows gathered and vocoded (batch ``SYNTH_BATCH``)."""
+        w, bucket = key
+        sb = self.SYNTH_BATCH
+        fidx, flens = self._fused_in[:sb], self._fused_in[sb:]
+        out = torch.zeros((sb, bucket * self.codec.cfg.hop_length),
+                          dtype=torch.float32, device=self.device)
+
+        def body():
+            out.copy_(self.codec.decode_codes_device(
+                _gather_rows(self._tok[w], fidx, bucket), flens))
+        return body, out
+
     def _decode_fn(self, width: int, k: int):
-        """The pool step at one (width, rung): rung 0 is the greedy block
-        (attention through K2), rung k > 0 the speculative block at k
-        drafts (K3).  Each returns (tokens, n, states, iters), iters None
-        for the greedy block; ``states`` defaults to the pool's."""
-        def step(windows, text_lens, limits, states=None):
-            states = self.states if states is None else states
-            args = (self.params, self.text_table, self.codebook, states,
-                    windows, text_lens, limits, self.dcfg)
+        """The pool step at one (width, rung), over the static buffers:
+        rung 0 is the greedy block, rung k > 0 the speculative block at k
+        drafts.  Each returns (tokens, n, iters), iters None for the
+        greedy block; the tokens are the width's static buffer."""
+        def step():
             if k == 0:
-                return (*dec.decode_block_batch(*args, block=width), None)
-            return dec.decode_block_spec_batch(*args, block=width,
-                                               k_draft=k)
+                return self._steps.get((width, 0, "step"))()
+            start, it = (self._steps.get((width, k, p))
+                         for p in ("start", "iter"))
+            bufs = start.out
+            dec.run_spec_loop(start, it, bufs.flag, width)
+            self._tok[width].copy_(bufs.out[:, :width])
+            return self._tok[width], bufs.count, bufs.iters
         return step
 
     def _take_resets(self) -> np.ndarray:
@@ -372,7 +448,7 @@ class DecodePool:
                         self._fuse_bucket))
                 groups.append((fidx, flens, bucket))
             host = np.concatenate(
-                [windows.ravel(), text_lens, limits, reset]
+                [reset, text_lens, limits, windows.ravel()]
                 + [a for fidx, flens, _ in groups for a in (fidx, flens)])
             # the rung is picked here, on the loop, where the controller
             # also observes the fetched steps
@@ -383,32 +459,28 @@ class DecodePool:
             raise
         self.synth_calls += len(groups)
         return _Plan(time.perf_counter() - t0, width, rung, heads, fused,
-                     groups, bool(reset.any()), host)
+                     groups, host)
 
     def _launch(self, plan: _Plan) -> Tuple:
-        """On the dispatch thread: the step's resets, ONE batched decode
-        step, and the fused first chunks' vocodes chained on its tokens,
-        with no host fetch.  Returns (the fetch started for the tokens and
-        audio, their shapes, the controller's feedback or None)."""
+        """On the dispatch thread: ONE batched decode step (its resets
+        applied on the device first), and the fused first chunks' vocodes
+        chained on its tokens, with no host fetch.  Returns (the fetch
+        started for the tokens and audio, their shapes, the controller's
+        feedback or None)."""
         t0 = time.perf_counter()
         # every input of the step in one host-to-device copy from a fresh
         # pinned buffer
-        t = _to_device(plan.host, self.device)
-        n, b = self.B * plan.width, self.B
-        if plan.reset:
-            self.states = _masked_reset(self.states,
-                                        t[n + 2 * b:n + 3 * b].bool())
-        tokens, nprod, self.states, iters = self._decode_fns[
-            (plan.width, plan.rung)](t[:n].view(b, plan.width),
-                                     t[n:n + b], t[n + b:n + 2 * b])
+        fill(self._in, plan.host)
+        tokens, nprod, iters = self._decode_fns[(plan.width, plan.rung)]()
         wavs = []
-        off = n + 3 * b
+        off = 3 * self.B + self.B * plan.width
+        nb = 2 * self.SYNTH_BATCH
         for _, _, bucket in plan.groups:
-            fidx = t[off:off + self.SYNTH_BATCH]
-            flens = t[off + self.SYNTH_BATCH:off + 2 * self.SYNTH_BATCH]
-            off += 2 * self.SYNTH_BATCH
-            rows = _gather_rows(tokens, fidx, bucket)
-            wavs.append(self.codec.decode_codes_device(rows, flens))
+            g = self._vocode.get((plan.width, bucket))
+            self._fused_in.copy_(self._in[off:off + nb])
+            off += nb
+            # a second group may replay the same graph: keep this one's
+            wavs.append(g().clone())
         # accept statistics for the adaptive controller come back with the
         # step: each slot's commits and iterations (active slots only are
         # read; a merged pick appears once)
@@ -587,78 +659,70 @@ class DecodePool:
                                 fut.set_result(chunk)
                 await asyncio.sleep(0)
 
+    def _fill_idle(self, width: int, limit: int, text_len: int) -> None:
+        """Static inputs for a step outside traffic: every slot reset,
+        PAD windows, the given limit and text length, fused groups at
+        slot 0 with dump 1."""
+        b, sb = self.B, self.SYNTH_BATCH
+        groups = -(-b // sb)
+        fill(self._in, np.concatenate(
+            [np.ones(b, np.int32), np.full(b, text_len, np.int32),
+             np.full(b, limit, np.int32),
+             np.full(b * width, self.dcfg.pad_token_id, np.int32)]
+            + [np.zeros(sb, np.int32), np.ones(sb, np.int32)] * groups))
+
     def warmup(self) -> None:
-        """Run each step (width and rung), each fused-chunk bucket and each
-        synth bucket once before traffic, and calibrate the ladder's
-        rungs.  Eager PyTorch compiles nothing per shape, so one pass
-        builds the kernels and warms the allocator and the library handles
-        (the JAX pool runs each width twice and the reset->step cycle for
-        XLA's executables and TPU layouts)."""
-        ones = np.ones((self.B,), np.int32)
+        """Capture every body traffic can reach before it arrives (on a
+        card a CUDA graph each, after an eager pass that builds the
+        kernels and the libraries' plans; without graphs one eager pass
+        each): each (width, rung) of ``_decode_fns``, the fused groups'
+        gather and vocode at each width and bucket up to ``_fuse_bucket``,
+        and the codec's ragged buckets; then calibrate the ladder's rungs
+        on the captured steps, leave every slot reset, and ``settle``.
+        The reset
+        mask is an input of every step, so the JAX pool's reset->step
+        cycle needs no program of its own here."""
+        self._fill_idle(self.big_block, 1, 1)
         for w, k in sorted(self._decode_fns):
-            windows = np.full((self.B, w), self.dcfg.pad_token_id, np.int32)
-            t = _to_device(np.concatenate([windows.ravel(), ones, ones]),
-                           self.device)
-            n = windows.size
-            tokens, _, self.states, _ = self._decode_fns[(w, k)](
-                t[:n].view(self.B, w), t[n:n + self.B], t[n + self.B:])
-        idx = torch.zeros((self.SYNTH_BATCH,), dtype=torch.int32,
-                          device=self.device)
-        lens = torch.ones((self.SYNTH_BATCH,), dtype=torch.int32,
-                          device=self.device)
-        for fb in [b for b in self.codec.buckets if b <= self._fuse_bucket]:
-            self.codec.decode_codes_device(_gather_rows(tokens, idx, fb),
-                                           lens)
-        self.states = _masked_reset(self.states, torch.ones(
-            (self.B,), dtype=torch.bool, device=self.device))
+            for part in (("step",) if k == 0 else ("start", "iter")):
+                self._steps.capture((w, k, part))
+        for w in self._widths:
+            for fb in [b for b in self.codec.buckets
+                       if b <= self._fuse_bucket]:
+                self._vocode.capture((w, fb))
+        self.codec.warmup(self.SYNTH_BATCH)
         if self._spec_ctl is not None and not self._spec_ctl.cost_ms:
             self._spec_ctl.cost_ms = self._calibrate_spec_costs()
-        for bucket in self.codec.buckets:
-            # lengths reach the bucket: decode_codes_ragged pads to the
-            # bucket of the longest row
-            self.codec.decode_codes_ragged(
-                np.zeros((self.SYNTH_BATCH, bucket), np.int32),
-                np.full((self.SYNTH_BATCH,), bucket, np.int32))
+        for t in (self.states.pos, self.states.prev_token, self.states.done):
+            t.zero_()
         _sync(self.device)
+        settle()
 
     def _calibrate_spec_costs(self, repeats: int = 7) -> Dict[int, float]:
-        """Each rung's cost on a throwaway state: ms per ITERATION issued
-        for a speculative rung, ms per TOKEN for rung 0 (a greedy
-        "iteration" commits one token).  Runs at warmup, once the kernels
-        are built.  Each rung runs one untimed step; then ``repeats``
-        rounds time every rung once, in an order that rotates from round
-        to round, each step alone between two device syncs.  A rung's
-        cost is the median of its rounds, so a slow stretch of a shared
-        host falls on every rung alike and one outlier moves nothing."""
-        pad = self.dcfg.pad_token_id
-        windows = torch.full((self.B, self.block), pad, dtype=torch.int32,
-                             device=self.device)
-        tl = torch.zeros((self.B,), dtype=torch.int32, device=self.device)
-        lim = torch.full((self.B,), self.block, dtype=torch.int32,
-                         device=self.device)
-        all_live = torch.ones((self.B,), dtype=torch.bool,
-                              device=self.device)
+        """Each rung's cost on the pool's own state (warmup calls it after
+        capture, so a rung costs what its replays cost): ms per ITERATION
+        issued for a speculative rung, ms per TOKEN for rung 0 (a greedy
+        "iteration" commits one token).  Every step resets all slots
+        first.  Each rung runs one untimed step; then ``repeats`` rounds
+        time every rung once, in an order that rotates from round to
+        round, each step alone between two device syncs.  A rung's cost
+        is the median of its rounds, so a slow stretch of a shared host
+        falls on every rung alike and one outlier moves nothing."""
+        self._fill_idle(self.block, self.block, 0)
         rungs = sorted({k for (_w, k) in self._decode_fns})
-        st = dec.init_decode_state_batch(self.dcfg, self.B, self.cache_dtype,
-                                         self.device)
         for k in rungs:
-            st = _masked_reset(st, all_live)
-            _, _, st, _ = self._decode_fns[(self.block, k)](windows, tl, lim,
-                                                            states=st)
+            self._decode_fns[(self.block, k)]()
         samples: Dict[int, List[float]] = {k: [] for k in rungs}
         for r in range(repeats):
             for k in rungs[r % len(rungs):] + rungs[:r % len(rungs)]:
-                st = _masked_reset(st, all_live)
                 _sync(self.device)
                 it0 = dec.SPEC_ITERATIONS
                 t0 = time.perf_counter()
-                _, _, st, _ = self._decode_fns[(self.block, k)](
-                    windows, tl, lim, states=st)
+                self._decode_fns[(self.block, k)]()
                 _sync(self.device)
                 dt_ms = (time.perf_counter() - t0) * 1000.0
                 units = self.block if k == 0 else dec.SPEC_ITERATIONS - it0
                 samples[k].append(dt_ms / max(units, 1))
-        del st
         return {k: statistics.median(v) for k, v in samples.items()}
 
     def spec_stats(self) -> Optional[Dict]:

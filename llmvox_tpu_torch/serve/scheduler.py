@@ -25,7 +25,9 @@ tasks instead of daemon threads:
 
 Fixes over the reference (SURVEY §2.7 known defects): consumers terminate
 and queues are garbage-collected per request (the reference leaks both,
-streaming_server.py:287,425); the unreachable ``active_model`` flag is
+streaming_server.py:287,425), and a producer or consumer that raises
+fails the request instead of leaving the mux waiting (``_next``); the
+unreachable ``active_model`` flag is
 gone; eos stripping removes the token substring instead of ``rstrip``'s
 character-set behavior (which eats trailing letters, e.g.
 "Hide<|eot_id|>".rstrip(eos) -> "H"); a text stream that ends without an
@@ -99,7 +101,7 @@ class StreamingScheduler:
         try:
             current = 0
             while True:
-                item = await audio_qs[current].get()
+                item = await self._next(audio_qs[current], tasks)
                 if isinstance(item, bytes):
                     if trace.first("first_audio") is None:
                         trace.mark("first_audio")
@@ -119,6 +121,26 @@ class StreamingScheduler:
                     await t
                 except (asyncio.CancelledError, Exception):
                     pass
+
+    @staticmethod
+    async def _next(queue: asyncio.Queue, tasks):
+        """The queue's next item; raises what a producer or consumer task
+        raised meanwhile (a decode that fails, e.g. on a shape no CUDA
+        graph was captured for, ends the request instead of leaving the
+        mux waiting)."""
+        getter = asyncio.ensure_future(queue.get())
+        try:
+            while True:
+                live = [t for t in tasks if not t.done()]
+                done, _ = await asyncio.wait(
+                    [getter, *live], return_when=asyncio.FIRST_COMPLETED)
+                if getter in done:
+                    return getter.result()
+                for t in done:
+                    if not t.cancelled() and t.exception() is not None:
+                        raise t.exception()
+        finally:
+            getter.cancel()
 
     # ------------------------------------------------------------------
     async def _producer(self, text_stream: AsyncIterator[str],

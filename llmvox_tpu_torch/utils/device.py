@@ -41,7 +41,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 class Fetch:
-    """One device-to-host copy, started now and waited for on ``get``."""
+    """One device-to-host copy, started now and waited for on ``get``.  On
+    the CPU it is a copy taken now: the tensor may be a static buffer that
+    the next call overwrites (``utils/graphs.py``)."""
 
     __slots__ = ("host", "event")
 
@@ -52,7 +54,7 @@ class Fetch:
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(t.device))
         else:
-            self.host, self.event = t, None
+            self.host, self.event = t.clone(), None
 
     def get(self) -> np.ndarray:
         if self.event is not None:
