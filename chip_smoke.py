@@ -92,8 +92,25 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      bf16 turns (graphs, eager, eager, graphs) without the lag ticker:
      TTFA and RTF on the replicas, TTFA, aggregate and host ms per step
      at 4 and 8 concurrent requests on a 16-slot pool.
-Then one JSON line with the kernels' numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+ 14. ``/tts`` from the in-framework Llama (``streams/llm.py``) at the
+     geometry of meta-llama/Llama-3.1-8B-Instruct (random seeded weights,
+     the head's non-printable columns zeroed, the byte tokenizer, KV
+     capacity 8192): 2 layers at full width in f32, the card's 64-token
+     greedy chain (CUDA graph replays) against the CPU plain path's logits
+     on it; 32 layers in bf16, the graph and eager chains equal, two
+     replays of a sampled block from one state drawing different tokens,
+     the prefill's times at buckets 16, 128 and 512 and a 32-token block's
+     at attn_len 128, 1024 and 8192 (graph and eager) beside the byte
+     bound, the captures and the peak memory; three ``/tts`` requests
+     answered by the LLM on the dedicated replicas (first text delta,
+     TTFA, RTF, the LLM's tokens/s, the loop's lag); then ``--quantize
+     w4`` for the LLM and the decoder: the w4 block's time, one served
+     request and K4's launches on the LLM's path.  Phase 11 holds K4 at
+     the Llama's four weight shapes (M 1, 16, 128, 512) and times it at M
+     1 and 128.
+Then a JSON line with phase 14's numbers, one with the kernels' numbers,
+the card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1642,6 +1659,13 @@ K4_M = (1, 5, 16, 48, 80)
 K4_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
           torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
 L2_BYTES = 50e6
+# the Llama-3.1-8B linears that ``--quantize w4`` runs through K4, (Cin,
+# Cout) in groups of 256 (wq and wo share a shape, as wk and wv do); M is
+# 1 in decode and the prefill's bucket (16 to 512 here)
+K4_LLAMA_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+                   "wgate/wup": (4096, 14336), "wdown": (14336, 4096)}
+K4_LLAMA_M = (1, 16, 128, 512)
+K4_LLAMA_TIMED = (1, 128)
 
 
 def k4_bound_ms(m: int, cin: int, cout: int, groups: int, dtype) -> tuple:
@@ -1707,10 +1731,39 @@ def phase_k4() -> dict:
                 f"{err:.3g}")
         for m in K4_M:
             timings[(name, m)] = _time_k4(w, m, gen)
+    # the in-framework Llama's shapes, drawn on the card (bf16 serving)
+    dgen = torch.Generator(device=dev).manual_seed(8)
+    for name, (cin, cout) in K4_LLAMA_SHAPES.items():
+        w = quant.quantize_weight4(0.02 * torch.randn(
+            cin, cout, generator=dgen, device=dev))
+        groups = w.s.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            s = w.s.to(dtype)
+            err = 0.0
+            for m in K4_LLAMA_M:
+                x = torch.randn(m, cin, generator=dgen, device=dev).to(dtype)
+                got = cuda_int4_mm.int4_matmul(x, w.q, s)
+                again = cuda_int4_mm.int4_matmul(x, w.q, s)
+                ref = cuda_int4_mm.plain_int4_matmul(x, w.q, s)
+                torch.cuda.synchronize()
+                assert got.shape == (m, cout) and got.dtype == dtype
+                assert torch.equal(got, again), ("K4 not deterministic",
+                                                 name, dtype, m)
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           **K4_TOL[dtype])
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+            max_err = max(max_err, err)
+            log(f"[k4] {str(dtype):15s} Llama {name:9s} {cin}->{cout} "
+                f"({groups} groups) ok at M {K4_LLAMA_M}, bitwise "
+                f"repeatable, max |err| {err:.3g}")
+        for m in K4_LLAMA_TIMED:
+            timings[(f"llama {name}", m)] = _time_k4(w, m, gen, quick=True)
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def _time_k4(w, m, gen) -> dict:
+def _time_k4(w, m, gen, quick: bool = False) -> dict:
+    """bf16 device times per call; ``quick`` times the plain version with
+    fewer calls (at the Llama shapes it takes milliseconds a call)."""
     from llmvox_tpu_torch.ops import cuda_int4_mm, quant
     dev = torch.device("cuda")
     cin, cout = w.shape
@@ -1718,7 +1771,7 @@ def _time_k4(w, m, gen) -> dict:
     x = torch.randn(m, cin, generator=gen).to(dev, torch.bfloat16)
     # enough distinct copies that a cycle of calls exceeds the 50 MB L2
     n = int(2 * L2_BYTES // w.q.numel()) + 1
-    qs = [w.q.to(dev) for _ in range(n)]
+    qs = [w.q.to(dev).clone() for _ in range(n)]
     s = w.s.to(dev, torch.bfloat16)
     dense = quant.dequantize(quant.Int4Tensor(qs[0], s), torch.bfloat16)
     ds = [dense.clone() for _ in range(int(2 * L2_BYTES // (dense.numel()
@@ -1742,7 +1795,9 @@ def _time_k4(w, m, gen) -> dict:
     lib = torch.matmul(x, dense).float()
     gap = ((lib - ref).norm() / ref.norm()).item()
     assert gap < 1e-2, gap
-    t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain),
+    t = {"ms": graph_ms(run_kernel),
+         "plain_ms": (graph_ms(run_plain, per_graph=2, replays=3, reps=3)
+                      if quick else graph_ms(run_plain)),
          "dense_bf16_ms": graph_ms(run_dense)}
     t["int4pack_ms"] = None
     if hasattr(torch, "_weight_int4pack_mm"):
@@ -2226,6 +2281,395 @@ def phase_graphs(engines, weights, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: /tts from the in-framework Llama
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-3.1-8B-Instruct's published config.json (rope_scaling
+# llama3: factor 8, low 1, high 4, original 8192), with the KV capacity cut
+# from 131072 to 8192 rows
+LLAMA_8B = dict(vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
+                n_embd=4096, intermediate_size=14336, max_seq_len=8192,
+                rope_theta=500000.0, rope_scaling_factor=8.0,
+                rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
+                rope_original_max_position=8192, rms_eps=1e-5,
+                tie_embeddings=False)
+LLM_BLOCK = 32       # the default llm_block
+LLM_TOKENS = 64      # the f32 chain, the graph-against-eager chain and the
+                     # served replies' cap
+LLM_ATTN_TIMED = (128, 1024, 8192)
+LLM_PREFILL_TIMED = (16, 128, 512)
+
+
+def speakable_head(params) -> None:
+    """Zero the head's columns except the printable ASCII byte ids of the
+    byte tokenizer (id = byte + 1), the eos id 0 among the zeroed: a random
+    128256-way head would almost never pick a byte id, so greedy chains
+    now emit printable text up to the token cap."""
+    head = params["head"]
+    keep = torch.zeros(head.shape[-1], dtype=head.dtype, device=head.device)
+    keep[0x20 + 1:0x7e + 2] = 1
+    head.mul_(keep)
+
+
+def llm_token_bound_ms(params, cfg, rows: int, es: int) -> tuple:
+    """Least time for one decode token: every stored weight but the
+    embedding read once (one embedding row), K and V rows 0..pos of every
+    layer (``rows`` of them, ``es`` bytes each), over HBM's rate; or two
+    flops a weight and 4 * rows * C a layer of attention over the bf16
+    peak; whichever is longer."""
+    from llmvox_tpu_torch.ops import quant
+    emb = params["tok_emb"]
+    c = cfg.n_embd
+    nbytes = (quant.quantized_bytes(params) - emb.numel() * emb.element_size()
+              + c * emb.element_size()
+              + 2 * cfg.n_layer * rows * cfg.n_kv_head * cfg.head_dim * es)
+    # logical weight counts (a quantized container's shape is logical)
+    n_weights = sum(int(np.prod(x.shape)) for k, x in params["h"].items()
+                    if k.startswith("w"))
+    flops = 2 * (n_weights + c * cfg.vocab_size) + \
+        4 * cfg.n_layer * rows * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _llm_prompt(model, text: str, system: str) -> list:
+    from llmvox_tpu_torch.streams.llm import build_prompt_ids
+    return build_prompt_ids(model.tokenizer, {"system": system,
+                                              "prompt": text})
+
+
+def _bucket(n: int, cap: int) -> int:
+    b = 16
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def llm_chain(model, ids, n_blocks: int) -> list:
+    """The greedy chain the stream generates for prompt ``ids``: the
+    prefill's token, then ``n_blocks`` blocks, issued as ``predict``
+    issues them (on the dispatch thread)."""
+    out = [int(model._call(model._prefill, ids,
+                           _bucket(len(ids), model.cfg.max_seq_len - 1))[0])]
+    pos = len(ids)
+    for _ in range(n_blocks):
+        out += model._call(model._decode, model._attn_bucket(
+            pos + model.block))[0].tolist()
+        pos += model.block
+    return out
+
+
+def _timed_predict(model, stamps: list):
+    """Wrap ``model.predict`` so each request notes the seconds from the
+    call (the request's arrival) to its first text delta."""
+    orig = model.predict
+
+    def predict(request):
+        t0 = time.perf_counter()
+        gen = orig(request)
+
+        def timed():
+            first = True
+            for d in gen:
+                if first:
+                    stamps.append(time.perf_counter() - t0)
+                    first = False
+                yield d
+        return timed()
+    model.predict = predict
+
+
+def _serve_llm(model, engines, weights, n: int, what: str, card: str,
+               device) -> dict:
+    """``n`` sequential ``POST /tts`` answered by ``model`` through
+    ``build_server`` on ``engines``; per request the first text delta,
+    TTFA, RTF, the LLM's tokens/s and the loop's lag."""
+    from llmvox_tpu_torch.ops import cuda_attn
+    from llmvox_tpu_torch.serve.client import post_chunks
+    from llmvox_tpu_torch.serve.server import build_server
+    _, _, _, dcfg, ccfg, scfg = weights
+    port = _free_port()
+    cfg = dataclasses.replace(scfg, api_port=port, scripted_reply="",
+                              llm_backend="jax", llm_block=LLM_BLOCK,
+                              llm_max_tokens=LLM_TOKENS, llm_temperature=0.0)
+    stamps = []
+    _timed_predict(model, stamps)
+    n_cap = captures()
+    rows = []
+    try:
+        with _Server(build_server(cfg, engines, stream_model=model),
+                     port) as server:
+            cuda_attn.LAUNCHES = 0
+            steps0 = sum(e.decode_steps for e in engines)
+            for r in range(n):
+                tok0, blk0 = model.tokens, model.block_s
+                lag = _LoopLag(server.loop)
+                t0 = time.perf_counter()
+                chunks = post_chunks("127.0.0.1", port, "/tts",
+                                     {"text": f"Tell me about request {r}."},
+                                     timeout=300)
+                wall = time.perf_counter() - t0
+                lag = lag.stop()
+                assert chunks and all(len(c) % (4 * ccfg.hop_length) == 0
+                                      for _, c in chunks), "ragged chunk"
+                wav = np.frombuffer(b"".join(c for _, c in chunks), "<f4")
+                assert np.isfinite(wav).all(), "non-finite samples"
+                audio_s = len(wav) / ccfg.sample_rate
+                toks = model.tokens - tok0
+                row = {"first_delta_ms": stamps[-1] * 1e3,
+                       "ttfa_ms": chunks[0][0] * 1e3, "rtf": wall / audio_s,
+                       "audio_s": audio_s, "llm_tokens": toks,
+                       "llm_tok_s": toks / max(model.block_s - blk0, 1e-9),
+                       "lag_max_ms": lag["max_ms"]}
+                rows.append(row)
+                log(f"[llm] {what} request {r}: {len(chunks)} chunks, "
+                    f"{audio_s:.2f} s audio; first text delta "
+                    f"{row['first_delta_ms']:.1f} ms, first audio "
+                    f"{row['ttfa_ms']:.1f} ms, wall {wall * 1e3:.1f} ms, RTF "
+                    f"{row['rtf']:.3f}; LLM {toks} tokens at "
+                    f"{row['llm_tok_s']:.1f} tokens/s while the TTS shares "
+                    f"the card (host clock, waits for its blocks); "
+                    f"{_lag_text(lag)} ({card})")
+            k1 = cuda_attn.LAUNCHES
+            steps = sum(e.decode_steps for e in engines) - steps0
+    finally:
+        del model.predict
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
+    assert k1 == dcfg.n_layer * steps > 0, (k1, steps)
+    return {"requests": rows, "tts_steps": steps}
+
+
+def phase_llm(engines, weights, card: str, device="cuda",
+              cfg=None) -> dict:
+    """The in-framework Llama (``streams/llm.py``) at the geometry of
+    meta-llama/Llama-3.1-8B-Instruct with random seeded weights (the
+    head's non-printable columns zeroed: ``speakable_head``) and the byte
+    tokenizer.  (1) 2 layers at full width in f32: the card's greedy chain
+    of 64 tokens after a prefill (two CUDA graph replays) against the CPU
+    plain path's logits on that chain (teacher-forced ``apply_llama``),
+    held by ``near_tie`` at every step where they part.  (2) Full depth in
+    bf16: the graph and eager chains equal; two replays of a sampled block
+    from one state draw different tokens; prefill and block times beside
+    the byte bound; capture count, seconds and graph pool bytes.  (3)
+    three ``/tts`` requests answered by the LLM through ``build_server``
+    on the dedicated replicas.  (4) ``--quantize w4``: the LLM and the
+    decoder quantized, the w4 block's time, one served request, and K4's
+    launches on the LLM's path (7 a layer per token and per prefill)."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
+    from llmvox_tpu_torch.utils import graphs
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.params import to_torch
+    scfg = weights[5]
+    cfg = cfg or llama.LlamaConfig(**LLAMA_8B)
+    on_card = torch.device(device).type == "cuda"
+    tok = ByteTokenizer()
+    n_blocks = LLM_TOKENS // LLM_BLOCK
+    out = {"card": card}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # (1) two layers at full width, f32, card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    p32 = P.init_llama_params(10, cfg2, device=device)
+    speakable_head(p32)
+    m32 = LlamaStreamModel(p32, cfg2, tok, block=LLM_BLOCK, device=device)
+    m32.warmup()
+    ids = _llm_prompt(m32, TEXT, scfg.system_prompt)
+    card_chain = llm_chain(m32, ids, n_blocks)[:LLM_TOKENS]
+    del m32
+    cpu = to_torch(p32, "cpu")
+    del p32
+    seq = torch.tensor([ids + card_chain[:-1]])
+    with torch.no_grad():
+        forced = llama.apply_llama(cpu, seq, cfg2)[0, len(ids) - 1:]
+    del cpu
+    ties = []
+    for d, logits in enumerate(forced):
+        want = int(logits.argmax())
+        if want != card_chain[d]:
+            ties.append((d, near_tie(logits, want, card_chain[d],
+                                     ("llm f32", d, card_chain))))
+    assert len(card_chain) == LLM_TOKENS
+    text = tok.decode(card_chain)
+    assert text and all(32 <= ord(ch) < 127 for ch in text), text
+    log(f"[llm] 2 layers at full width, f32: the card's {LLM_TOKENS}-token "
+        f"greedy chain (prefill + {n_blocks} CUDA graph replays) against the "
+        f"CPU plain path teacher-forced on it: "
+        + (f"{len(ties)} near tie(s) (step, gap in % of the logits' std): "
+           f"{ties}" if ties else "every token the CPU's argmax")
+        + f"; text {text[:40]!r}...")
+    out["f32_ties"] = len(ties)
+
+    # (2) full depth, bf16
+    t0 = time.perf_counter()
+    params = P.init_llama_params(11, cfg, device=device, dtype=torch.bfloat16)
+    speakable_head(params)
+    _sync(device)
+    log(f"[llm] {cfg.n_layer} layers, {quant.quantized_bytes(params)} bytes "
+        f"of bf16 weights, drawn on the device in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model = LlamaStreamModel(params, cfg, tok, block=LLM_BLOCK,
+                             max_tokens=LLM_TOKENS, device=device,
+                             dtype=torch.bfloat16)
+    n_cap, s0 = captures(), graphs.CAPTURE_S
+    model.warmup()
+    out["captures"] = captures() - n_cap
+    out["capture_s"] = graphs.CAPTURE_S - s0
+    log(f"[llm] warmup: {out['captures']} CUDA graphs (blocks of "
+        f"{LLM_BLOCK} at attn_len {list(model.attn_buckets)}) in "
+        f"{out['capture_s']:.2f} s; {graphs_text()}; "
+        + uploads_text(model._blocks))
+    eager = LlamaStreamModel(params, cfg, tok, block=LLM_BLOCK,
+                             device=device, dtype=torch.bfloat16,
+                             graphs=False)
+    ids = _llm_prompt(model, TEXT, scfg.system_prompt)
+    got, want = llm_chain(model, ids, n_blocks), llm_chain(eager, ids,
+                                                           n_blocks)
+    assert got == want, (got, want)
+    log(f"[llm] bf16, {cfg.n_layer} layers: graph and eager chains equal "
+        f"({len(got)} tokens: {tok.decode(got)[:40]!r}...)")
+    if on_card:
+        out.update(_llm_times(model, eager, params, cfg, card))
+        sampled = LlamaStreamModel(params, cfg, tok, block=LLM_BLOCK,
+                                   temperature=0.7, top_k=40, top_p=0.95,
+                                   device=device, dtype=torch.bfloat16)
+        sampled._blocks.capture((LLM_BLOCK, 128))
+        sampled._call(sampled._prefill, ids, _bucket(len(ids), 8191))
+        start = (sampled.state.pos.clone(), sampled.tok.clone())
+        draws = []
+        for _ in range(2):
+            sampled.state.pos.copy_(start[0])
+            sampled.tok.copy_(start[1])
+            draws.append(sampled._call(sampled._decode, 128)[0].tolist())
+        assert draws[0] != draws[1], draws
+        log(f"[llm] sampled block (T 0.7, top-k 40, top-p 0.95; the "
+            f"generator registered with the graph): two replays from one "
+            f"state drew {tok.decode(draws[0])[:16]!r} and "
+            f"{tok.decode(draws[1])[:16]!r}")
+        del sampled
+    del eager
+
+    # (3) /tts answered by the LLM on the dedicated replicas
+    out["served"] = _serve_llm(model, engines, weights, 3, "bf16", card,
+                               device)
+
+    # (4) --quantize w4: the LLM and the decoder
+    qparams = quant.quantize_llama_params(params, "w4")
+    del model, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    assert type(qparams["h"]["wgate"]) is quant.Int4Tensor
+    assert type(qparams["head"]) is quant.QuantizedTensor
+    qmodel = LlamaStreamModel(qparams, cfg, tok, block=LLM_BLOCK,
+                              max_tokens=LLM_TOKENS, device=device,
+                              dtype=torch.bfloat16)
+    del qparams
+    qmodel.warmup()
+    log(f"[llm] w4: {quant.quantized_bytes(qmodel.params)} bytes stored; "
+        f"{graphs_text()}")
+    if on_card:
+        out["w4_block"] = _llm_block_times(qmodel, None, qmodel.params, cfg,
+                                           card, "w4", (128,))
+    qw = _quantized(weights, "w4")
+    engines4 = [make_engine(qw, device, torch.bfloat16, warm=True)
+                for _ in range(2)]
+    cuda_int4_mm.LAUNCHES = 0
+    tokens0 = qmodel.tokens
+    steps0 = sum(e.decode_steps for e in engines4)
+    out["w4_served"] = _serve_llm(qmodel, engines4, qw, 1, "w4", card,
+                                  device)
+    llm_k4 = 7 * cfg.n_layer * (qmodel.tokens - tokens0 + 1)
+    tts_k4 = 4 * qw[3].n_layer * (sum(e.decode_steps for e in engines4)
+                                  - steps0)
+    if on_card:
+        assert cuda_int4_mm.LAUNCHES == llm_k4 + tts_k4, (
+            cuda_int4_mm.LAUNCHES, llm_k4, tts_k4)
+    out["k4_llm_launches"] = llm_k4
+    log(f"[llm] w4 served request: K4 launches {llm_k4 + tts_k4} = LLM "
+        f"{llm_k4} (7 x {cfg.n_layer} layers x ({qmodel.tokens - tokens0} "
+        f"tokens + 1 prefill); the head stays int8) + TTS decoder {tts_k4}")
+    del qmodel, engines4
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[llm] peak device memory in phase 14: {out['peak_gb']:.2f} GB "
+            f"({card})")
+    return out
+
+
+def _llm_block_times(model, eager, params, cfg, card: str, what: str,
+                     attns) -> dict:
+    """A block of ``model.block`` tokens as one graph replay (device time,
+    CUDA events, median of 3) at each ``attn_len`` in ``attns``, from pos
+    attn_len - block (so the block's rows fill the window), beside the
+    byte bound; and, with ``eager``, the same block issued eagerly (host
+    clock to a synchronise)."""
+    out = {}
+    es = model.state.k.element_size()
+    for attn in attns:
+        g = model._blocks.get((model.block, attn))
+        pos = attn - model.block
+        times = []
+        for _ in range(3):
+            model.state.pos.fill_(pos)
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            g.graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(begin.elapsed_time(end) / model.block)
+        ms = statistics.median(times)
+        bound, by = llm_token_bound_ms(params, cfg, pos + model.block // 2,
+                                       es)
+        row = {"ms_per_token": ms, "tokens_s": 1e3 / ms, "bound_ms": bound,
+               "bound_by": by}
+        if eager is not None:
+            eg = eager._blocks.get((model.block, attn))
+            eager.state.pos.fill_(pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eg()
+            torch.cuda.synchronize()
+            row["eager_ms_per_token"] = ((time.perf_counter() - t0) * 1e3
+                                         / model.block)
+        out[attn] = row
+        log(f"[llm] {what} block of {model.block} at attn_len {attn} (pos "
+            f"{pos}..{attn - 1}): one CUDA graph replay {ms:.3f} ms a token "
+            f"({row['tokens_s']:.1f} tokens/s, device time), bound "
+            f"{bound:.3f} ms ({by}, {bound / ms * 100:.0f}% of it)"
+            + (f"; eager {row['eager_ms_per_token']:.3f} ms a token (host "
+               f"clock)" if eager is not None else "") + f" ({card})")
+    return out
+
+
+def _llm_times(model, eager, params, cfg, card: str) -> dict:
+    """Prefill times per bucket, and the block's times (``_llm_block_times``
+    at ``LLM_ATTN_TIMED``)."""
+    out = {"prefill_ms": {}}
+    for bucket in LLM_PREFILL_TIMED:
+        ids = [33 + i % 90 for i in range(bucket)]
+        model._call(model._prefill, ids, bucket)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model._call(model._prefill, ids, bucket)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["prefill_ms"][bucket] = statistics.median(times)
+    log("[llm] bf16 prefill (eager, on the dispatch thread, host clock to "
+        "the first token): " + ", ".join(
+            f"bucket {b}: {ms:.2f} ms" for b, ms in out["prefill_ms"].items())
+        + f" ({card})")
+    out["block"] = _llm_block_times(model, eager, params, cfg, card, "bf16",
+                                    LLM_ATTN_TIMED)
+    return out
+
+
 def block_graphs(argv) -> int:
     """``--block-graphs [--root DIR]``: only the B=1 bf16 32-token block as
     a CUDA graph, dense and w4, with ``llmvox_tpu_torch`` imported from DIR
@@ -2413,6 +2857,7 @@ def main(argv) -> int:
     k4 = phase_k4()
     phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
+    llm_k4_launches = None
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -2424,6 +2869,9 @@ def main(argv) -> int:
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
         quant_launches = phase_quant(engines, weights)["k4_launches"]
         phase_graphs(engines, weights)
+        llm = phase_llm(engines, weights, card)
+        llm_k4_launches = llm["k4_llm_launches"]
+        log(json.dumps({"llm": llm}))
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -2465,6 +2913,7 @@ def main(argv) -> int:
               "replaces": "llmvox_tpu/ops/pallas_quant.py:82",
               "tpu": "llmvox_tpu/ops/pallas_quant.py::_int4_mm",
               "launches": quant_launches, "max_abs_err": k4["max_abs_err"],
+              "llm_launches": llm_k4_launches,
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
               **k4["timings"][k4_main],
               "other": {f"{name} M={m}": {key: t[key] for key in

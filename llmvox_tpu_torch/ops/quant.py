@@ -1,4 +1,5 @@
-"""Int8 / int4 weight quantization for the speech decoder's serving paths.
+"""Int8 / int4 weight quantization for the serving models: the speech
+decoder and the in-framework Llama.
 
 Counterpart of ``llmvox_tpu/ops/quant.py`` with the same containers, field
 names and layouts, so a quantized tree carries over key for key:
@@ -157,6 +158,21 @@ def int8_matmul(x: torch.Tensor, w: Int8Linear) -> torch.Tensor:
     return (y.float() * scale).to(x.dtype)
 
 
+def _quantize_leaf(w, cls, w8: bool) -> _Quantized:
+    """One matmul weight, a stacked one layer by layer (each layer's
+    scales are its own either way, so the result is the same; the f32
+    temporaries are one layer's, which matters for an 8B model quantized
+    on the card)."""
+    w = _tensor(w)
+    if w.dim() > 2:
+        parts = [_quantize_leaf(x, cls, w8) for x in w]
+        return type(parts[0])(q=torch.stack([p.q for p in parts]),
+                              s=torch.stack([p.s for p in parts]))
+    if cls is Int4Tensor and not w8:
+        return quantize_weight4(w)
+    return quantize_weight(w, cls=QuantizedTensor if w8 else cls)
+
+
 def _quantize_named(tree: Dict, names: Sequence[str], cls=QuantizedTensor,
                     keep_w8: Sequence[str] = ()) -> Dict:
     """Replace dict entries whose key is in ``names`` (at any depth) by
@@ -167,11 +183,7 @@ def _quantize_named(tree: Dict, names: Sequence[str], cls=QuantizedTensor,
         if isinstance(v, dict):
             out[k] = _quantize_named(v, names, cls, keep_w8)
         elif k in names and not isinstance(v, _Quantized):
-            if cls is Int4Tensor and k not in keep_w8:
-                out[k] = quantize_weight4(v)
-            else:
-                out[k] = quantize_weight(
-                    v, cls=QuantizedTensor if k in keep_w8 else cls)
+            out[k] = _quantize_leaf(v, cls, k in keep_w8)
         else:
             out[k] = v
     return out
@@ -188,8 +200,10 @@ def _mode_cls(mode: str):
                      "(expected 'w8', 'w8a8' or 'w4')")
 
 
-# the speech decoder's matmul weights, all (…, Cin, Cout)
+# matmul-weight key sets per model family, all (…, Cin, Cout)
 DECODER_MATMUL_KEYS = ("wqkv", "wo", "wfc", "wproj", "head")
+LLAMA_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown",
+                     "head", "moe_wgate", "moe_wup", "moe_wdown")
 HEAD_KEYS = ("head",)
 
 
@@ -198,6 +212,16 @@ def quantize_decoder_params(params: Dict, mode: str = "w8") -> Dict:
     and the draft heads stay full precision; the lm head stays weight-only
     int8 in every mode (its 4096-way argmax is the output token)."""
     return _quantize_named(params, DECODER_MATMUL_KEYS, _mode_cls(mode),
+                           keep_w8=HEAD_KEYS)
+
+
+def quantize_llama_params(params: Dict, mode: str = "w8") -> Dict:
+    """Quantize a Llama tree's matmul weights (``models/llama.py``), as
+    JAX's ``quantize_llama_params`` does: ``tok_emb`` stays dense (an
+    embedding gather, and the head of tied models), the norms stay, and
+    the lm head stays weight-only int8 in every mode.  Under w4 every
+    layer linear runs through kernel K4."""
+    return _quantize_named(params, LLAMA_MATMUL_KEYS, _mode_cls(mode),
                            keep_w8=HEAD_KEYS)
 
 

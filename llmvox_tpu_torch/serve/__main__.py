@@ -9,7 +9,13 @@ host).  Two flags are the
 port's own: ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 path) and ``--random_seed N``, which serves full-width random weights
 made from seed N instead of checkpoints (for smoke runs; the audio is
-noise).  Only ``/tts`` with ``--scripted_reply`` is served so far.
+noise).  ``/tts`` speaks ``--scripted_reply`` when it is given, else
+the reply of the LLM: ``--llm_backend jax`` is the in-framework Llama
+(``models/llama.py``) on the replicas' card, from ``--llm_jax_params``
+(a converted npz with its meta) and the tokenizer ``--llm_checkpoint``
+(``byte`` for the built-in byte tokenizer), its decode blocks captured as
+CUDA graphs at warmup; ``--llm_backend hf`` a transformers model on
+``--llm_device``.
 ``--pool_capacity N`` serves concurrent requests through a
 continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
 ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
@@ -18,7 +24,8 @@ or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
 ``--random_seed`` the random decoder then carries random draft heads.
 ``--quantize w8 | w8a8 | w4`` quantizes the speech decoder's matmul
 weights after loading (random ones too), before the replicas and the pool
-are built; w4 runs its matmuls through kernel K4.  On a card, warmup
+are built, and the in-framework LLM's as JAX does (its head weight-only
+int8); w4 runs their matmuls through kernel K4.  On a card, warmup
 captures a CUDA graph for every decode block, pool step, speculative
 iteration and codec bucket that serving can reach, and prints how many,
 in how many seconds, and the graph pool's bytes, before the port listens.
@@ -26,6 +33,8 @@ in how many seconds, and the graph pool's bytes, before the port listens.
     python -m llmvox_tpu_torch.serve --random_seed 0 \\
         --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
         [--spec_decode true] [--quantize w4]
+    python -m llmvox_tpu_torch.serve --random_seed 0 --llm_backend jax \\
+        --llm_jax_params llama.npz --llm_checkpoint byte
 """
 from __future__ import annotations
 
@@ -133,6 +142,10 @@ def main(argv=None) -> None:
     # build_server warms the pool (step widths and rungs, synthesis
     # buckets); every capture happens before the port listens
     server = build_server(cfg, engines, pool=pool)
+    llm = getattr(getattr(server, "stream_model", None), "params", None)
+    if cfg.quantize and llm is not None:
+        print(f"quantization ({cfg.quantize}): LLM, "
+              f"{quant.quantized_bytes(llm)} bytes", flush=True)
     print(graphs.summary(), flush=True)
     server.run()
 

@@ -7,9 +7,12 @@ The port's counterpart of ``llmvox_tpu/serve/server.py``:
 - ``GET  /``      service info;
 - ``GET  /stats`` per-request latency traces, and the pool's counters.
 
-``/voicechat``, ``/multimodalchat`` and ``/vlmschat`` (they need ASR and
-the multimodal LLM streams) answer 501 with a JSON error until they are
-ported.
+``POST /tts`` feeds the request's text to the text stream: a scripted
+reply, the in-framework Llama on the card (``--llm_backend jax``,
+``streams/llm.py``) or a HuggingFace model on the host
+(``--llm_backend hf``, ``streams/hf_llm.py``).  ``/voicechat``,
+``/multimodalchat`` and ``/vlmschat`` (they need ASR and the multimodal
+LLM streams) answer 501 with a JSON error until they are ported.
 
 Two serving modes, as in the JAX server:
 - **dedicated** (default): one dual-replica scheduler; requests are
@@ -49,6 +52,20 @@ class TTSServer:
         else:
             self._busy = asyncio.Lock()
         self.traces = collections.deque(maxlen=50)
+
+    # -- request -> text stream ---------------------------------------
+    def _make_text_stream(self, path: str, body: Dict):
+        """``/tts``: the request's text to the LLM stream, with the system
+        prompt and the per-request sampling knobs (honoured by JAX's
+        pooled LLM; the B=1 streams ignore them, as JAX's do)."""
+        if path != "/tts":
+            raise KeyError(path)
+        knobs = {k: body[k]
+                 for k in ("temperature", "top_p", "top_k", "max_tokens")
+                 if k in body}
+        return self.stream_model.predict(
+            {"system": self.cfg.system_prompt, "prompt": body["text"],
+             **knobs})
 
     # -- HTTP plumbing --------------------------------------------------
     async def _handle(self, reader: asyncio.StreamReader,
@@ -120,8 +137,7 @@ class TTSServer:
         # Build the text stream BEFORE the 200 header: a bad request
         # (missing "text") surfaces as a clean JSON error response, not a
         # status line spliced into an open chunked body.
-        text_stream = aiter_stream(self.stream_model.predict(
-            {"system": self.cfg.system_prompt, "prompt": body["text"]}))
+        text_stream = aiter_stream(self._make_text_stream(path, body))
         writer.write(
             b"HTTP/1.1 200 OK\r\n"
             b"Content-Type: application/octet-stream\r\n"
@@ -190,22 +206,46 @@ class TTSServer:
         asyncio.run(self.serve())
 
 
+def _replicas_device(engines, pool):
+    """The card of the first TTS replica, or of the pool (a ladder's
+    smallest): where the in-framework LLM lies beside the TTS."""
+    if engines:
+        return engines[0].device
+    return getattr(pool, "pools", [pool])[0].device
+
+
 def build_server(cfg: ServeConfig, engines, stream_model=None,
                  pool=None) -> TTSServer:
     """Wire the dual-replica scheduler (or, with ``pool``, the
     continuous-batching pool, which is warmed here) to a text-stream
-    source: the given ``stream_model``, or a ScriptedStream of
-    ``cfg.scripted_reply``.  The HF and in-framework LLM streams are not
-    ported yet."""
-    if stream_model is None:
-        if not cfg.scripted_reply:
-            raise ValueError(
-                "llmvox_tpu_torch serves a scripted reply or an injected "
-                "stream model; the LLM text streams are not ported yet")
+    source per ``chat_type``, as the JAX ``build_server`` does: the given
+    ``stream_model``; a ScriptedStream of ``cfg.scripted_reply``; or for
+    ``chat_type`` "text" or "voice" the LLM of ``llm_backend``: "jax" the
+    in-framework Llama on the replicas' card (its decode blocks captured
+    here), "hf" a HuggingFace model on ``llm_device``.  The multimodal
+    chat types are not ported."""
+    scheduler = StreamingScheduler(engines, cfg) if engines else None
+    if stream_model is None and cfg.scripted_reply:
         from llmvox_tpu_torch.streams.scripted import ScriptedStream
         stream_model = ScriptedStream([cfg.scripted_reply],
                                       eos_token=cfg.eos_token)
-    scheduler = StreamingScheduler(engines, cfg) if engines else None
+    if stream_model is None:
+        if cfg.chat_type not in ("voice", "text"):
+            raise NotImplementedError(
+                f"chat_type={cfg.chat_type!r}: the multimodal and visual "
+                "speech streams are not ported to llmvox_tpu_torch yet "
+                "(ROADMAP queue 1 item 2)")
+        if cfg.llm_backend == "jax":
+            from llmvox_tpu_torch.streams.llm import build_llama_stream
+            stream_model = build_llama_stream(
+                cfg, device=_replicas_device(engines, pool))
+        else:
+            from llmvox_tpu_torch.streams.hf_llm import HFStreamModel
+            stream_model = HFStreamModel(cfg)
+        stream_model.load()
     if pool is not None:
         pool.warmup()
+    if hasattr(stream_model, "warmup"):
+        # the in-framework LLM: a CUDA graph per decode block rung
+        stream_model.warmup()
     return TTSServer(scheduler, cfg, stream_model, pool=pool)

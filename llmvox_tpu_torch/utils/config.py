@@ -116,7 +116,13 @@ class CodecConfig:
 class ServeConfig:
     """Serving knobs.  The same flags as the JAX server; the port serves
     ``/tts`` on the dedicated dual replicas or through the pool, with or
-    without speculative decode, and the LLM, ASR and quantization knobs
+    without speculative decode and quantization, from a scripted reply or
+    the B=1 LLM text stream (``llm_backend`` "jax": the in-framework Llama
+    on the card; "hf": transformers on the host).  The pooled LLM's knobs
+    (``llm_pool_capacity`` > 0 raises; ``llm_first_block``,
+    ``llm_prefill_buckets``, ``llm_chunked_prefill``,
+    ``llm_prefill_merge``, ``llm_spec_k``, ``llm_spec_ladder``,
+    ``llm_per_request_sampling``, ``llm_prefix_cache``) and the ASR knobs
     are parsed but not yet used."""
 
     chat_type: str = "text"  # ['text','voice','multimodal','visual_speech']

@@ -39,7 +39,7 @@ import gc
 import sys
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,10 +150,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _record(body: Callable[[], None], device: torch.device):
-    """Capture ``body`` into the device's shared graph pool."""
+def _record(body: Callable[[], None], device: torch.device,
+            generators: Sequence[torch.Generator] = ()):
+    """Capture ``body`` into the device's shared graph pool.  Each of
+    ``generators`` (device generators the body draws from) is registered
+    with the graph first, so every replay advances it and draws new
+    numbers."""
     handle, side = _pool(device)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator "
+                "with a CUDA graph (CUDAGraph.register_generator_state); "
+                "sampled decode needs it")
+        graph.register_generator_state(gen)
     with torch.cuda.device(device), torch.cuda.graph(graph, pool=handle,
                                                      stream=side):
         body()
@@ -165,14 +176,16 @@ class StepGraph:
     captured and replayed, or, without graphs, called directly."""
 
     __slots__ = ("body", "out", "device", "enabled", "graph", "delta",
-                 "name", "upload_s")
+                 "name", "upload_s", "generators")
 
     def __init__(self, body: Callable[[], None], out, device: torch.device,
-                 enabled: bool, name: str = ""):
+                 enabled: bool, name: str = "",
+                 generators: Sequence[torch.Generator] = ()):
         self.body, self.out, self.device = body, out, device
         self.enabled, self.graph, self.delta, self.name = (enabled, None,
                                                            None, name)
         self.upload_s = None   # host seconds of the first replay
+        self.generators = tuple(generators)
 
     def capture(self) -> None:
         """Warm pass, capture, first replay; once.  Without graphs, one
@@ -187,7 +200,7 @@ class StepGraph:
         t0 = time.perf_counter()
         _warm(self.body, self.device)
         before = counts()
-        graph = _record(self.body, self.device)
+        graph = _record(self.body, self.device, self.generators)
         self.delta = {k: v - before.get(k, 0)
                       for k, v in counts().items()}
         _add({k: -d for k, d in self.delta.items()})
@@ -222,9 +235,11 @@ class GraphSet:
     captured raises; without graphs a key is made on first use."""
 
     def __init__(self, name: str, device: torch.device, enabled: bool,
-                 make: Callable):
+                 make: Callable,
+                 generators: Sequence[torch.Generator] = ()):
         self.name, self.device, self.enabled = name, device, enabled
         self.make = make
+        self.generators = tuple(generators)
         self.graphs: Dict = {}
         self._lock = threading.Lock()
 
@@ -245,7 +260,7 @@ class GraphSet:
                 body, out = self.make(key)
                 g = self.graphs[key] = StepGraph(
                     body, out, self.device, self.enabled,
-                    f"{self.name} {key!r}")
+                    f"{self.name} {key!r}", self.generators)
             return g
 
     def capture(self, key) -> None:

@@ -11,8 +11,12 @@ quantized containers included) into tensors on a device.
 the keys, shapes and distributions of the JAX initialisers
 (``llmvox_tpu/models/decoder.py::init_decoder_params``,
 ``llmvox_tpu/codec/codec.py::init_codec_params``) from a numpy generator,
-so full-width weights can be made without JAX.  They are not the JAX
-initialisers' values: ``jax.random`` and numpy draw different numbers.
+so full-width weights can be made without JAX; ``init_llama_params`` does
+the same for ``llmvox_tpu/models/llama.py::init_llama_params`` from a
+torch generator on the target device (an 8B tree is drawn on the card in
+well under a second, where numpy would take minutes).  They are not the
+JAX initialisers' values: ``jax.random``, numpy and torch draw different
+numbers.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from llmvox_tpu_torch.models.llama import LlamaConfig
 from llmvox_tpu_torch.ops import quant
 from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
 
@@ -134,6 +139,47 @@ def init_decoder_params(seed: int, cfg: DecoderConfig) -> Dict:
         # drawn last, so the other weights do not depend on the head count
         params["draft_heads"] = _normal(
             rng, (cfg.n_draft_heads, c, cfg.vocab_size), 0.02)
+    return params
+
+
+def init_llama_params(seed: int, cfg: LlamaConfig, device="cpu",
+                      dtype: torch.dtype = torch.float32) -> Dict:
+    """A dense Llama tree in the converted-checkpoint layout (HF init:
+    normal(0.02) matrices, RMSNorm scales 1), drawn in ``dtype`` on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``, in a fixed
+    order, so a seed gives the same tree on every call on one device."""
+    if cfg.n_experts or cfg.n_draft_heads:
+        raise NotImplementedError(
+            "init_llama_params draws dense Llama trees only; MoE layers and "
+            "draft heads are ROADMAP queue 1 item 6")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    l, c, hd = cfg.n_layer, cfg.n_embd, cfg.head_dim
+    kvd, inter = cfg.n_kv_head * hd, cfg.intermediate_size
+
+    def norm(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=dtype).mul_(0.02)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    params = {
+        "tok_emb": norm(cfg.vocab_size, c),
+        "h": {
+            "ln1_s": ones(l, c),
+            "wq": norm(l, c, cfg.n_head * hd),
+            "wk": norm(l, c, kvd),
+            "wv": norm(l, c, kvd),
+            "wo": norm(l, cfg.n_head * hd, c),
+            "ln2_s": ones(l, c),
+            "wgate": norm(l, c, inter),
+            "wup": norm(l, c, inter),
+            "wdown": norm(l, inter, c),
+        },
+        "lnf_s": ones(c),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = norm(c, cfg.vocab_size)
     return params
 
 

@@ -91,7 +91,7 @@ def stub_graphs(monkeypatch):
     replay runs it with the counters held still."""
     monkeypatch.setattr(graphs, "_warm", lambda body, device: body())
 
-    def record(body, device):
+    def record(body, device, generators=()):
         body()
         return _StubGraph(body)
 

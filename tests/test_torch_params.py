@@ -110,7 +110,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             llmvox_tpu_torch.__path__, "llmvox_tpu_torch.")]
         for n in ("serve.pool", "serve.batch", "ops.cuda_batched_attn",
                   "serve.spec_control", "ops.cuda_verify_attn", "ops.quant",
-                  "ops.cuda_int4_mm"):
+                  "ops.cuda_int4_mm", "models.llama", "streams.llm",
+                  "streams.hf_llm"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)

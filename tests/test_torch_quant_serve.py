@@ -31,6 +31,7 @@ from llmvox_tpu_torch.serve.engine import TTSEngine as TTTSEngine
 from llmvox_tpu_torch.serve.scheduler import StreamingScheduler as TScheduler
 from llmvox_tpu_torch.streams.scripted import ScriptedStream as TScripted
 from llmvox_tpu_torch.utils import config as tconfig
+from llmvox_tpu_torch.utils.device import dispatch_executor
 from llmvox_tpu_torch.utils.params import to_torch
 
 from tests.test_torch_quant import MODES, _noisy_params, _tcfg, _trees, \
@@ -272,6 +273,10 @@ def test_cli_quantize_w4_serves_tts(monkeypatch):
         got["srv"].shutdown()
         thread.join(timeout=60)
         loop.close()
+    # a block the scheduler issued ahead may still run on the dispatch
+    # thread after the response ends: wait until the thread is idle before
+    # counting its launches
+    dispatch_executor(torch.device("cpu")).submit(lambda: None).result()
     wav = np.frombuffer(b"".join(c for _, c in chunks), "<f4")
     assert chunks and wav.size > 0 and np.isfinite(wav).all()
     assert calls and len(calls) % (4 * t_dec.n_layer) == 0
