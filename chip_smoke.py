@@ -108,9 +108,26 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      request and K4's launches on the LLM's path.  Phase 11 holds K4 at
      the Llama's four weight shapes (M 1, 16, 128, 512) and times it at M
      1 and 128.
-Then a JSON line with phase 14's numbers, one with the kernels' numbers,
-the card's name and power limit, and as the last line ``{"ok": true,
-"device": {...}}``.
+ 15. ``/voicechat`` with the in-framework Whisper (``streams/asr.py``) at
+     the geometry of openai/whisper-large-v3 (random seeded weights, a
+     generation config that masks every id but the printable ones and
+     EOS, the smoke's printable-id tokenizer): 2 + 2 layers at full width
+     in f32, the card against the CPU's plain path (log_mel to 2e-4, the
+     encoder and the prefill logits to 2e-5, two 16-token graph blocks
+     teacher-forced, ``near_tie`` where they part) at the 1200-frame
+     bucket with the language forced and at the full window with it
+     detected; 32 + 32 layers in bf16 and in f32, the warmup's captures
+     (per bucket 600, 1200 and 3000: the prep, the prep that detects the
+     language, the decode block), the graph and eager chains equal, the
+     prep's and the block's device times per bucket beside their bounds;
+     three ``/voicechat`` requests (3, 6.5 and 10 s of speech-like audio)
+     answered by the f32 ASR, phase 14's bf16 LLM and the dedicated
+     replicas (the transcript's time, first text delta, TTFA, RTF, the
+     loop's lag, no capture while serving, K1's launches); and
+     ``--quantize w4`` with the in-framework ASR refused.
+Then a JSON line with phase 14's numbers, one with phase 15's, one with
+the kernels' numbers, the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2457,7 +2474,9 @@ def phase_llm(engines, weights, card: str, device="cuda",
     three ``/tts`` requests answered by the LLM through ``build_server``
     on the dedicated replicas.  (4) ``--quantize w4``: the LLM and the
     decoder quantized, the w4 block's time, one served request, and K4's
-    launches on the LLM's path (7 a layer per token and per prefill)."""
+    launches on the LLM's path (7 a layer per token and per prefill).
+    Returns the numbers and the bf16 stream (warmed: phase 15 serves
+    ``/voicechat`` with it)."""
     from llmvox_tpu_torch.models import llama
     from llmvox_tpu_torch.ops import cuda_int4_mm, quant
     from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
@@ -2558,9 +2577,10 @@ def phase_llm(engines, weights, card: str, device="cuda",
     out["served"] = _serve_llm(model, engines, weights, 3, "bf16", card,
                                device)
 
-    # (4) --quantize w4: the LLM and the decoder
+    # (4) --quantize w4: the LLM and the decoder (the bf16 stream stays
+    # for phase 15's /voicechat, with its captures)
     qparams = quant.quantize_llama_params(params, "w4")
-    del model, params
+    del params
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -2599,7 +2619,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[llm] peak device memory in phase 14: {out['peak_gb']:.2f} GB "
             f"({card})")
-    return out
+    return out, model
 
 
 def _llm_block_times(model, eager, params, cfg, card: str, what: str,
@@ -2667,6 +2687,451 @@ def _llm_times(model, eager, params, cfg, card: str) -> dict:
         + f" ({card})")
     out["block"] = _llm_block_times(model, eager, params, cfg, card, "bf16",
                                     LLM_ATTN_TIMED)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: /voicechat with the in-framework Whisper ASR
+# ---------------------------------------------------------------------------
+
+WHISPER_LARGE_V3 = dict(vocab_size=51866, n_mels=128, d_model=1280,
+                        enc_layers=32, dec_layers=32, enc_heads=20,
+                        dec_heads=20, enc_ffn=5120, dec_ffn=5120,
+                        max_source_positions=1500, max_target_positions=448,
+                        decoder_start_token_id=50258, eos_token_id=50257)
+ASR_BUCKETS = (600, 1200, 3000)   # the default asr_ctx_buckets (mel frames)
+ASR_PRINTABLE = range(0x20, 0x7f)  # the smoke tokenizer's printable ids
+ASR_SECONDS = (3.0, 6.5, 10.0)     # the served requests' audio
+
+
+class PrintableIds:
+    """The smoke's Whisper tokenizer: id i in 0x20..0x7e is chr(i); every
+    other id (the specials among them) is dropped.  The card's machine has
+    no transformers, so no ``WhisperTokenizer``."""
+
+    def decode(self, ids, skip_special_tokens=True) -> str:
+        return "".join(chr(i) for i in ids if i in ASR_PRINTABLE)
+
+
+def asr_generation(cfg) -> dict:
+    """A generation config in large-v3's ids (four of its languages, the
+    tasks, no-timestamps, max_length 448) whose ``suppress_tokens`` mask
+    every id but the printable ones and EOS: a random 51866-way tied head
+    then writes printable transcripts through JAX's own ``_suppress``
+    mechanism.  ``begin_suppress`` keeps EOS and the space off the first
+    token, as large-v3's does."""
+    eos = cfg.eos_token_id
+    keep = set(ASR_PRINTABLE) | {eos}
+    return {"lang_to_id": {"<|en|>": 50259, "<|zh|>": 50260,
+                           "<|de|>": 50261, "<|es|>": 50262},
+            "task_to_id": {"translate": 50359, "transcribe": 50360},
+            "no_timestamps_token_id": 50364,
+            "suppress_tokens": [i for i in range(cfg.vocab_size)
+                                if i not in keep],
+            "begin_suppress_tokens": [0x20, eos],
+            "max_length": cfg.max_target_positions}
+
+
+def speechish(seconds: float, seed: int) -> np.ndarray:
+    """A speech-like 16 kHz signal: voiced harmonics under a syllable-rate
+    envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.5 * t) ** 2
+    return (0.3 * env * voiced + 0.02 * rng.standard_normal(t.size)).astype(
+        np.float32)
+
+
+def _b64_pcm(audio: np.ndarray) -> str:
+    import base64
+    return base64.b64encode((audio * 32767 / np.abs(audio).max()).astype(
+        np.int16).tobytes()).decode()
+
+
+def make_asr(params, cfg, scfg, device, buckets=ASR_BUCKETS, graphs=None):
+    """The in-framework ASR on ``params`` (kept in their dtype, as JAX's
+    ``build_asr`` keeps a loaded checkpoint's), the smoke's generation
+    config and tokenizer, the given context buckets."""
+    from llmvox_tpu_torch.streams.asr import WhisperModelASR
+    asr = WhisperModelASR(dataclasses.replace(
+        scfg, asr_backend="jax", asr_ctx_buckets=buckets),
+        device=device, graphs=graphs)
+    asr.cfg = cfg
+    asr._finish_load(params, asr_generation(cfg), PrintableIds())
+    return asr
+
+
+def asr_chain(asr, audio, language, n_blocks: int = 2):
+    """The prep's first token and ``n_blocks`` decode blocks, issued as
+    ``transcribe_stream`` issues them (frozen EOS rows included); returns
+    (bucket frames, forced prompt as the prep left it, tokens)."""
+    frames, _, first = asr._prep_single(audio, "transcribe", language,
+                                        asr._pick_ctx(len(audio)))
+    out = [first]
+    for _ in range(n_blocks):
+        out += asr._wait(asr._issue(asr._decode, frames))[0].tolist()
+    forced = asr._buckets[frames].forced.cpu().tolist()
+    return frames, forced, out
+
+
+def _allowed_tie(logits, want, got, allowed, what) -> float:
+    """``near_tie`` over the logits the generation config leaves."""
+    idx = {t: i for i, t in enumerate(allowed.tolist())}
+    return near_tie(logits[allowed], idx[want], idx[got], what)
+
+
+def _asr_small_check(cfg, scfg, device, card, graphs) -> dict:
+    """2 + 2 layers at full width, f32, the card against the CPU's plain
+    path from the same seed, at the 1200-frame bucket (language forced) and
+    at the full window (language detected)."""
+    from llmvox_tpu_torch.models import whisper as W
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.params import to_torch
+    cfg2 = dataclasses.replace(cfg, enc_layers=2, dec_layers=2)
+    p2 = P.init_whisper_params(20, cfg2, device=device)
+    cpu_p = to_torch(p2, "cpu")
+    asr = make_asr(p2, cfg2, scfg, device, buckets=(1200, 3000),
+                   graphs=graphs)
+    asr.warmup()
+    gen = asr_generation(cfg2)
+    allowed = torch.tensor(sorted(set(ASR_PRINTABLE) | {cfg2.eos_token_id}))
+    out = {}
+    for seconds, language in ((9.0, "en"), (20.0, None)):
+        audio = speechish(seconds, 30)
+        ctx = asr._pick_ctx(len(audio))
+        pad = W.pad_or_trim(audio, cfg2, ctx)
+        # each function on the same inputs, card against CPU
+        mel = W.log_mel(torch.from_numpy(pad), cfg2)
+        mel_err = (W.log_mel(torch.from_numpy(pad).to(device), cfg2).cpu()
+                   - mel).abs().max().item()
+        enc = W.encode(cpu_p, mel, cfg2)
+        enc_err = (W.encode(p2, mel.to(device), cfg2).cpu()
+                   - enc).abs().max().item()
+        cross = W.make_cross_kv(cpu_p, enc, cfg2)
+        frames, forced, chain = asr_chain(asr, audio, language)
+        card_cross = W.CrossKV(cross.k.to(device), cross.v.to(device))
+        logits, _ = W.prefill(cpu_p, torch.tensor([forced]),
+                              W.init_whisper_decode_state(cfg2), cross, cfg2)
+        card_logits, _ = W.prefill(
+            p2, torch.tensor([forced], device=device),
+            W.init_whisper_decode_state(cfg2, device=device), card_cross,
+            cfg2)
+        logit_err = (card_logits.cpu() - logits).abs().max().item()
+        assert mel_err <= 2e-4 and enc_err <= 2e-5 and logit_err <= 2e-5, (
+            seconds, mel_err, enc_err, logit_err)
+        # the detected language: the CPU's [sot] argmax over the languages
+        langs = sorted(gen["lang_to_id"].values())
+        if language is None:
+            sot, _ = W.prefill(cpu_p, torch.tensor([forced[:1]]),
+                               W.init_whisper_decode_state(cfg2), cross,
+                               cfg2)
+            row = sot[0, 0][langs]
+            want = langs[int(row.argmax())]
+            if want != forced[1]:
+                near_tie(row, langs.index(want), langs.index(forced[1]),
+                         ("asr detect", seconds))
+        # the card's chain (graph replays) against the CPU teacher-forced on
+        # it, to its first EOS: every divergence a near tie
+        end = (chain.index(cfg2.eos_token_id) + 1
+               if cfg2.eos_token_id in chain else len(chain))
+        seq = torch.tensor([forced + chain[:end - 1]])
+        with torch.no_grad():
+            forced_logits, _ = W.prefill(cpu_p, seq,
+                                         W.init_whisper_decode_state(cfg2),
+                                         cross, cfg2)
+        first_allowed = torch.tensor(
+            [t for t in allowed.tolist()
+             if t not in gen["begin_suppress_tokens"]])
+        ties = []
+        for d in range(end):
+            row = forced_logits[0, len(forced) - 1 + d]
+            ids = first_allowed if d == 0 else allowed
+            want = int(ids[row[ids].argmax()])
+            if want != chain[d]:
+                ties.append((d, _allowed_tie(row, want, chain[d], ids,
+                                             ("asr f32", seconds, d))))
+        text = PrintableIds().decode(chain[:end])
+        assert text and all(32 <= ord(c) < 127 for c in text), text
+        out[frames] = {"log_mel_err": mel_err, "encoder_err": enc_err,
+                       "logits_err": logit_err, "tokens": end,
+                       "ties": len(ties)}
+        log(f"[asr] 2+2 layers at full width, f32, bucket {frames} "
+            f"({seconds:.1f} s, language "
+            f"{'forced en' if language else 'detected'}: forced prompt "
+            f"{forced}): card against CPU log_mel max |diff| {mel_err:.2e} "
+            f"(<= 2e-4), encoder {enc_err:.2e}, prefill logits "
+            f"{logit_err:.2e} (<= 2e-5); the card's {end}-token greedy chain "
+            f"(prep + 2 CUDA graph blocks) against the CPU teacher-forced: "
+            + (f"{len(ties)} near tie(s) {ties}" if ties else
+               "every token the CPU's argmax") + f"; text {text[:32]!r}")
+    return out
+
+
+def asr_token_bound_ms(params, cfg, frames: int, pos: int, es: int) -> tuple:
+    """Least time for one decode token: the decoder's layer weights and the
+    tied head (0.905 B values at large-v3) read once, one embedding and one
+    position row, the bucket's cross-KV and ``pos`` self-KV rows of every
+    layer, over HBM's rate; or two flops a weight and the attention's
+    products over the dtype's peak."""
+    d, s = cfg.d_model, frames // 2
+    dec = params["dec"]
+    n_layer_w = sum(v.numel() for v in dec["h"].values())
+    n_w = n_layer_w + dec["tok_emb"].numel()
+    kv = 2 * cfg.dec_layers * (s + pos) * d
+    nbytes = (n_w + 2 * d + kv) * es
+    flops = 2 * n_w + 2 * kv
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dec["tok_emb"].dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def asr_prep_bound_ms(params, cfg, frames: int, n_forced: int) -> tuple:
+    """Least time for a prep: the convolutions, the encoder layers
+    (projections, the FFN, the S x S attention), the cross-KV projections
+    and the forced prompt's prefill with the head at every position, over
+    the dtype's peak; or every weight, the audio and the cross-KV written,
+    over HBM's rate."""
+    from llmvox_tpu_torch.ops import quant
+    d, f, s = cfg.d_model, cfg.enc_ffn, frames // 2
+    dtype = params["dec"]["tok_emb"].dtype
+    es = torch.finfo(dtype).bits // 8
+    enc = (2 * 3 * cfg.n_mels * d * frames + 2 * 3 * d * d * s
+           + cfg.enc_layers * (2 * s * (4 * d * d + 2 * d * f)
+                               + 4 * s * s * d))
+    cross = 2 * 2 * cfg.dec_layers * s * d * d
+    n_dec = sum(v.numel() for v in params["dec"]["h"].values())
+    prefill = 2 * n_forced * (n_dec + params["dec"]["tok_emb"].numel())
+    nbytes = (quant.quantized_bytes(params) + frames * cfg.hop_length * 4
+              + 2 * cfg.dec_layers * s * d * es)
+    t_ops = (enc + cross + prefill) / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), enc + cross + prefill
+
+
+def _replay_ms(graph, reps: int = 3) -> float:
+    """Device time of one replay, CUDA events, the median of ``reps``."""
+    times = []
+    for _ in range(reps):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _asr_depth(cfg, scfg, device, card, dtype, seed, graphs) -> tuple:
+    """32 layers in ``dtype``: the warmup's captures, the graph and eager
+    chains equal (prep + 2 blocks, language detected and forced), and on a
+    card the prep's and the block's device times at every bucket beside
+    their bounds.  Returns (numbers, the graph ASR)."""
+    from llmvox_tpu_torch.ops import quant
+    from llmvox_tpu_torch.utils import graphs as G
+    from llmvox_tpu_torch.utils import params as P
+    name = "f32" if dtype == torch.float32 else "bf16"
+    t0 = time.perf_counter()
+    params = P.init_whisper_params(seed, cfg, device=device, dtype=dtype)
+    _sync(device)
+    n_bytes = quant.quantized_bytes(params)
+    log(f"[asr] {cfg.enc_layers}+{cfg.dec_layers} layers, {n_bytes} bytes "
+        f"of {name} weights, drawn on the device in "
+        f"{time.perf_counter() - t0:.2f} s")
+    asr = make_asr(params, cfg, scfg, device, graphs=graphs)
+    n_cap, s0 = captures(), G.CAPTURE_S
+    asr.warmup()
+    out = {"captures": captures() - n_cap, "capture_s": G.CAPTURE_S - s0}
+    log(f"[asr] {name} warmup: {out['captures']} CUDA graphs (per bucket "
+        f"{list(ASR_BUCKETS)}: prep, prep with language detection, "
+        f"{asr.decode_block_size}-token block) in {out['capture_s']:.2f} s; "
+        f"{graphs_text()}; " + uploads_text(asr._preps, asr._blocks))
+    eager = make_asr(params, cfg, scfg, device, graphs=False)
+    for seconds, language in ((3.0, None), (10.0, "en")):
+        audio = speechish(seconds, 40)
+        got, want = asr_chain(asr, audio, language), asr_chain(
+            eager, audio, language)
+        assert got == want, (name, seconds, got, want)
+        log(f"[asr] {name}: graph and eager chains equal at bucket "
+            f"{got[0]} (language {language or 'detected'}, forced "
+            f"{got[1]}): {len(got[2])} tokens "
+            f"{PrintableIds().decode(got[2])[:32]!r}")
+    del eager
+    if torch.device(device).type == "cuda":
+        es = params["dec"]["tok_emb"].element_size()
+        out["prep_ms"], out["block_ms_per_token"] = {}, {}
+        for frames in ASR_BUCKETS:
+            pos = asr._forced_len
+            ms = _replay_ms(asr._preps.get((frames, False)).graph)
+            bound, by, flops = asr_prep_bound_ms(params, cfg, frames, pos)
+            out["prep_ms"][frames] = {"ms": ms, "bound_ms": bound,
+                                      "bound_by": by,
+                                      "tflop_s": flops / ms / 1e9}
+            bk = asr._buckets[frames]
+            bk.state.pos.fill_(pos)
+            bk.state.done.zero_()
+            block = asr._blocks.get(frames).graph
+            times = []
+            for _ in range(3):
+                bk.state.pos.fill_(pos)
+                times.append(_replay_ms(block, reps=1)
+                             / asr.decode_block_size)
+            tok_ms = statistics.median(times)
+            tb, tby = asr_token_bound_ms(
+                params, cfg, frames, pos + asr.decode_block_size // 2, es)
+            out["block_ms_per_token"][frames] = {"ms": tok_ms,
+                                                 "bound_ms": tb,
+                                                 "bound_by": tby}
+            log(f"[asr] {name} bucket {frames}: prep (mel, encoder, "
+                f"cross-KV, forced prefill) one replay {ms:.3f} ms, bound "
+                f"{bound:.3f} ms ({by}, {bound / ms * 100:.0f}% of it, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s); {asr.decode_block_size}"
+                f"-token block {tok_ms:.3f} ms a token, bound {tb:.3f} ms "
+                f"({tby}, {tb / tok_ms * 100:.0f}% of it) ({card})")
+    return out, asr
+
+
+def _serve_voicechat(asr, model, engines, weights, card: str) -> dict:
+    """Three sequential ``POST /voicechat`` (base64 int16 PCM of
+    ``ASR_SECONDS`` of speech-like audio, source and target "english")
+    through ``build_server`` with ``chat_type`` "voice": ``asr`` transcribes
+    (the card has no transformers, so "english" resolves to no language
+    token and the language is detected, as JAX would without it),
+    ``model`` (the LLM) replies, the replicas speak.  Per request the
+    transcript's time, the first text delta, TTFA, RTF and the loop's
+    lag."""
+    from llmvox_tpu_torch.ops import cuda_attn
+    from llmvox_tpu_torch.serve.client import post_chunks
+    from llmvox_tpu_torch.serve.server import build_server
+    _, _, _, dcfg, ccfg, scfg = weights
+    port = _free_port()
+    cfg = dataclasses.replace(
+        scfg, api_port=port, scripted_reply="", chat_type="voice",
+        asr_backend="jax", llm_backend="jax", llm_block=LLM_BLOCK,
+        llm_max_tokens=LLM_TOKENS, llm_temperature=0.0)
+    stamps, prompts, asr_s = [], [], []
+    _timed_predict(model, stamps)
+    orig_predict, orig_run = model.predict, asr.run_asr
+    served_captures = None
+
+    def predict(request):
+        prompts.append(request["prompt"])
+        return orig_predict(request)
+
+    def run_asr(body):
+        t0 = time.perf_counter()
+        text = orig_run(body)
+        asr_s.append(time.perf_counter() - t0)
+        return text
+
+    model.predict, asr.run_asr = predict, run_asr
+    n_cap = captures()
+    rows, bodies = [], []
+    try:
+        with _Server(build_server(cfg, engines, stream_model=model,
+                                  asr_model=asr), port) as server:
+            assert captures() == n_cap, "build_server captured again"
+            cuda_attn.LAUNCHES = 0
+            steps0 = sum(e.decode_steps for e in engines)
+            for r, seconds in enumerate(ASR_SECONDS):
+                body = {"audio_base64": _b64_pcm(speechish(seconds, 50 + r)),
+                        "source_language": "english",
+                        "target_language": "english"}
+                bodies.append(body)
+                lag = _LoopLag(server.loop)
+                t0 = time.perf_counter()
+                chunks = post_chunks("127.0.0.1", port, "/voicechat", body,
+                                     timeout=300)
+                wall = time.perf_counter() - t0
+                lag = lag.stop()
+                assert chunks and all(len(c) % (4 * ccfg.hop_length) == 0
+                                      for _, c in chunks), "ragged chunk"
+                wav = np.frombuffer(b"".join(c for _, c in chunks), "<f4")
+                assert np.isfinite(wav).all(), "non-finite samples"
+                text = prompts[-1]
+                assert text and all(32 <= ord(c) < 127 for c in text), text
+                audio_s = len(wav) / ccfg.sample_rate
+                row = {"audio_in_s": seconds,
+                       "bucket": asr._pick_ctx(int(16000 * seconds)),
+                       "transcript_ms": asr_s[-1] * 1e3,
+                       "transcript_chars": len(text),
+                       "first_delta_ms": (asr_s[-1] + stamps[-1]) * 1e3,
+                       "ttfa_ms": chunks[0][0] * 1e3, "rtf": wall / audio_s,
+                       "audio_s": audio_s, "lag_median_ms": lag["median_ms"],
+                       "lag_max_ms": lag["max_ms"]}
+                rows.append(row)
+                log(f"[asr] /voicechat request {r} ({seconds:.1f} s of "
+                    f"audio, bucket {row['bucket'] or 3000}): transcript "
+                    f"{row['transcript_ms']:.1f} ms ({len(text)} chars "
+                    f"{text[:24]!r}), first text delta "
+                    f"{row['first_delta_ms']:.1f} ms, first audio "
+                    f"{row['ttfa_ms']:.1f} ms, wall {wall * 1e3:.1f} ms, "
+                    f"{audio_s:.2f} s audio out, RTF {row['rtf']:.3f}; "
+                    f"{_lag_text(lag)} ({card})")
+            k1 = cuda_attn.LAUNCHES
+            steps = sum(e.decode_steps for e in engines) - steps0
+        served_captures = captures() - n_cap
+    finally:
+        del model.predict, asr.run_asr
+    assert served_captures == 0, "a CUDA graph was captured while serving"
+    assert k1 == dcfg.n_layer * steps > 0, (k1, steps)
+    # the served transcript is the ASR's, as run_asr gives it again
+    assert asr.run_asr(bodies[0]) == prompts[0], prompts[0]
+    return {"requests": rows, "captures_while_serving": served_captures,
+            "k1_launches": k1, "tts_steps": steps}
+
+
+def phase_asr(engines, weights, card: str, llm_model, llm=None,
+              device="cuda", cfg=None, graphs=None) -> dict:
+    """``/voicechat`` with the in-framework Whisper (``streams/asr.py``) at
+    openai/whisper-large-v3's geometry, random seeded weights, the
+    smoke's printable-id tokenizer and generation config
+    (``asr_generation``).  (1) 2 + 2 layers at full width in f32, card
+    against the CPU (``_asr_small_check``).  (2) 32 + 32 layers in f32 (as
+    served: JAX's ``build_asr`` keeps a checkpoint's f32) and in bf16: the
+    captures, graph and eager chains equal, the prep and block times per
+    bucket (``_asr_depth``).  (3) three ``/voicechat`` requests with the
+    f32 ASR, phase 14's bf16 LLM stream (its captures reused) and the
+    dedicated replicas (``_serve_voicechat``).  (4) ``--quantize w4`` with
+    the in-framework ASR is refused.  ``graphs`` goes to the graph ASRs
+    (None: on for a card)."""
+    from llmvox_tpu_torch.models import whisper as W
+    from llmvox_tpu_torch.streams.asr import WhisperModelASR
+    scfg = weights[5]
+    cfg = cfg or W.WhisperConfig(**WHISPER_LARGE_V3)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"card": card,
+           "small": _asr_small_check(cfg, scfg, device, card, graphs)}
+    out["bf16"], asr = _asr_depth(cfg, scfg, device, card, torch.bfloat16,
+                                  22, graphs)
+    del asr
+    out["f32"], asr = _asr_depth(cfg, scfg, device, card, torch.float32,
+                                 21, graphs)
+    out["served"] = _serve_voicechat(asr, llm_model, engines, weights, card)
+    if llm is not None:
+        out["llm_tts"] = llm["served"]["requests"]
+    try:
+        WhisperModelASR(dataclasses.replace(scfg, asr_backend="jax",
+                                            quantize="w4"), device=device)
+    except ValueError as e:
+        assert "346-349" in str(e) and "ROADMAP" in str(e), e
+        log(f"[asr] --quantize w4 with the in-framework ASR refused: {e}")
+    else:
+        raise AssertionError("a quantized in-framework ASR was built")
+    out["phase_s"] = time.perf_counter() - t0
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[asr] phase 15 took {out['phase_s']:.1f} s"
+        + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card else "")
+        + f" ({card})")
     return out
 
 
@@ -2857,7 +3322,7 @@ def main(argv) -> int:
     k4 = phase_k4()
     phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
-    llm_k4_launches = None
+    llm_k4_launches = voicechat_launches = None
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -2869,15 +3334,19 @@ def main(argv) -> int:
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
         quant_launches = phase_quant(engines, weights)["k4_launches"]
         phase_graphs(engines, weights)
-        llm = phase_llm(engines, weights, card)
+        llm, llm_model = phase_llm(engines, weights, card)
         llm_k4_launches = llm["k4_llm_launches"]
         log(json.dumps({"llm": llm}))
+        asr = phase_asr(engines, weights, card, llm_model, llm=llm)
+        voicechat_launches = asr["served"]["k1_launches"]
+        log(json.dumps({"asr": asr}))
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
              "replaces": "llmvox_tpu/ops/pallas_attn.py:693",
              "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_decode_attention",
              "launches": launches, "max_abs_err": k1["max_abs_err"],
+             "voicechat_launches": voicechat_launches,
              "pos": 8191, "dtype": "bfloat16", **deep,
              "other": {f"pos {pos}": {key: t[key] for key in
                                       ("ms", "bound_ms", "plain_ms",

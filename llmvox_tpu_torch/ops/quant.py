@@ -1,5 +1,7 @@
 """Int8 / int4 weight quantization for the serving models: the speech
-decoder and the in-framework Llama.
+decoder and the in-framework Llama (and, for parity of the tree only,
+Whisper: the port's ASR refuses a quantized model, as
+``streams/asr.py::refuse_quantized`` says).
 
 Counterpart of ``llmvox_tpu/ops/quant.py`` with the same containers, field
 names and layouts, so a quantized tree carries over key for key:
@@ -204,6 +206,8 @@ def _mode_cls(mode: str):
 DECODER_MATMUL_KEYS = ("wqkv", "wo", "wfc", "wproj", "head")
 LLAMA_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown",
                      "head", "moe_wgate", "moe_wup", "moe_wdown")
+WHISPER_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "xwq", "xwk", "xwv", "xwo",
+                       "fc1_w", "fc2_w")
 HEAD_KEYS = ("head",)
 
 
@@ -223,6 +227,16 @@ def quantize_llama_params(params: Dict, mode: str = "w8") -> Dict:
     layer linear runs through kernel K4."""
     return _quantize_named(params, LLAMA_MATMUL_KEYS, _mode_cls(mode),
                            keep_w8=HEAD_KEYS)
+
+
+def quantize_whisper_params(params: Dict, mode: str = "w8") -> Dict:
+    """Quantize a Whisper tree's matmul weights (``models/whisper.py``),
+    key for key as JAX's ``quantize_whisper_params``: the conv frontend,
+    the embeddings (``dec.tok_emb`` is also the tied head) and the norms
+    stay dense.  Nothing in the port serves the result: JAX's
+    ``make_cross_kv`` cannot take the quantized ``xwk``/``xwv``, so the
+    ASR refuses ``--quantize`` (ROADMAP §3)."""
+    return _quantize_named(params, WHISPER_MATMUL_KEYS, _mode_cls(mode))
 
 
 def _leaves(tree):

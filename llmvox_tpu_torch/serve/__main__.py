@@ -22,6 +22,17 @@ ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
 speculates with the checkpoint's draft heads (``--spec_k_draft`` drafts,
 or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
 ``--random_seed`` the random decoder then carries random draft heads.
+``--chat_type`` picks the endpoints' text streams as JAX's CLI does:
+"text" and "voice" the LLM above, "multimodal" the HF multimodal model
+and "visual_speech" the HF vision-language model (both from
+``--llm_checkpoint``).  "voice" and "visual_speech" also transcribe the
+request's audio (``/voicechat``, ``/vlmschat``): ``--asr_backend hf`` with
+the transformers pipeline on ``--asr_device``, ``--asr_backend jax`` with
+the in-framework Whisper on the replicas' card, from ``--asr_model`` (an
+HF checkpoint dir, or a converted ``.npz`` with its ``.json`` meta), its
+context buckets ``--asr_ctx_buckets`` captured as CUDA graphs at warmup
+(refused with ``--quantize``: the reference's quantized Whisper does not
+run, ROADMAP §3).
 ``--quantize w8 | w8a8 | w4`` quantizes the speech decoder's matmul
 weights after loading (random ones too), before the replicas and the pool
 are built, and the in-framework LLM's as JAX does (its head weight-only
@@ -34,6 +45,9 @@ in how many seconds, and the graph pool's bytes, before the port listens.
         --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
         [--spec_decode true] [--quantize w4]
     python -m llmvox_tpu_torch.serve --random_seed 0 --llm_backend jax \\
+        --llm_jax_params llama.npz --llm_checkpoint byte
+    python -m llmvox_tpu_torch.serve --random_seed 0 --chat_type voice \\
+        --asr_backend jax --asr_model whisper.npz --llm_backend jax \\
         --llm_jax_params llama.npz --llm_checkpoint byte
 """
 from __future__ import annotations

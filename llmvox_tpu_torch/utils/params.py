@@ -14,7 +14,9 @@ the keys, shapes and distributions of the JAX initialisers
 so full-width weights can be made without JAX; ``init_llama_params`` does
 the same for ``llmvox_tpu/models/llama.py::init_llama_params`` from a
 torch generator on the target device (an 8B tree is drawn on the card in
-well under a second, where numpy would take minutes).  They are not the
+well under a second, where numpy would take minutes), and
+``init_whisper_params`` for ``llmvox_tpu/models/whisper.py::
+init_whisper_params``.  They are not the
 JAX initialisers' values: ``jax.random``, numpy and torch draw different
 numbers.
 """
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.models.llama import LlamaConfig
+from llmvox_tpu_torch.models.whisper import WhisperConfig
 from llmvox_tpu_torch.ops import quant
 from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
 
@@ -181,6 +184,53 @@ def init_llama_params(seed: int, cfg: LlamaConfig, device="cpu",
     if not cfg.tie_embeddings:
         params["head"] = norm(c, cfg.vocab_size)
     return params
+
+
+def init_whisper_params(seed: int, cfg: WhisperConfig, device="cpu",
+                        dtype: torch.dtype = torch.float32) -> Dict:
+    """A Whisper tree in the converted-checkpoint layout (HF init:
+    normal(0.02) matrices, embeddings and positions, zero biases, LayerNorm
+    scales 1), drawn in ``dtype`` on ``device`` from a ``torch.Generator``
+    seeded with ``seed``, in a fixed order."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = cfg.d_model
+
+    def norm(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=dtype).mul_(0.02)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    def attn(n: int, prefix: str = "") -> Dict:
+        return {prefix + "wq": norm(n, d, d), prefix + "bq": zeros(n, d),
+                prefix + "wk": norm(n, d, d),
+                prefix + "wv": norm(n, d, d), prefix + "bv": zeros(n, d),
+                prefix + "wo": norm(n, d, d), prefix + "bo": zeros(n, d)}
+
+    def common(n: int, ffn: int) -> Dict:
+        return {"ln1_s": ones(n, d), "ln1_b": zeros(n, d),
+                "ln2_s": ones(n, d), "ln2_b": zeros(n, d),
+                "fc1_w": norm(n, d, ffn), "fc1_b": zeros(n, ffn),
+                "fc2_w": norm(n, ffn, d), "fc2_b": zeros(n, d)}
+
+    enc_h = {**common(cfg.enc_layers, cfg.enc_ffn), **attn(cfg.enc_layers)}
+    dec_h = {**common(cfg.dec_layers, cfg.dec_ffn), **attn(cfg.dec_layers),
+             **attn(cfg.dec_layers, "x"),
+             "lnx_s": ones(cfg.dec_layers, d),
+             "lnx_b": zeros(cfg.dec_layers, d)}
+    return {
+        "enc": {"conv1_w": norm(3, cfg.n_mels, d), "conv1_b": zeros(d),
+                "conv2_w": norm(3, d, d), "conv2_b": zeros(d),
+                "pos": norm(cfg.max_source_positions, d), "h": enc_h,
+                "lnf_s": ones(d), "lnf_b": zeros(d)},
+        "dec": {"tok_emb": norm(cfg.vocab_size, d),
+                "pos": norm(cfg.max_target_positions, d), "h": dec_h,
+                "lnf_s": ones(d), "lnf_b": zeros(d)},
+    }
 
 
 def _init_resnet_block(rng, dim: int) -> Dict:

@@ -159,6 +159,10 @@ def test_server_chunks_match_jax(weights):
 
 
 def test_server_refuses_unported_endpoints(weights):
+    """Every endpoint is ported; one whose model the server was not built
+    with (``/voicechat`` needs an ASR, built for ``chat_type`` "voice")
+    answers 500 with a JSON error naming it, before any audio, as the JAX
+    server answers 500 there."""
     import http.client
     import json
     port = _free_port()
@@ -170,7 +174,7 @@ def test_server_refuses_unported_endpoints(weights):
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
         conn.request("POST", "/voicechat", body="{}")
         resp = conn.getresponse()
-        assert resp.status == 501
+        assert resp.status == 500
         assert "/voicechat" in json.loads(resp.read())["error"]
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
         conn.request("GET", "/stats")

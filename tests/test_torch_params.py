@@ -111,7 +111,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for n in ("serve.pool", "serve.batch", "ops.cuda_batched_attn",
                   "serve.spec_control", "ops.cuda_verify_attn", "ops.quant",
                   "ops.cuda_int4_mm", "models.llama", "streams.llm",
-                  "streams.hf_llm"):
+                  "streams.hf_llm", "models.whisper", "codec.mel",
+                  "streams.asr", "streams.remote", "streams.hf_vlm",
+                  "streams.hf_multimodal", "serve.demo_page", "utils.audio",
+                  "tools.convert"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)
