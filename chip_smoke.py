@@ -106,8 +106,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      TTFA, RTF, the LLM's tokens/s, the loop's lag); then ``--quantize
      w4`` for the LLM and the decoder: the w4 block's time, one served
      request and K4's launches on the LLM's path.  Phase 11 holds K4 at
-     the Llama's four weight shapes (M 1, 16, 128, 512) and times it at M
-     1 and 128.
+     the Llama's four weight shapes (M 1, 8, 16, 128, 512, 2048: the B=1
+     stream, the pool's decode step and its burst prefill among them) and
+     times it at M 1, 8, 128 and 2048.
  15. ``/voicechat`` with the in-framework Whisper (``streams/asr.py``) at
      the geometry of openai/whisper-large-v3 (random seeded weights, a
      generation config that masks every id but the printable ones and
@@ -123,11 +124,33 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      three ``/voicechat`` requests (3, 6.5 and 10 s of speech-like audio)
      answered by the f32 ASR, phase 14's bf16 LLM and the dedicated
      replicas (the transcript's time, first text delta, TTFA, RTF, the
-     loop's lag, no capture while serving, K1's launches); and
-     ``--quantize w4`` with the in-framework ASR refused.
-Then a JSON line with phase 14's numbers, one with phase 15's, one with
-the kernels' numbers, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``.
+     loop's lag, no capture while serving, K1's launches);
+     ``--quantize w4`` with the in-framework ASR refused; then three
+     ``/voicechat`` through phase 16's bf16 LLM pool, overlapped (the
+     ASR's partial transcripts stream into the pool's prefill) and then
+     serial, in one process (the transcript's time, first text delta,
+     TTFA).  It runs after phase 16.
+ 16. the continuous-batching LLM pool (``serve/llm_pool.py``) at phase
+     14's geometry: 8 slots, blocks of 32, a first block of 16, prefill
+     buckets 32..512, the system prompt's prefix cached, KV 8192.  2
+     layers at full width in f32: ten rows (mixed lengths, staggered
+     arrivals, reused slots, the prefix, a chunked prompt) through the
+     captured pool against each prompt's B=1 chain (every divergence and
+     every step held by ``near_tie`` against the chain teacher-forced on
+     the card), and overlapped prompts equal to the serial replies.  Then
+     phase 14's bf16 tree: the captures (a graph per prefill bucket,
+     arrival size and prefix variant, per continuation rung and per
+     decode block rung and width), each step's and each prefill's device
+     time beside the byte bound, and ``/tts`` through the server with a
+     16-slot bf16 TTS pool: one request and a burst of 8 whose prompts
+     span the buckets (one chunked); per request the first text delta and
+     TTFA, the LLM's tokens/s, the prefill programs, the loop's lag, 0
+     captures while serving.  Then phase 14's w4 tree on a cut pool (KV
+     1024, one bucket of 512): a burst of 8 and K4's launches on the
+     pooled path (7 a layer per token step and per prefill program).
+Then a JSON line with phase 14's numbers, one with phase 16's, one with
+phase 15's, one with the kernels' numbers, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1681,8 +1704,14 @@ L2_BYTES = 50e6
 # 1 in decode and the prefill's bucket (16 to 512 here)
 K4_LLAMA_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                    "wgate/wup": (4096, 14336), "wdown": (14336, 4096)}
-K4_LLAMA_M = (1, 16, 128, 512)
-K4_LLAMA_TIMED = (1, 128)
+# M 8: a decode step of the 8-slot LLM pool; 2048: its burst prefill (4
+# arrivals of 512), which the pool serves in bf16 only: f32 is held at the
+# B=1 stream's and the pool's decode shapes (on an H100 at M 2048 and
+# 14336->4096, 20 of K4's 8.4 M f32 sums of 14336 products parted from
+# the plain version's order by up to 1.73e-5, past the 1e-5 of K4_TOL)
+K4_LLAMA_M = (1, 8, 16, 128, 512, 2048)
+K4_LLAMA_M_F32 = (1, 8, 16, 128, 512)
+K4_LLAMA_TIMED = (1, 8, 128, 2048)
 
 
 def k4_bound_ms(m: int, cin: int, cout: int, groups: int, dtype) -> tuple:
@@ -1757,7 +1786,8 @@ def phase_k4() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             s = w.s.to(dtype)
             err = 0.0
-            for m in K4_LLAMA_M:
+            ms = K4_LLAMA_M if dtype == torch.bfloat16 else K4_LLAMA_M_F32
+            for m in ms:
                 x = torch.randn(m, cin, generator=dgen, device=dev).to(dtype)
                 got = cuda_int4_mm.int4_matmul(x, w.q, s)
                 again = cuda_int4_mm.int4_matmul(x, w.q, s)
@@ -1771,7 +1801,7 @@ def phase_k4() -> dict:
                 err = max(err, (got.float() - ref.float()).abs().max().item())
             max_err = max(max_err, err)
             log(f"[k4] {str(dtype):15s} Llama {name:9s} {cin}->{cout} "
-                f"({groups} groups) ok at M {K4_LLAMA_M}, bitwise "
+                f"({groups} groups) ok at M {ms}, bitwise "
                 f"repeatable, max |err| {err:.3g}")
         for m in K4_LLAMA_TIMED:
             timings[(f"llama {name}", m)] = _time_k4(w, m, gen, quick=True)
@@ -1812,10 +1842,12 @@ def _time_k4(w, m, gen, quick: bool = False) -> dict:
     lib = torch.matmul(x, dense).float()
     gap = ((lib - ref).norm() / ref.norm()).item()
     assert gap < 1e-2, gap
-    t = {"ms": graph_ms(run_kernel),
-         "plain_ms": (graph_ms(run_plain, per_graph=2, replays=3, reps=3)
-                      if quick else graph_ms(run_plain)),
-         "dense_bf16_ms": graph_ms(run_dense)}
+    # at M 2048 a call takes milliseconds: fewer calls for every variant
+    few = dict(per_graph=2, replays=3, reps=3)
+    many = few if m >= 1024 else {}
+    t = {"ms": graph_ms(run_kernel, **many),
+         "plain_ms": graph_ms(run_plain, **(few if quick else many)),
+         "dense_bf16_ms": graph_ms(run_dense, **many)}
     t["int4pack_ms"] = None
     if hasattr(torch, "_weight_int4pack_mm"):
         try:
@@ -1829,7 +1861,7 @@ def _time_k4(w, m, gen, quick: bool = False) -> dict:
                 p = nxt(packs)
                 torch._weight_int4pack_mm(x, p[0], group, p[1])
 
-            t["int4pack_ms"] = graph_ms(run_int4pack)
+            t["int4pack_ms"] = graph_ms(run_int4pack, **many)
         except (RuntimeError, AssertionError, TypeError) as e:
             log(f"[k4] torch._weight_int4pack_mm not usable here: "
                 f"{type(e).__name__}: {str(e)[:160]}")
@@ -2352,10 +2384,9 @@ def llm_token_bound_ms(params, cfg, rows: int, es: int) -> tuple:
                                  "operations")
 
 
-def _llm_prompt(model, text: str, system: str) -> list:
+def _llm_prompt(tokenizer, text: str, system: str) -> list:
     from llmvox_tpu_torch.streams.llm import build_prompt_ids
-    return build_prompt_ids(model.tokenizer, {"system": system,
-                                              "prompt": text})
+    return build_prompt_ids(tokenizer, {"system": system, "prompt": text})
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -2475,8 +2506,8 @@ def phase_llm(engines, weights, card: str, device="cuda",
     on the dedicated replicas.  (4) ``--quantize w4``: the LLM and the
     decoder quantized, the w4 block's time, one served request, and K4's
     launches on the LLM's path (7 a layer per token and per prefill).
-    Returns the numbers and the bf16 stream (warmed: phase 15 serves
-    ``/voicechat`` with it)."""
+    Returns the numbers, the bf16 stream (warmed: phase 15 serves
+    ``/voicechat`` with it) and the w4 tree (phase 16 pools it)."""
     from llmvox_tpu_torch.models import llama
     from llmvox_tpu_torch.ops import cuda_int4_mm, quant
     from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
@@ -2498,7 +2529,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
     speakable_head(p32)
     m32 = LlamaStreamModel(p32, cfg2, tok, block=LLM_BLOCK, device=device)
     m32.warmup()
-    ids = _llm_prompt(m32, TEXT, scfg.system_prompt)
+    ids = _llm_prompt(tok, TEXT, scfg.system_prompt)
     card_chain = llm_chain(m32, ids, n_blocks)[:LLM_TOKENS]
     del m32
     cpu = to_torch(p32, "cpu")
@@ -2546,7 +2577,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
     eager = LlamaStreamModel(params, cfg, tok, block=LLM_BLOCK,
                              device=device, dtype=torch.bfloat16,
                              graphs=False)
-    ids = _llm_prompt(model, TEXT, scfg.system_prompt)
+    ids = _llm_prompt(tok, TEXT, scfg.system_prompt)
     got, want = llm_chain(model, ids, n_blocks), llm_chain(eager, ids,
                                                            n_blocks)
     assert got == want, (got, want)
@@ -2614,12 +2645,13 @@ def phase_llm(engines, weights, card: str, device="cuda",
     log(f"[llm] w4 served request: K4 launches {llm_k4 + tts_k4} = LLM "
         f"{llm_k4} (7 x {cfg.n_layer} layers x ({qmodel.tokens - tokens0} "
         f"tokens + 1 prefill); the head stays int8) + TTS decoder {tts_k4}")
+    qtree = qmodel.params
     del qmodel, engines4
     if on_card:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[llm] peak device memory in phase 14: {out['peak_gb']:.2f} GB "
             f"({card})")
-    return out, model
+    return out, model, qtree
 
 
 def _llm_block_times(model, eager, params, cfg, card: str, what: str,
@@ -2688,6 +2720,467 @@ def _llm_times(model, eager, params, cfg, card: str) -> dict:
     out["block"] = _llm_block_times(model, eager, params, cfg, card, "bf16",
                                     LLM_ATTN_TIMED)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the continuous-batching LLM pool
+# ---------------------------------------------------------------------------
+
+LLM_POOL_CAP = 8
+LLM_FIRST_BLOCK = 16            # the default llm_first_block
+LLM_POOL_BUCKETS = (32, 64, 128, 256, 512)   # the default prefill buckets
+W4_POOL_KV = 1024               # the w4 pool's cut: KV 1024, one bucket
+W4_POOL_BUCKETS = (512,)
+# the burst's user texts: with the system prompt's prefix cached, suffixes
+# of 10..700 ids span every prefix bucket, and the last one (over 512)
+# prefills in a 188-id chunk and a 512-id continuation
+BURST_LENGTHS = (9, 40, 70, 120, 200, 300, 450, 699)
+
+
+def _burst_text(n: int, r: int) -> str:
+    words = ("the", "pool", "serves", "every", "request", "at", "once",
+             "while", "speech", "streams")
+    text = f"Request {r}:"
+    i = 0
+    while len(text) < n - 1:
+        text += " " + words[(i * 7 + r) % len(words)]
+        i += 1
+    return text[: n - 1] + "?"
+
+
+def llm_pool_step_bound_ms(params, cfg, b: int, rows: int, es: int
+                           ) -> tuple:
+    """Least time for one pooled decode step of ``b`` rows, each reading
+    ``rows`` K and V rows a layer (``es`` bytes each): every stored weight
+    but the embedding read once for all rows (b embedding rows), the KV
+    rows over HBM's rate; or b tokens' two flops a weight and 4 * rows * C
+    a layer of attention over the bf16 peak; whichever is longer."""
+    from llmvox_tpu_torch.ops import quant
+    emb = params["tok_emb"]
+    c = cfg.n_embd
+    nbytes = (quant.quantized_bytes(params)
+              - emb.numel() * emb.element_size()
+              + b * c * emb.element_size()
+              + 2 * cfg.n_layer * b * rows * cfg.n_kv_head * cfg.head_dim
+              * es)
+    n_weights = sum(int(np.prod(x.shape)) for k, x in params["h"].items()
+                    if k.startswith("w"))
+    flops = b * (2 * (n_weights + c * cfg.vocab_size)
+                 + 4 * cfg.n_layer * rows * c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def make_llm_pool(params, cfg, tok, system: str, device, dtype,
+                  buckets=LLM_POOL_BUCKETS, graphs=None):
+    """The pooled LLM stream as ``build_llama_stream`` makes it for
+    ``--llm_pool_capacity 8 --llm_block 32 --llm_first_block 16``, the
+    system prompt's prefix cached, greedy, replies capped at
+    ``LLM_TOKENS``; not warmed."""
+    from llmvox_tpu_torch.serve.llm_pool import LLMPool
+    from llmvox_tpu_torch.streams.llm import PooledLlamaStreamModel
+    pool = LLMPool(params, cfg, capacity=LLM_POOL_CAP, block=LLM_BLOCK,
+                   first_block=LLM_FIRST_BLOCK, dtype=dtype, device=device,
+                   prefill_buckets=buckets, graphs=graphs)
+    model = PooledLlamaStreamModel(pool, tok, max_tokens=LLM_TOKENS)
+    model.enable_prefix_cache(system)
+    return model
+
+
+def _pool_rows(pool, prompts, delays, budgets) -> list:
+    """``generate`` for each prompt after its delay, concurrently, on a
+    fresh event loop; each row's tokens (the pool stopped after)."""
+    async def one(ids, delay, n):
+        await asyncio.sleep(delay)
+        out = []
+        async for toks in pool.generate(ids, max_tokens=n):
+            out.extend(toks)
+        return out
+
+    async def go():
+        try:
+            return await asyncio.gather(*[one(p, d, n) for p, d, n in
+                                          zip(prompts, delays, budgets)])
+        finally:
+            pool.stop()
+    return asyncio.run(go())
+
+
+def _pool_f32_check(cfg, scfg, device, card, graphs=None) -> dict:
+    """2 layers at full width in f32: ten rows through a graph-captured
+    8-slot pool (mixed lengths, staggered arrivals, two rows that reuse
+    the slots of rows that finished, the system prefix, one chunked
+    prompt) against each prompt's B=1 chain from ``LlamaStreamModel``;
+    where a row parts from its B=1 chain, and at every step of its own
+    chain, the logits of the row's chain teacher-forced through
+    ``apply_llama`` on the card show the row's token as the argmax or a
+    near tie of it (``near_tie``).  Then the overlapped prompt: for three
+    texts, ``predict_streaming`` of cumulative transcripts gives
+    ``predict``'s text exactly."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
+    from llmvox_tpu_torch.utils import params as P
+    tok = ByteTokenizer()
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    p32 = P.init_llama_params(12, cfg2, device=device)
+    speakable_head(p32)
+    system = scfg.system_prompt
+    texts = [_burst_text(n, r) for r, n in enumerate(BURST_LENGTHS)]
+    texts += ["Hi.", "What comes next?"]
+    prompts = [_llm_prompt(tok, t, system) for t in texts]
+    b1 = LlamaStreamModel(p32, cfg2, tok, block=LLM_BLOCK, device=device,
+                          graphs=graphs)
+    b1.warmup()
+    want = [llm_chain(b1, ids, LLM_TOKENS // LLM_BLOCK)[:LLM_TOKENS]
+            for ids in prompts]
+    del b1
+    model = make_llm_pool(p32, cfg2, tok, system, device, torch.float32,
+                          graphs=graphs)
+    pool = model.pool
+    n_cap = captures()
+    model.warmup()
+    n_graphs = captures() - n_cap
+    # rows 0-7 arrive 0..70 ms apart; rows 0 and 2 stop after their first
+    # block, so rows 8 and 9 (arriving at 0.3 s) reuse their slots
+    delays = [0.01 * r for r in range(8)] + [0.3, 0.3]
+    budgets = [LLM_FIRST_BLOCK + 1 if r in (0, 2) else LLM_TOKENS
+               for r in range(10)]
+    calls0 = pool.prefill_calls
+    got = _pool_rows(pool, prompts, delays, budgets)
+    assert captures() == n_cap + n_graphs, "captured while serving"
+    parted, ties = 0, []
+    for r, (ids, row, ref) in enumerate(zip(prompts, got, want)):
+        n = budgets[r]
+        row, ref = row[:n], ref[:n]
+        assert len(row) == n, (r, len(row))
+        seq = torch.tensor([ids + row[:-1]], device=device)
+        with torch.no_grad():
+            forced = llama.apply_llama(p32, seq, cfg2)[0, len(ids) - 1:]
+        forced = forced.float().cpu()
+        for d, logits in enumerate(forced):
+            top = int(logits.argmax())
+            if top != row[d]:
+                ties.append((r, d, near_tie(logits, top, row[d],
+                                            ("pool f32", r, d, row))))
+        if row != ref:
+            d = next(i for i, (a, b) in enumerate(zip(row, ref)) if a != b)
+            top = int(forced[d].argmax())
+            assert top in (row[d], ref[d]), (r, d, top, row[d], ref[d])
+            other = ref[d] if top == row[d] else row[d]
+            ties.append((r, d, near_tie(forced[d], top, other,
+                                        ("pool vs B=1", r, d))))
+            parted += 1
+    log(f"[llm-pool] 2 layers at full width, f32, {LLM_POOL_CAP} slots "
+        f"({n_graphs} CUDA graphs): 10 rows (prompts of "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))} ids, the "
+        f"system prefix of {len(pool._prefix_ids)} cached, arrivals 0..70 "
+        f"ms apart, 2 rows on reused slots, {pool.prefill_calls - calls0} "
+        f"prefill programs) against each prompt's B=1 chain: "
+        + ("every row equal" if not parted else
+           f"{10 - parted} rows equal, {parted} parted")
+        + (f"; near ties (row, step, gap in % of the logits' std): {ties}"
+           if ties else "; every token the teacher-forced argmax")
+        + f" ({card})")
+    # the overlapped prompt: cumulative transcripts through the pool
+    pairs = []
+    for text in texts[4:7]:
+        cum = [text[: max(1, len(text) * k // 4)] for k in (1, 2, 3)]
+
+        async def both(text=text, cum=cum):
+            async def feed():
+                for c in cum + [text]:
+                    await asyncio.sleep(0.002)
+                    yield c, c is text
+            try:
+                serial = "".join([d async for d in model.predict(
+                    {"system": system, "prompt": text})])
+                overlapped = "".join([d async for d in
+                                      model.predict_streaming(
+                                          {"system": system}, feed())])
+                return serial, overlapped
+            finally:
+                pool.stop()
+        serial, overlapped = asyncio.run(both())
+        assert overlapped == serial and serial, (text, serial, overlapped)
+        pairs.append(len(serial))
+    log(f"[llm-pool] f32 overlapped prompts (cumulative transcripts "
+        f"streamed into the prefill) equal the serial replies: 3 texts, "
+        f"{pairs} characters each")
+    assert captures() == n_cap + n_graphs, "captured while serving"
+    del model, pool, p32
+    return {"rows_equal": 10 - parted, "ties": len(ties),
+            "graphs": n_graphs}
+
+
+def _pool_times(model, card: str) -> dict:
+    """Device times of the bf16 pool's graphs (CUDA events, median of 3
+    replays) before serving: each decode block per (rung, width) with all
+    rows active from pos rung - width (the window full), beside the byte
+    bound of a step; each plain prefill per (bucket, arrival size), every
+    row a full bucket."""
+    from llmvox_tpu_torch.utils.graphs import fill
+    pool = model.pool
+    es = pool.state.k.element_size()
+    out = {"step": {}, "prefill": {}}
+
+    def replay_ms(g):
+        times = []
+        for _ in range(3):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            g.graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(begin.elapsed_time(end))
+        return statistics.median(times)
+
+    for key in pool.warmup_keys():
+        if key[0] != "block":
+            continue
+        _, attn, width = key
+        fill(pool._in, np.ones(pool.B, np.int32))
+        pool.state.pos.fill_(attn - width)
+        ms = replay_ms(pool._graphs.get(key)) / width
+        bound, by = llm_pool_step_bound_ms(pool.params, pool.cfg, pool.B,
+                                           attn - width // 2, es)
+        out["step"][f"{attn}/{width}"] = {"ms": ms, "bound_ms": bound,
+                                          "bound_by": by}
+        log(f"[llm-pool] bf16 block of {width} at attn_len {attn}, "
+            f"{pool.B} rows active: {ms:.3f} ms a step ({pool.B * 1e3 / ms:.0f} "
+            f"tokens/s, device time), bound {bound:.3f} ms ({by}, "
+            f"{bound / ms * 100:.0f}% of it) ({card})")
+    for key in pool.warmup_keys():
+        if key[0] != "prefill" or key[3]:
+            continue
+        _, bucket, n, _ = key
+        tokens = (33 + np.arange(n * bucket) % 90).astype(np.int32)
+        fill(pool._in, np.concatenate([
+            tokens, np.full(n, bucket), np.arange(n), np.ones(n)]).astype(
+                np.int32))
+        ms = replay_ms(pool._graphs.get(key))
+        out["prefill"][f"{bucket}x{n}"] = ms
+        log(f"[llm-pool] bf16 prefill of {n} x {bucket} ids: {ms:.2f} ms "
+            f"(device time, one replay; {n * bucket / ms:.0f} ids/ms) "
+            f"({card})")
+    pool.state.pos.zero_()
+    pool.state.tok.zero_()
+    torch.cuda.synchronize()
+    return out
+
+
+def _timed_stream(model, stamps: dict, what: str):
+    """Wrap ``model.<what>`` (``predict`` or ``predict_streaming``) so each
+    request notes the seconds from the call (the request's arrival) to its
+    first text delta and to its end."""
+    orig = getattr(model, what)
+
+    def wrapped(request, *a, **k):
+        t0 = time.perf_counter()
+        gen = orig(request, *a, **k)
+        rec = {"prompt": request.get("prompt")}
+        stamps.setdefault(what, []).append(rec)
+
+        async def timed():
+            async for d in gen:
+                rec.setdefault("first", time.perf_counter() - t0)
+                yield d
+            rec["end"] = time.perf_counter() - t0
+        return timed()
+    setattr(model, what, wrapped)
+
+
+def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
+                ) -> dict:
+    """``texts`` as concurrent ``POST /tts`` through ``build_server`` with
+    the pooled LLM ``model`` and the TTS pool; per request the first text
+    delta and TTFA; the LLM's tokens/s over the round; the loop's
+    largest lag."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llmvox_tpu_torch.ops import cuda_batched_attn, cuda_verify_attn
+    from llmvox_tpu_torch.serve.client import post_chunks
+    from llmvox_tpu_torch.serve.server import build_server
+    _, _, _, dcfg, ccfg, scfg = weights
+    pool = model.pool
+    port = _free_port()
+    cfg = dataclasses.replace(scfg, api_port=port, scripted_reply="",
+                              llm_backend="jax", pool_capacity=tts_pool.B)
+    stamps: dict = {}
+    _timed_stream(model, stamps, "predict")
+    n_cap = captures()
+    try:
+        srv = build_server(cfg, [], stream_model=model, pool=tts_pool)
+        assert captures() == n_cap, "build_server captured again"
+        with _Server(srv, port) as server:
+            st0 = dict(pool.stats(), tok=pool.decode_tokens,
+                       disp=pool.dispatch_s)
+            tts0 = tts_pool.decode_steps
+            cuda_batched_attn.LAUNCHES = cuda_verify_attn.LAUNCHES = 0
+            lag = _LoopLag(server.loop)
+
+            def one(text):
+                t0 = time.perf_counter()
+                chunks = post_chunks("127.0.0.1", port, "/tts",
+                                     {"text": text}, timeout=600)
+                assert chunks and all(
+                    len(c) % (4 * ccfg.hop_length) == 0 for _, c in chunks)
+                wav = np.frombuffer(b"".join(c for _, c in chunks), "<f4")
+                assert np.isfinite(wav).all(), "non-finite samples"
+                return chunks[0][0], time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=len(texts)) as ex:
+                res = list(ex.map(one, texts))
+            wall = time.perf_counter() - t0
+            lag = lag.stop()
+            st = pool.stats()
+        # read once the server has stopped the TTS pool, which waits for
+        # its last launch (a step issued ahead may still be launching)
+        k2, k3 = cuda_batched_attn.LAUNCHES, cuda_verify_attn.LAUNCHES
+        tts_steps = tts_pool.decode_steps - tts0
+        served = captures() - n_cap
+    finally:
+        del model.predict
+    assert served == 0, "a CUDA graph was captured while serving"
+    assert k2 == dcfg.n_layer * tts_steps > 0 and k3 == 0, (k2, k3,
+                                                           tts_steps)
+    by_prompt = {r["prompt"]: r for r in stamps["predict"]}
+    rows = [by_prompt[t] for t in texts]
+    llm_s = max(r["end"] for r in rows)
+    toks = pool.decode_tokens - st0["tok"]
+    steps = st["steps"] - st0["steps"]
+    out = {"requests": [{"first_delta_ms": r["first"] * 1e3,
+                         "ttfa_ms": ttfa * 1e3, "wall_ms": w * 1e3}
+                        for r, (ttfa, w) in zip(rows, res)],
+           "llm_tokens": toks, "llm_tok_s": toks / llm_s, "steps": steps,
+           "prefill_calls": st["prefill_calls"] - st0["prefill_calls"],
+           "host_ms_per_step": (pool.dispatch_s - st0["disp"]) * 1e3
+           / max(steps, 1),
+           "lag_max_ms": lag["max_ms"], "wall_s": wall,
+           "captures_while_serving": served, "k2_launches": k2,
+           "tts_steps": tts_steps}
+    for i, r in enumerate(out["requests"]):
+        log(f"[llm-pool] {what} request {i} ({len(texts[i])} characters): "
+            f"first text delta {r['first_delta_ms']:.1f} ms, first audio "
+            f"{r['ttfa_ms']:.1f} ms, wall {r['wall_ms']:.1f} ms ({card})")
+    log(f"[llm-pool] {what}: {len(texts)} requests in {wall:.2f} s; LLM "
+        f"{toks} tokens for active rows in {steps} pooled steps "
+        f"({out['prefill_calls']} prefill programs), "
+        f"{out['llm_tok_s']:.1f} tokens/s over the LLM's {llm_s:.2f} s "
+        f"(host clock, the TTS pool sharing the card), "
+        f"{out['host_ms_per_step']:.2f} ms of host issuing a pool "
+        f"iteration on the dispatch thread; {_lag_text(lag)}; 0 captures "
+        f"while serving; the TTS pool's K2 launches {k2} = "
+        f"{dcfg.n_layer} layers x {tts_steps} token steps, K3 0 ({card})")
+    return out
+
+
+def phase_llm_pool(engines, weights, card: str, llm_model, qtree,
+                   device="cuda", cfg=None, graphs=None) -> tuple:
+    """The continuous-batching LLM pool (``serve/llm_pool.py``), at phase
+    14's Llama-3.1-8B geometry, 8 slots, blocks of 32 and a first block
+    of 16, prefill buckets 32..512, the system prompt's prefix cached, KV
+    8192.  (1) 2 layers at full width in f32 (``_pool_f32_check``).  (2)
+    Phase 14's bf16 tree (no second draw): the captures, each (rung,
+    width) step's and each prefill's device time (``_pool_times``), then
+    ``/tts`` through the server with the 16-slot bf16 TTS pool: one
+    request, then a burst of 8 whose prompts span the buckets (one over
+    512: chunked). (3) Phase 14's w4 tree on a cut pool (KV
+    ``W4_POOL_KV``, buckets ``W4_POOL_BUCKETS``): a burst of 8 and K4's
+    launches on the pooled path (7 a layer per token step and per
+    prefill program).  ``graphs`` goes to the pools (None: on for a
+    card).  Returns the numbers and the warmed bf16 pooled stream (phase
+    15 serves ``/voicechat`` through it)."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.ops import cuda_int4_mm
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer
+    from llmvox_tpu_torch.utils import graphs
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    cfg = cfg or llama.LlamaConfig(**LLAMA_8B)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    out = {"card": card,
+           "f32": _pool_f32_check(cfg, scfg, device, card, graphs)}
+
+    # (2) the bf16 pool over phase 14's tree
+    model = make_llm_pool(llm_model.params, cfg, tok, scfg.system_prompt,
+                          device, torch.bfloat16, graphs=graphs)
+    pool = model.pool
+    n_cap, s0 = captures(), graphs.CAPTURE_S
+    model.warmup()
+    out["captures"] = captures() - n_cap
+    out["capture_s"] = graphs.CAPTURE_S - s0
+    keys = pool.warmup_keys()
+    log(f"[llm-pool] bf16 pool of {pool.B}: {out['captures']} CUDA graphs "
+        f"({sum(k[0] == 'prefill' for k in keys)} prefills, "
+        f"{sum(k[0] == 'continue' for k in keys)} continuations, "
+        f"{sum(k[0] == 'block' for k in keys)} blocks) in "
+        f"{out['capture_s']:.2f} s; prefix of {len(pool._prefix_ids)} ids; "
+        f"{graphs_text()}; " + uploads_text(pool._graphs))
+    assert out["captures"] == (len(keys) if pool._graphs.enabled else 0)
+    if on_card:
+        out["times"] = _pool_times(model, card)
+    tts_pool = DecodePool(dec_p, table, engines[0].codec, capacity=16,
+                          dcfg=dcfg, scfg=dataclasses.replace(
+                              scfg, pool_capacity=16),
+                          device=device, cache_dtype=torch.bfloat16)
+    tts_pool.warmup()
+    burst = [_burst_text(n, r) for r, n in enumerate(BURST_LENGTHS)]
+    out["one"] = _serve_pool(model, tts_pool, weights,
+                             ["Tell me about the pool."], "bf16 1-way",
+                             card)
+    out["burst"] = _serve_pool(model, tts_pool, weights, burst,
+                               "bf16 8-way burst", card)
+    out["prefill_calls"] = pool.prefill_calls
+    log(f"[llm-pool] bf16 stats {json.dumps(pool.stats())}")
+
+    # (3) the w4 tree on a cut pool
+    wcfg = dataclasses.replace(cfg, max_seq_len=W4_POOL_KV)
+    log(f"[llm-pool] w4 pool cut: KV {W4_POOL_KV} (not 8192), prefill "
+        f"buckets {W4_POOL_BUCKETS} (not {LLM_POOL_BUCKETS})")
+    wmodel = make_llm_pool(qtree, wcfg, tok, scfg.system_prompt, device,
+                           torch.bfloat16, buckets=W4_POOL_BUCKETS,
+                           graphs=graphs)
+    wpool = wmodel.pool
+    n_cap, s0 = captures(), graphs.CAPTURE_S
+    wmodel.warmup()
+    out["w4_captures"] = captures() - n_cap
+    out["w4_capture_s"] = graphs.CAPTURE_S - s0
+    log(f"[llm-pool] w4 pool: {out['w4_captures']} CUDA graphs in "
+        f"{out['w4_capture_s']:.2f} s")
+    cuda_int4_mm.LAUNCHES = 0
+    steps0, calls0 = wpool.decode_steps, wpool.prefill_calls
+    out["w4_burst"] = _serve_pool(wmodel, tts_pool, weights, burst,
+                                  "w4 8-way burst", card)
+    k4 = cuda_int4_mm.LAUNCHES
+    want = 7 * cfg.n_layer * (wpool.decode_steps - steps0
+                              + wpool.prefill_calls - calls0)
+    if on_card:
+        assert k4 == want > 0, (k4, want)
+    out["k4_llm_pool_launches"] = want
+    out["k2_llm_pool_launches"] = sum(out[r]["k2_launches"] for r in
+                                      ("one", "burst", "w4_burst"))
+    log(f"[llm-pool] w4 burst: K4 launches {want} = 7 x {cfg.n_layer} "
+        f"layers x ({wpool.decode_steps - steps0} pooled token steps + "
+        f"{wpool.prefill_calls - calls0} prefill programs); the head stays "
+        f"int8")
+    tts_pool.stop()
+    del wmodel, wpool, tts_pool
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    if on_card:
+        torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[llm-pool] phase 16 took {out['phase_s']:.1f} s"
+        + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card
+           else "") + f" ({card})")
+    return out, model
 
 
 # ---------------------------------------------------------------------------
@@ -3086,8 +3579,102 @@ def _serve_voicechat(asr, model, engines, weights, card: str) -> dict:
             "k1_launches": k1, "tts_steps": steps}
 
 
+def _serve_voicechat_pooled(asr, model, engines, weights, card: str
+                            ) -> dict:
+    """Three ``POST /voicechat`` (``_serve_voicechat``'s bodies) with the
+    pooled LLM stream ``model``, first overlapped (``s2s_overlap``: the
+    ASR's partial transcripts stream into the pool's prefill, through
+    ``predict_streaming``), then serial (the whole transcript, then
+    ``predict``), in one process on the dedicated replicas.  Per request
+    the transcript's time, the first text delta and TTFA."""
+    from llmvox_tpu_torch.ops import cuda_attn
+    from llmvox_tpu_torch.serve.client import post_chunks
+    from llmvox_tpu_torch.serve.server import build_server
+    _, _, _, dcfg, ccfg, scfg = weights
+    out = {"k1_launches": 0}
+    for overlap in (True, False):
+        what = "overlapped" if overlap else "serial"
+        port = _free_port()
+        cfg = dataclasses.replace(
+            scfg, api_port=port, scripted_reply="", chat_type="voice",
+            asr_backend="jax", llm_backend="jax", s2s_overlap=overlap)
+        stamps, asr_s = {}, []
+        orig_stream, orig_run = asr.transcribe_stream_async, asr.run_asr
+        _timed_stream(model, stamps, "predict")
+        _timed_stream(model, stamps, "predict_streaming")
+
+        def stream(*a, **k):
+            t0 = time.perf_counter()
+
+            async def gen():
+                async for item in orig_stream(*a, **k):
+                    yield item
+                asr_s.append(time.perf_counter() - t0)
+            return gen()
+
+        def run_asr(body):
+            t0 = time.perf_counter()
+            text = orig_run(body)
+            asr_s.append(time.perf_counter() - t0)
+            return text
+
+        asr.transcribe_stream_async, asr.run_asr = stream, run_asr
+        n_cap = captures()
+        rows = []
+        try:
+            with _Server(build_server(cfg, engines, stream_model=model,
+                                      asr_model=asr), port) as server:
+                cuda_attn.LAUNCHES = 0
+                steps0 = sum(e.decode_steps for e in engines)
+                for r, seconds in enumerate(ASR_SECONDS):
+                    body = {"audio_base64": _b64_pcm(speechish(seconds,
+                                                               50 + r)),
+                            "source_language": "english",
+                            "target_language": "english"}
+                    lag = _LoopLag(server.loop)
+                    t0 = time.perf_counter()
+                    chunks = post_chunks("127.0.0.1", port, "/voicechat",
+                                         body, timeout=300)
+                    wall = time.perf_counter() - t0
+                    lag = lag.stop()
+                    wav = np.frombuffer(b"".join(c for _, c in chunks),
+                                        "<f4")
+                    assert chunks and np.isfinite(wav).all()
+                    rec = stamps["predict_streaming" if overlap
+                                 else "predict"][-1]
+                    first = rec["first"] + (0.0 if overlap else asr_s[-1])
+                    rows.append({"audio_in_s": seconds,
+                                 "transcript_ms": asr_s[-1] * 1e3,
+                                 "first_delta_ms": first * 1e3,
+                                 "ttfa_ms": chunks[0][0] * 1e3,
+                                 "wall_ms": wall * 1e3,
+                                 "lag_max_ms": lag["max_ms"]})
+                    log(f"[asr] pooled /voicechat, {what}, request {r} "
+                        f"({seconds:.1f} s of audio): transcript "
+                        f"{asr_s[-1] * 1e3:.1f} ms, first text delta "
+                        f"{first * 1e3:.1f} ms, first audio "
+                        f"{chunks[0][0] * 1e3:.1f} ms, wall "
+                        f"{wall * 1e3:.1f} ms; {_lag_text(lag)} ({card})")
+                k1 = cuda_attn.LAUNCHES
+                steps = sum(e.decode_steps for e in engines) - steps0
+            served = captures() - n_cap
+        finally:
+            del model.predict, model.predict_streaming
+            del asr.transcribe_stream_async, asr.run_asr
+        assert served == 0, "a CUDA graph was captured while serving"
+        used = {k: len(v) for k, v in stamps.items()}
+        assert used == ({"predict_streaming": 3} if overlap
+                        else {"predict": 3}), used
+        assert k1 == dcfg.n_layer * steps > 0, (k1, steps)
+        out[what] = rows
+        out["k1_launches"] += k1
+    log(f"[asr] pooled /voicechat: K1 launches {out['k1_launches']} on the "
+        f"dedicated replicas over the six requests")
+    return out
+
+
 def phase_asr(engines, weights, card: str, llm_model, llm=None,
-              device="cuda", cfg=None, graphs=None) -> dict:
+              device="cuda", cfg=None, graphs=None, pooled=None) -> dict:
     """``/voicechat`` with the in-framework Whisper (``streams/asr.py``) at
     openai/whisper-large-v3's geometry, random seeded weights, the
     smoke's printable-id tokenizer and generation config
@@ -3098,8 +3685,10 @@ def phase_asr(engines, weights, card: str, llm_model, llm=None,
     bucket (``_asr_depth``).  (3) three ``/voicechat`` requests with the
     f32 ASR, phase 14's bf16 LLM stream (its captures reused) and the
     dedicated replicas (``_serve_voicechat``).  (4) ``--quantize w4`` with
-    the in-framework ASR is refused.  ``graphs`` goes to the graph ASRs
-    (None: on for a card)."""
+    the in-framework ASR is refused.  (5) With ``pooled`` (phase 16's bf16
+    pooled LLM stream), three ``/voicechat`` overlapped and three serial
+    through it (``_serve_voicechat_pooled``).  ``graphs`` goes to the
+    graph ASRs (None: on for a card)."""
     from llmvox_tpu_torch.models import whisper as W
     from llmvox_tpu_torch.streams.asr import WhisperModelASR
     scfg = weights[5]
@@ -3126,6 +3715,9 @@ def phase_asr(engines, weights, card: str, llm_model, llm=None,
         log(f"[asr] --quantize w4 with the in-framework ASR refused: {e}")
     else:
         raise AssertionError("a quantized in-framework ASR was built")
+    if pooled is not None:
+        out["pooled"] = _serve_voicechat_pooled(asr, pooled, engines,
+                                                weights, card)
     out["phase_s"] = time.perf_counter() - t0
     if on_card:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -3323,6 +3915,7 @@ def main(argv) -> int:
     phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
     llm_k4_launches = voicechat_launches = None
+    pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -3334,11 +3927,23 @@ def main(argv) -> int:
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
         quant_launches = phase_quant(engines, weights)["k4_launches"]
         phase_graphs(engines, weights)
-        llm, llm_model = phase_llm(engines, weights, card)
+        llm, llm_model, qtree = phase_llm(engines, weights, card)
         llm_k4_launches = llm["k4_llm_launches"]
         log(json.dumps({"llm": llm}))
-        asr = phase_asr(engines, weights, card, llm_model, llm=llm)
+        # phase 16 before phase 15: phase 15 serves through its pool
+        llm_pool, pooled = phase_llm_pool(engines, weights, card,
+                                          llm_model, qtree)
+        del qtree
+        log(json.dumps({"llm_pool": llm_pool}))
+        asr = phase_asr(engines, weights, card, llm_model, llm=llm,
+                        pooled=pooled)
         voicechat_launches = asr["served"]["k1_launches"]
+        # the pooled LLM's paths: phase 15's pooled /voicechat on the
+        # dedicated replicas (K1), phase 16's rounds with the TTS pool
+        # (K2; K3 0: no speculation) and its w4 burst (K4)
+        pool_llm = {"k1": asr["pooled"]["k1_launches"],
+                    "k2": llm_pool["k2_llm_pool_launches"], "k3": 0,
+                    "k4": llm_pool["k4_llm_pool_launches"]}
         log(json.dumps({"asr": asr}))
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
@@ -3347,6 +3952,7 @@ def main(argv) -> int:
              "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_decode_attention",
              "launches": launches, "max_abs_err": k1["max_abs_err"],
              "voicechat_launches": voicechat_launches,
+             "llm_pool_launches": pool_llm["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
              "other": {f"pos {pos}": {key: t[key] for key in
                                       ("ms", "bound_ms", "plain_ms",
@@ -3359,6 +3965,7 @@ def main(argv) -> int:
               "tpu": "llmvox_tpu/ops/pallas_attn.py::"
                      "pallas_batched_decode_attention",
               "launches": pool_launches, "max_abs_err": k2["max_abs_err"],
+              "llm_pool_launches": pool_llm["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
               "other": {name: {key: t[key] for key in
                                ("ms", "bound_ms", "plain_ms", "library_ms")}
@@ -3370,6 +3977,7 @@ def main(argv) -> int:
               "replaces": "llmvox_tpu/ops/pallas_attn.py:634",
               "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_verify_attention",
               "launches": spec_launches, "max_abs_err": k3["max_abs_err"],
+              "llm_pool_launches": pool_llm["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
               "dtype": "bfloat16", **k3["timings"][k3_name],
               "other": {name: {key: t[key] for key in
@@ -3383,6 +3991,7 @@ def main(argv) -> int:
               "tpu": "llmvox_tpu/ops/pallas_quant.py::_int4_mm",
               "launches": quant_launches, "max_abs_err": k4["max_abs_err"],
               "llm_launches": llm_k4_launches,
+              "llm_pool_launches": pool_llm["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
               **k4["timings"][k4_main],
               "other": {f"{name} M={m}": {key: t[key] for key in

@@ -22,9 +22,26 @@ written in place (the JAX state is immutable; here the state passed in is
 consumed) and each function returns the state with its new ``pos``.
 
 Ported: ``apply_llama``, ``prefill``, ``prefill_padded`` and the B=1
-``decode_block``, dense only.  Mixture-of-experts layers
-(``n_experts > 0``), draft heads (``n_draft_heads > 0``) and the pooled and
-speculative programs raise, naming ROADMAP queue 1 item 6.
+``decode_block``; the per-row samplers and the pooled programs of
+``serve/llm_pool.py`` (``LlamaPoolState``, ``prefix_kv``,
+``prefill_slots``, ``prefill_slots_continue``, ``decode_block_pooled``);
+dense only.  Mixture-of-experts layers (``n_experts > 0``), draft heads
+(``n_draft_heads > 0``), the pooled speculative block and the training
+loss raise, naming ROADMAP queue 1 item 6.
+
+The pooled programs differ from JAX's in work, not in results:
+- JAX sends an arrival batch's padding rows to slot index ``capacity``
+  and XLA drops those writes (``mode="drop"``).  Torch has no such
+  scatter: an index out of bounds is a device-side assert, and padding
+  rows sent to a real slot would race the arrival that lands there.
+  Here each row writes its slot in turn, and a padding row writes back
+  what is there, so it changes nothing.
+- JAX computes the head at every prefill position and takes the last
+  valid one; the port computes it at the gathered last positions only.
+- JAX's continuation gathers each slot's first ``attn_len`` rows, runs
+  the chunk on that copy and scatters the whole window back; the port
+  writes back the chunk's rows only (the rest of the window is
+  unchanged).
 """
 from __future__ import annotations
 
@@ -36,10 +53,7 @@ import torch
 
 from llmvox_tpu_torch.ops import nn
 
-_NOT_PORTED = ("LlamaPoolState", "init_llama_pool_state", "prefix_kv",
-               "prefill_slots", "prefill_slots_continue",
-               "decode_block_pooled", "decode_block_spec_pooled",
-               "llama_loss")
+_NOT_PORTED = ("decode_block_spec_pooled", "llama_loss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +112,7 @@ def check_dense(cfg: LlamaConfig) -> None:
 def __getattr__(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"llama.{name} (the pooled, speculative or training programs of "
+            f"llama.{name} (the speculative or training programs of "
             "llmvox_tpu/models/llama.py) is not ported to llmvox_tpu_torch "
             "yet (ROADMAP queue 1 item 6)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
@@ -205,7 +219,13 @@ def _gqa_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = valid[None]
     logits = logits.masked_fill(~valid[:, None, None], float("-inf"))
     w = torch.softmax(logits, dim=-1).to(q.dtype).view(b, kv, g * t, s)
-    att = torch.matmul(w, v_cache.permute(0, 2, 1, 3))     # (B, KV, g*T, hd)
+    vt = v_cache.permute(0, 2, 1, 3)
+    if vt.dtype != w.dtype:
+        # a cache in another dtype than the activations (the pool's f32
+        # cache under bf16 params): JAX's einsum promotes both
+        rt = torch.promote_types(w.dtype, vt.dtype)
+        w, vt = w.to(rt), vt.to(rt)
+    att = torch.matmul(w, vt)                              # (B, KV, g*T, hd)
     return att.view(b, kv, g, t, hd).permute(0, 3, 1, 2, 4).reshape(
         b, t, h, hd)
 
@@ -383,12 +403,18 @@ def _sample(logits: torch.Tensor, temperature: float, top_k: int,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = _filtered_logits(logits, temperature, top_k, top_p)
     if gumbel is None:
-        # -log(-log(u)), u uniform in [tiny, 1), as jax.random.gumbel
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=torch.float32)
-        gumbel = -torch.log(-torch.log(
-            u.clamp_min(torch.finfo(torch.float32).tiny)))
+        gumbel = _gumbel(logits, generator)
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def _gumbel(logits: torch.Tensor,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Gumbel noise of ``logits``' shape: -log(-log(u)), u uniform in
+    [tiny, 1), as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(
+        u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
 def prefill(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
@@ -440,3 +466,358 @@ def decode_block(params: Dict, first_token: torch.Tensor,
         tok = _sample(logits, temperature, top_k, top_p, generator)
         out.append(tok)
     return torch.stack(out, dim=1), state
+
+
+# ---------------------------------------------------------------------------
+# Per-row sampling: every pooled row carries its own (temperature, top_k,
+# top_p), so one captured program serves any mix of request configs.
+# ---------------------------------------------------------------------------
+
+
+def _filtered_logits_rows(logits: torch.Tensor, t: torch.Tensor,
+                          k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Row-vectorized ``_filtered_logits``: ``logits`` (..., B, V),
+    ``t``/``k``/``p`` (B,).  Rows with t <= 0 are clamped to a temperature
+    so small that the filtered distribution is one-hot at the argmax.
+    k <= 0 or k >= V disables top-k for that row; p outside (0, 1)
+    disables top-p, as the static path skips them."""
+    v = logits.shape[-1]
+    dev = logits.device
+    t = t.float().clamp_min(1e-6)
+    x = logits.float() / t[..., None]
+    kk = torch.where((k > 0) & (k < v), k,
+                     torch.full_like(k, v)).long()
+    srt = torch.sort(x, dim=-1).values                        # ascending
+    kth = torch.gather(srt, -1, (v - kk)[..., None])          # (..., B, 1)
+    x = x.masked_fill(x < kth, float("-inf"))
+    # nucleus on the already top-k-filtered rows (the static path's order)
+    desc = srt.flip(-1)
+    desc = desc.masked_fill(torch.arange(v, device=dev) >= kk[..., None],
+                            float("-inf"))
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = cum - probs < p.float()[..., None]
+    cutoff = torch.where(keep, desc, float("inf")).amin(dim=-1, keepdim=True)
+    cutoff = cutoff.masked_fill(~((p > 0.0) & (p < 1.0))[..., None],
+                                float("-inf"))
+    return x.masked_fill(x < cutoff, float("-inf"))
+
+
+def _sample_rows(logits: torch.Tensor, t: torch.Tensor, k: torch.Tensor,
+                 p: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row-vectorized ``_sample``: a Gumbel-max draw from each row's
+    filtered distribution (noise from ``generator`` unless ``gumbel``
+    gives it); greedy rows (t <= 0) take the argmax exactly."""
+    filt = _filtered_logits_rows(logits, t, k, p)
+    if gumbel is None:
+        gumbel = _gumbel(filt, generator)
+    out = torch.argmax(filt + gumbel, dim=-1).to(torch.int32)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.where(t <= 0.0, greedy, out)
+
+
+def _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
+                       generator=None, gumbel=None):
+    """``rows`` (t, k, p) vectors override the static scalars when set."""
+    if rows is None:
+        return _sample(logits, temperature, top_k, top_p, generator, gumbel)
+    return _sample_rows(logits, *rows, generator=generator, gumbel=gumbel)
+
+
+# ---------------------------------------------------------------------------
+# Pooled continuous-batching decode (serve/llm_pool.py): one batched state
+# with per-row positions, so every in-flight request advances in one
+# program per block.
+# ---------------------------------------------------------------------------
+
+
+class LlamaPoolState(NamedTuple):
+    """Batched decode state with per-row progress: every row has its own
+    ``pos``, and ``tok`` carries each row's last sampled token on the
+    device, so a block takes no token from the host."""
+    k: torch.Tensor        # (L, B, S, KV, hd)
+    v: torch.Tensor
+    pos: torch.Tensor      # (B,) int32: tokens cached per row
+    tok: torch.Tensor      # (B,) int32: last sampled token per row
+
+
+def init_llama_pool_state(cfg: LlamaConfig, batch: int,
+                          dtype=torch.float32, device="cpu"
+                          ) -> LlamaPoolState:
+    shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_kv_head,
+             cfg.head_dim)
+    return LlamaPoolState(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _row_tables(pos_vec: torch.Tensor, t: int, s_cap: int,
+                attn_len: Optional[int], cfg: LlamaConfig,
+                device) -> _StepTables:
+    """``_step_tables`` with a position per row: row b's T new tokens sit
+    at pos_vec[b]..pos_vec[b]+T-1 and write the cache rows from a start
+    clamped to s_cap - T (JAX's vmapped ``dynamic_update_slice`` clamps
+    it), (B, T); key j is valid for row b's query i iff
+    j <= pos_vec[b] + i, (B, T, S)."""
+    steps = torch.arange(t, device=device, dtype=torch.int32)
+    positions = pos_vec[:, None] + steps[None, :]              # (B, T)
+    cos, sin = _rope_tables(positions, cfg, cfg.head_dim)
+    rows = (pos_vec.clamp(0, s_cap - t)[:, None] + steps[None]).long()
+    s = s_cap if attn_len is None else min(attn_len, s_cap)
+    jpos = torch.arange(s, device=device, dtype=torch.int32)
+    return _StepTables(cos, sin, rows,
+                       jpos[None, None, :] <= positions[:, :, None])
+
+
+def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, tables: _StepTables,
+                     cfg: LlamaConfig) -> torch.Tensor:
+    """One layer for T new tokens per row, each row at its own position
+    (``_row_tables``): writes their K and V rows of the cache (B, S, KV,
+    hd) in place, attends the window with the per-row causal mask, and
+    returns x.  The attention takes x's dtype back when the cache has
+    another (the residual stream keeps x's dtype)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
+    q = nn.linear(h, lp["wq"]).reshape(b, t, cfg.n_head, hd)
+    k = nn.linear(h, lp["wk"]).reshape(b, t, cfg.n_kv_head, hd)
+    v = nn.linear(h, lp["wv"]).reshape(b, t, cfg.n_kv_head, hd)
+    q = _apply_rope(q, tables.cos, tables.sin)
+    k = _apply_rope(k, tables.cos, tables.sin)
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
+    k_cache.index_put_((bidx, tables.rows), k.to(k_cache.dtype))
+    v_cache.index_put_((bidx, tables.rows), v.to(v_cache.dtype))
+    s = tables.valid.shape[-1]
+    att = _gqa_cache_attention(q, k_cache[:, :s], v_cache[:, :s],
+                               tables.valid, cfg).to(x.dtype)
+    x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
+    h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
+    return x + _mlp(lp, h)
+
+
+def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, pos_vec: torch.Tensor,
+                      cfg: LlamaConfig, attn_len: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Every layer over (B, T) new tokens at per-row positions, the caches
+    k/v (L, B, S, KV, hd) written in place; returns the last hidden x."""
+    check_dense(cfg)
+    x = params["tok_emb"][tokens]
+    tables = _row_tables(pos_vec, tokens.shape[1], k.shape[2], attn_len,
+                         cfg, x.device)
+    for layer in range(cfg.n_layer):
+        x = _layer_step_rows(_layer_params(params, layer), x, k[layer],
+                             v[layer], tables, cfg)
+    return x
+
+
+def _head_rows(params: Dict, x: torch.Tensor, valid_lens: torch.Tensor,
+               cfg: LlamaConfig) -> torch.Tensor:
+    """The final norm and the head at each row's last valid position of x
+    (N, T, C): (N, V) logits.  (JAX computes the head at every position
+    and takes that one.)"""
+    last = (valid_lens.long() - 1).clamp_min(0)
+    x = x[torch.arange(x.shape[0], device=x.device), last]
+    return nn.linear(rms_norm(x, params["lnf_s"], cfg.rms_eps),
+                     _head(params))
+
+
+def _write_slot_rows(cache: torch.Tensor, slots: torch.Tensor,
+                     active: torch.Tensor, new: torch.Tensor,
+                     rows: Optional[torch.Tensor] = None) -> None:
+    """Row n of ``new`` into slot ``slots[n]`` of ``cache`` (B, S, ...),
+    at cache rows ``rows[n]`` ((N, T); None: the first new.shape[1] rows),
+    where ``active[n]``.  The rows write in turn, and an inactive one
+    writes back what its slot holds, so it changes nothing, whichever
+    slot it names (the counterpart of JAX's dropped scatter)."""
+    for n in range(new.shape[0]):
+        s = slots[n:n + 1]
+        if rows is None:
+            view = cache[:, :new.shape[1]]
+            old = view.index_select(0, s)
+            view.index_copy_(0, s, torch.where(active[n], new[n:n + 1], old))
+        else:
+            idx = (s.expand_as(rows[n]), rows[n])
+            cache.index_put_(idx, torch.where(active[n], new[n],
+                                              cache[idx]))
+
+
+def _write_slot_values(vec: torch.Tensor, slots: torch.Tensor,
+                       active: torch.Tensor, values: torch.Tensor
+                       ) -> torch.Tensor:
+    """A copy of the per-slot vector ``vec`` (B,) with ``values[n]`` at
+    ``slots[n]`` where ``active[n]`` (``_write_slot_rows``' rule)."""
+    vec = vec.clone()
+    for n in range(values.shape[0]):
+        s = slots[n:n + 1]
+        vec.index_copy_(0, s, torch.where(active[n], values[n:n + 1].to(
+            vec.dtype), vec.index_select(0, s)))
+    return vec
+
+
+def prefix_kv(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced KV rows of a shared prompt prefix: ``tokens`` (1, P)
+    -> (k, v) each (L, P, KV, hd), in the params' dtype.  Computed once,
+    they seed every slot whose prompt starts with the prefix
+    (``prefill_slots``)."""
+    p = tokens.shape[1]
+    shape = (cfg.n_layer, 1, p, cfg.n_kv_head, cfg.head_dim)
+    dtype, dev = params["tok_emb"].dtype, tokens.device
+    k = torch.zeros(shape, dtype=dtype, device=dev)
+    v = torch.zeros(shape, dtype=dtype, device=dev)
+    _scan_layers_rows(params, tokens, k, v,
+                      torch.zeros((1,), dtype=torch.int32, device=dev), cfg)
+    return k[:, 0], v[:, 0]
+
+
+def prefill_slots(params: Dict, tokens: torch.Tensor,
+                  valid_lens: torch.Tensor, state: LlamaPoolState,
+                  slots: torch.Tensor, active: torch.Tensor,
+                  cfg: LlamaConfig, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 1.0,
+                  prefix_k: Optional[torch.Tensor] = None,
+                  prefix_v: Optional[torch.Tensor] = None,
+                  rows: Optional[Tuple] = None,
+                  generator: Optional[torch.Generator] = None,
+                  gumbel: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, LlamaPoolState]:
+    """Prefill N mixed-length prompts into pool slots in one program.
+
+    ``tokens`` (N, Tpad) right-padded, ``valid_lens`` (N,).  Row n runs on
+    a fresh cache of its own (the prefix rows first when given), and its
+    rows 0..P+Tpad-1 land in slot ``slots[n]`` of ``state``; its first
+    token is sampled at its last valid position, returned (N,) int32 and
+    stored in the slot's ``tok``, and the slot's ``pos`` becomes
+    ``P + valid_lens[n]``.  Rows with ``active[n]`` False are padding of
+    the arrival batch and write nothing (``_write_slot_rows``).
+
+    With ``prefix_k``/``prefix_v`` ((L, P, KV, hd), ``prefix_kv``) the
+    tokens are the suffix after a shared P-token prefix: rows start at
+    position P and attend the prefix rows.  The caches are written in
+    place; the returned state has the new ``pos`` and ``tok``."""
+    check_dense(cfg)
+    n, tpad = tokens.shape
+    dev = tokens.device
+    p = 0 if prefix_k is None else prefix_k.shape[1]
+    cap, s_cap = state.k.shape[1], state.k.shape[2]
+    dtype = state.k.dtype
+    width = min(p + tpad, s_cap)
+    valid_lens = valid_lens.to(torch.int32)
+    act = active.bool()
+    slot_ids = slots.long().clamp(0, cap - 1)
+    x = params["tok_emb"][tokens]
+    tables = _row_tables(torch.full((n,), p, dtype=torch.int32, device=dev),
+                         tpad, p + tpad, None, cfg, dev)
+    shape = (n, p + tpad, cfg.n_kv_head, cfg.head_dim)
+    for layer in range(cfg.n_layer):
+        kc = torch.zeros(shape, dtype=dtype, device=dev)
+        vc = torch.zeros(shape, dtype=dtype, device=dev)
+        if p:
+            kc[:, :p] = prefix_k[layer].to(dtype)
+            vc[:, :p] = prefix_v[layer].to(dtype)
+        x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
+                             tables, cfg)
+        _write_slot_rows(state.k[layer], slot_ids, act, kc[:, :width])
+        _write_slot_rows(state.v[layer], slot_ids, act, vc[:, :width])
+    logits = _head_rows(params, x, valid_lens, cfg)
+    first = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
+                               generator, gumbel)
+    return first, state._replace(
+        pos=_write_slot_values(state.pos, slot_ids, act, p + valid_lens),
+        tok=_write_slot_values(state.tok, slot_ids, act, first))
+
+
+def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
+                           valid_lens: torch.Tensor, state: LlamaPoolState,
+                           slots: torch.Tensor, active: torch.Tensor,
+                           pos0: torch.Tensor, cfg: LlamaConfig,
+                           final: bool = True, temperature: float = 0.0,
+                           top_k: int = 0, top_p: float = 1.0,
+                           attn_len: Optional[int] = None,
+                           rows: Optional[Tuple] = None,
+                           generator: Optional[torch.Generator] = None,
+                           gumbel: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, LlamaPoolState]:
+    """Continue a chunked prefill: ``tokens`` (N, Tpad) extend prompts
+    already cached, row n's slot holding ``pos0[n]`` tokens; the chunk
+    lands at pos0..pos0+Tpad-1.  Each row runs on a copy of its slot's
+    first ``attn_len`` rows (the chunk written into it at the clamped
+    offset, as JAX writes it), so its queries attend the whole cached
+    prompt in one softmax; then the chunk's rows alone are written back,
+    for active rows (``_write_slot_rows``).  The caller guarantees
+    pos0 + Tpad <= attn_len.
+
+    ``final=False`` (middle chunks) skips the head and returns zeros;
+    ``final=True`` samples each row's first token at its last valid
+    position and stores it in the slot's ``tok``."""
+    check_dense(cfg)
+    n, tpad = tokens.shape
+    dev = tokens.device
+    cap, s = state.k.shape[1], state.k.shape[2]
+    if attn_len is not None and attn_len < s:
+        s = attn_len
+    valid_lens = valid_lens.to(torch.int32)
+    act = active.bool()
+    slot_ids = slots.long().clamp(0, cap - 1)
+    pos0 = pos0.to(torch.int32)
+    x = params["tok_emb"][tokens]
+    tables = _row_tables(pos0, tpad, s, None, cfg, dev)
+    ridx = torch.arange(n, device=dev)[:, None]
+    for layer in range(cfg.n_layer):
+        kc = state.k[layer][:, :s].index_select(0, slot_ids)
+        vc = state.v[layer][:, :s].index_select(0, slot_ids)
+        x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
+                             tables, cfg)
+        _write_slot_rows(state.k[layer], slot_ids, act,
+                         kc[ridx, tables.rows], tables.rows)
+        _write_slot_rows(state.v[layer], slot_ids, act,
+                         vc[ridx, tables.rows], tables.rows)
+    pos = _write_slot_values(state.pos, slot_ids, act, pos0 + valid_lens)
+    if not final:
+        return (torch.zeros((n,), dtype=torch.int32, device=dev),
+                state._replace(pos=pos))
+    logits = _head_rows(params, x, valid_lens, cfg)
+    first = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
+                               generator, gumbel)
+    return first, state._replace(
+        pos=pos, tok=_write_slot_values(state.tok, slot_ids, act, first))
+
+
+def decode_block_pooled(params: Dict, state: LlamaPoolState,
+                        active: torch.Tensor, cfg: LlamaConfig,
+                        block: int = 16, temperature: float = 0.0,
+                        top_k: int = 0, top_p: float = 1.0,
+                        attn_len: Optional[int] = None,
+                        rows: Optional[Tuple] = None,
+                        generator: Optional[torch.Generator] = None,
+                        gumbel: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, LlamaPoolState]:
+    """Advance every active row ``block`` tokens in one program.
+
+    Each row continues from its own ``tok`` and ``pos``; inactive rows
+    ride along (they write their cache row at their frozen ``pos``, as
+    JAX's do, but their ``pos`` and ``tok`` stay).  Returns the (B, block)
+    tokens generated after each row's ``tok`` and the state with the new
+    ``pos`` and ``tok`` (the caches written in place).  ``attn_len``:
+    every active row satisfies pos + block <= attn_len.  Sampled steps
+    draw their noise from ``generator``, or step i from ``gumbel[i]``."""
+    act = active.bool()
+    tok, pos = state.tok, state.pos
+    out = []
+    for i in range(block):
+        x = _scan_layers_rows(params, tok[:, None], state.k, state.v, pos,
+                              cfg, attn_len)
+        logits = nn.linear(rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps),
+                           _head(params))
+        nxt = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
+                                 generator,
+                                 None if gumbel is None else gumbel[i])
+        tok = torch.where(act, nxt, tok)
+        pos = pos + act.to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1), state._replace(pos=pos, tok=tok)

@@ -14,8 +14,12 @@ the reply of the LLM: ``--llm_backend jax`` is the in-framework Llama
 (``models/llama.py``) on the replicas' card, from ``--llm_jax_params``
 (a converted npz with its meta) and the tokenizer ``--llm_checkpoint``
 (``byte`` for the built-in byte tokenizer), its decode blocks captured as
-CUDA graphs at warmup; ``--llm_backend hf`` a transformers model on
-``--llm_device``.
+CUDA graphs at warmup; with ``--llm_pool_capacity N`` concurrent requests
+share a continuous-batching LLM pool of N slots (``serve/llm_pool.py``,
+its prefills, continuations and blocks captured at warmup), which also
+takes the overlapped ``/voicechat``.  A Llama whose meta has experts or
+draft heads is refused before anything loads.  ``--llm_backend hf`` a
+transformers model on ``--llm_device``.
 ``--pool_capacity N`` serves concurrent requests through a
 continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
 ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
@@ -45,7 +49,8 @@ in how many seconds, and the graph pool's bytes, before the port listens.
         --scripted_reply "Hello there. How are you?" [--pool_capacity 16] \\
         [--spec_decode true] [--quantize w4]
     python -m llmvox_tpu_torch.serve --random_seed 0 --llm_backend jax \\
-        --llm_jax_params llama.npz --llm_checkpoint byte
+        --llm_jax_params llama.npz --llm_checkpoint byte \\
+        [--llm_pool_capacity 8]
     python -m llmvox_tpu_torch.serve --random_seed 0 --chat_type voice \\
         --asr_backend jax --asr_model whisper.npz --llm_backend jax \\
         --llm_jax_params llama.npz --llm_checkpoint byte
@@ -72,6 +77,28 @@ def replica_devices(device: str, cfg: ServeConfig) -> list:
     last = torch.cuda.device_count() - 1
     return [f"cuda:{max(0, min(i, last))}"
             for i in (cfg.tts_device_1, cfg.tts_device_2)]
+
+
+def llm_refusal(cfg: ServeConfig) -> str:
+    """Why the in-framework Llama that ``cfg`` serves cannot run here, from
+    its npz's meta alone (nothing is loaded), or "": mixture-of-experts
+    layers and draft heads are not ported."""
+    import os
+
+    from llmvox_tpu_torch.utils.params import load_meta
+    if (cfg.llm_backend != "jax" or cfg.scripted_reply
+            or cfg.chat_type not in ("text", "voice")
+            or not os.path.exists(cfg.llm_jax_params + ".json")):
+        return ""
+    margs = load_meta(cfg.llm_jax_params).get("model_args", {})
+    for key, what in (("n_experts", "mixture-of-experts layers"),
+                      ("n_draft_heads", "draft heads (the pooled "
+                                        "speculative block)")):
+        if int(margs.get(key, 0)) > 0:
+            return (f"the Llama of --llm_jax_params has {key}="
+                    f"{margs[key]}: its {what} are not ported to "
+                    "llmvox_tpu_torch yet (ROADMAP queue 1 item 6)")
+    return ""
 
 
 def main(argv=None) -> None:
@@ -101,6 +128,9 @@ def main(argv=None) -> None:
     if cfg.pool_mesh_dp > 1:
         parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
                      "yet: the multi-device pool is ROADMAP queue 1 item 10")
+    refusal = llm_refusal(cfg)
+    if refusal:
+        parser.error(refusal)
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()

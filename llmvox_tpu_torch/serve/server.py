@@ -11,8 +11,8 @@ endpoints:
                             "audio_base64", "image_base64"}
 - ``GET  /``               service info
 - ``GET  /demo``           the browser demo page
-- ``GET  /stats``          per-request latency traces, and the pool's
-                           counters
+- ``GET  /stats``          per-request latency traces, the TTS pool's
+                           counters and the pooled LLM's (``llm_pool``)
 
 A POST answers a chunked ``application/octet-stream`` body of raw float32
 little-endian 24 kHz PCM.  Its text comes from the text stream: a
@@ -25,9 +25,11 @@ pipeline, or ``--asr_backend jax``, the in-framework Whisper on the
 replicas' card).  JAX's serial path calls ``run_asr`` on the event loop;
 here it runs on a worker thread and is awaited, so the loop is never
 held for a transcription (ROADMAP §3).  The overlapped ``/voicechat``
-(partial transcripts streamed into the LLM's prefill) is taken, as in
-JAX, only when the text stream has ``predict_streaming``, which no port
-stream has yet (``LLMPool``, ROADMAP queue 1 item 6).
+(``s2s_overlap``, the default: partial transcripts of
+``transcribe_stream_async`` streamed into the LLM's prefill) is taken, as
+in JAX, when the ASR streams and the text stream has
+``predict_streaming``: the pooled LLM (``--llm_pool_capacity > 0``,
+``streams/llm.py::PooledLlamaStreamModel``).
 
 Two serving modes, as in the JAX server:
 - **dedicated** (default): one dual-replica scheduler; requests are
@@ -168,6 +170,9 @@ class TTSServer:
                 obj = {"requests": list(self.traces)}
                 if self.pool is not None:
                     obj["pool"] = self.pool.stats()
+                llm_pool = getattr(self.stream_model, "pool", None)
+                if llm_pool is not None and hasattr(llm_pool, "stats"):
+                    obj["llm_pool"] = llm_pool.stats()
                 await self._plain(writer, 200, obj)
             elif method == "POST" and path in _POST:
                 await self._stream_response(writer, path,
@@ -268,6 +273,9 @@ class TTSServer:
                 pass
             if self.pool is not None:
                 self.pool.stop()
+            llm_pool = getattr(self.stream_model, "pool", None)
+            if hasattr(llm_pool, "stop"):
+                llm_pool.stop()
 
     def shutdown(self) -> None:
         """Thread-safe graceful stop: ``serve()`` returns and the listening
@@ -294,8 +302,9 @@ def build_server(cfg: ServeConfig, engines, stream_model=None,
     source per ``chat_type``, as the JAX ``build_server`` does: the given
     ``stream_model``; a ScriptedStream of ``cfg.scripted_reply``; for
     "text" or "voice" the LLM of ``llm_backend`` ("jax": the in-framework
-    Llama on the replicas' card, its decode blocks captured here; "hf": a
-    HuggingFace model on ``llm_device``); for "multimodal" the HF
+    Llama on the replicas' card, B=1 or, with ``llm_pool_capacity > 0``,
+    pooled, its programs captured here; "hf": a HuggingFace model on
+    ``llm_device``); for "multimodal" the HF
     multimodal stream; for "visual_speech" the HF vision-language stream.
     "voice" and "visual_speech" also build the ASR of ``asr_backend``
     ("jax": the in-framework Whisper on the replicas' card, its buckets
@@ -329,7 +338,8 @@ def build_server(cfg: ServeConfig, engines, stream_model=None,
     if pool is not None:
         pool.warmup()
     if hasattr(stream_model, "warmup"):
-        # the in-framework LLM: a CUDA graph per decode block rung
+        # the in-framework LLM: a CUDA graph per decode block rung (the
+        # pooled LLM: per prefill, continuation and decode block)
         stream_model.warmup()
     if hasattr(asr_model, "warmup"):
         # the in-framework Whisper: the graphs of every context bucket

@@ -33,13 +33,21 @@ On the device (``LlamaStreamModel``):
 - One request generates at a time (a lock held for the life of the
   ``predict`` generator): the state is one static buffer.  JAX's B=1
   stream runs concurrent requests each on its own state; the concurrent
-  LLM is ``LLMPool`` (ROADMAP queue 1 item 6).
+  LLM is the pool below.
+
+``PooledLlamaStreamModel`` (``llm_pool_capacity > 0``) is the counterpart
+of JAX's ``PooledJAXStreamModel``: concurrent ``predict`` streams share
+the continuous-batching ``serve/llm_pool.py::LLMPool``, and
+``predict_streaming`` takes a prompt whose text is still being produced
+(the overlapped ``/voicechat``).  Its ``predict`` returns an async
+generator, so deltas flow on the server's event loop as the pool's blocks
+resolve.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import AsyncIterator, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -273,26 +281,176 @@ class LlamaStreamModel:
             yield self.eos_text
 
 
+class PooledLlamaStreamModel:
+    """The text-stream protocol over the continuous-batching LLM pool
+    (``serve/llm_pool.py``): N concurrent ``predict`` streams share one
+    batched decode program instead of waiting for the B=1 stream.
+    ``predict`` returns an async generator (``aiter_stream`` passes it
+    through), so no thread serves a request."""
+
+    def __init__(self, pool, tokenizer, *, max_tokens: int = 512,
+                 eos_text: Optional[str] = None):
+        self.pool = pool
+        self.cfg = pool.cfg
+        self.tokenizer = tokenizer
+        self.max_tokens = max_tokens
+        self.eos_id = _tokenizer_eos_id(tokenizer)
+        self.eos_text = (eos_text if eos_text is not None
+                         else getattr(tokenizer, "eos_token", "")) or ""
+
+    def load(self) -> None:
+        pass
+
+    def warmup(self) -> None:
+        """The pool's warmup: every program captured before serving."""
+        self.pool.warmup()
+
+    def enable_prefix_cache(self, system: str) -> None:
+        """Pin the system preamble's KV in the pool: the longest common
+        id prefix of two probe prompts (chat templates put their
+        generation-prompt tokens after the user content, so it is the part
+        every request repeats).  Requests with another system prompt do
+        not match and take the plain prefill."""
+        a = build_prompt_ids(self.tokenizer, {"system": system,
+                                              "prompt": "a"})
+        b = build_prompt_ids(self.tokenizer,
+                             {"system": system,
+                              "prompt": "entirely different probe?"})
+        n = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            n += 1
+        self.pool.set_prefix(a[:n])
+
+    @staticmethod
+    def _request_sampling(request: Dict) -> Optional[Dict]:
+        # per-request sampling knobs (honoured by a pool built with
+        # per_request_sampling, ignored otherwise)
+        sampling = {}
+        if "temperature" in request:
+            sampling["temperature"] = float(request["temperature"])
+        if "top_p" in request:
+            sampling["top_p"] = float(request["top_p"])
+        if "top_k" in request:
+            sampling["top_k"] = int(request["top_k"])
+        return sampling or None
+
+    def _max_tokens(self, request: Dict) -> int:
+        return min(int(request.get("max_tokens", self.max_tokens)),
+                   self.max_tokens)
+
+    def predict_streaming(self, request: Dict, texts) -> AsyncIterator[str]:
+        """``predict`` for a prompt whose user text is still being
+        produced: ``texts`` is an async iterator of cumulative transcript
+        strings (or ``(text, done)`` pairs, as
+        ``WhisperModelASR.transcribe_stream_async`` yields them).  Stable
+        prompt-id prefixes prefill into the pool while later text still
+        decodes; generation starts when the transcript completes.  The
+        last ``HOLDBACK`` ids are never submitted early (BPE can merge
+        across the boundary); if the tokenizer revises submitted ids, or
+        the prompt passes the context cap, the producer raises
+        ``PromptRestart`` and the pool recovers with one plain prefill, so
+        the text is always ``predict(final_text)``'s."""
+        from llmvox_tpu_torch.serve.llm_pool import PromptRestart
+        HOLDBACK = 4
+        cap = self.pool._ctx_cap()
+
+        async def parts():
+            submitted: List[int] = []
+            final_ids: List[int] = []
+            ok = True
+            async for item in texts:
+                text = item[0] if isinstance(item, tuple) else item
+                ids = build_prompt_ids(self.tokenizer,
+                                       {**request, "prompt": text})
+                final_ids = ids
+                if len(ids) > cap:
+                    # over the cap the plain path keeps the tail (the
+                    # user's question); streaming would keep the head
+                    ok = False
+                if not ok:
+                    continue            # drain; restart at the end
+                if ids[: len(submitted)] != submitted:
+                    ok = False
+                    continue
+                stable = ids[: max(len(submitted), len(ids) - HOLDBACK)]
+                new = stable[len(submitted):]
+                if new:
+                    submitted.extend(new)
+                    yield new
+            if not ok or len(final_ids) <= len(submitted) \
+                    or final_ids[: len(submitted)] != submitted:
+                raise PromptRestart(final_ids)
+            yield final_ids[len(submitted):]   # non-empty (HOLDBACK >= 1)
+
+        gen = self.pool.generate_streaming_prompt(
+            parts(), max_tokens=self._max_tokens(request),
+            sampling=self._request_sampling(request))
+        return self._detok_stream(gen)
+
+    def predict(self, request: Dict) -> AsyncIterator[str]:
+        ids = build_prompt_ids(self.tokenizer, request)
+        gen = self.pool.generate(ids, max_tokens=self._max_tokens(request),
+                                 sampling=self._request_sampling(request))
+        return self._detok_stream(gen)
+
+    def _detok_stream(self, gen) -> AsyncIterator[str]:
+        async def agen():
+            out: List[int] = []
+            emitted = ""
+            try:
+                async for toks in gen:
+                    done = False
+                    for t in toks:
+                        out.append(int(t))
+                        if out[-1] == self.eos_id:
+                            done = True
+                            break
+                    delta, emitted = stable_delta(
+                        self.tokenizer, self.eos_id, out, emitted)
+                    if delta:
+                        yield delta
+                    if done:
+                        break
+            finally:
+                # release the slot now, not when the generator is collected
+                await gen.aclose()
+            delta, emitted = stable_delta(self.tokenizer, self.eos_id, out,
+                                          emitted, final=True)
+            if delta:
+                yield delta
+            if self.eos_text:
+                yield self.eos_text
+
+        return agen()
+
+
+def llama_config_of(path: str) -> llama.LlamaConfig:
+    """The LlamaConfig an npz's meta carries (``model_args``)."""
+    from llmvox_tpu_torch.utils.params import load_meta
+    margs = load_meta(path).get("model_args", {})
+    return llama.LlamaConfig(**{k: v for k, v in margs.items()
+                                if k in llama.LlamaConfig.__dataclass_fields__})
+
+
 def build_llama_stream(cfg, tokenizer=None, device="cuda",
-                       graphs: Optional[bool] = None) -> LlamaStreamModel:
+                       graphs: Optional[bool] = None, params=None):
     """Server-side factory (``--llm_backend jax``): the converted Llama
     params (``cfg.llm_jax_params``, an npz whose meta carries the
-    LlamaConfig fields), the tokenizer named by ``llm_checkpoint`` (the
-    byte tokenizer for ``"byte"``), quantized under ``cfg.quantize`` and
-    cast to ``compute_dtype``, on ``device``."""
+    LlamaConfig fields; ``params`` given here replace the npz's arrays),
+    the tokenizer named by ``llm_checkpoint`` (the byte tokenizer for
+    ``"byte"``), quantized under ``cfg.quantize`` and cast to
+    ``compute_dtype``, on ``device``.  With ``llm_pool_capacity > 0`` a
+    ``PooledLlamaStreamModel`` over an ``LLMPool`` of that many slots (its
+    system prompt's KV cached when ``llm_prefix_cache``), else the B=1
+    ``LlamaStreamModel``."""
     from llmvox_tpu_torch.ops import quant
-    from llmvox_tpu_torch.utils.params import load_meta, load_params_npz
+    from llmvox_tpu_torch.utils.params import load_params_npz
 
-    if cfg.llm_pool_capacity > 0:
-        raise NotImplementedError(
-            f"llm_pool_capacity={cfg.llm_pool_capacity}: the pooled LLM "
-            "(LLMPool, llmvox_tpu/serve/llm_pool.py) is not ported to "
-            "llmvox_tpu_torch yet (ROADMAP queue 1 item 6); 0 serves the "
-            "B=1 stream")
-    params = load_params_npz(cfg.llm_jax_params)
-    margs = load_meta(cfg.llm_jax_params).get("model_args", {})
-    lcfg = llama.LlamaConfig(**{k: v for k, v in margs.items()
-                                if k in llama.LlamaConfig.__dataclass_fields__})
+    if params is None:
+        params = load_params_npz(cfg.llm_jax_params)
+    lcfg = llama_config_of(cfg.llm_jax_params)
     if tokenizer is None:
         if cfg.llm_checkpoint == "byte":
             tokenizer = ByteTokenizer()
@@ -302,6 +460,26 @@ def build_llama_stream(cfg, tokenizer=None, device="cuda",
     if cfg.quantize:
         params = quant.quantize_llama_params(params, cfg.quantize)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    if cfg.llm_pool_capacity > 0:
+        from llmvox_tpu_torch.serve.llm_pool import LLMPool
+        pool = LLMPool(params, lcfg, capacity=cfg.llm_pool_capacity,
+                       block=cfg.llm_block, first_block=cfg.llm_first_block,
+                       temperature=cfg.llm_temperature, top_k=cfg.llm_top_k,
+                       top_p=cfg.llm_top_p, dtype=dtype, device=device,
+                       prefill_buckets=tuple(cfg.llm_prefill_buckets),
+                       pipeline_depth=cfg.pool_pipeline_depth,
+                       spec_k=cfg.llm_spec_k,
+                       spec_ladder=tuple(cfg.llm_spec_ladder or ()),
+                       prefill_merge=cfg.llm_prefill_merge,
+                       chunked_prefill=cfg.llm_chunked_prefill,
+                       per_request_sampling=cfg.llm_per_request_sampling,
+                       graphs=graphs)
+        model = PooledLlamaStreamModel(pool, tokenizer,
+                                       max_tokens=cfg.llm_max_tokens,
+                                       eos_text=cfg.eos_token)
+        if cfg.llm_prefix_cache and cfg.system_prompt:
+            model.enable_prefix_cache(cfg.system_prompt)
+        return model
     return LlamaStreamModel(params, lcfg, tokenizer, block=cfg.llm_block,
                             temperature=cfg.llm_temperature,
                             top_k=cfg.llm_top_k, top_p=cfg.llm_top_p,

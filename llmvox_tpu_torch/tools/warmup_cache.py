@@ -2,6 +2,8 @@
 
   python -m llmvox_tpu_torch.tools.warmup_cache                # deployed
   python -m llmvox_tpu_torch.tools.warmup_cache --pool_capacity 16
+  python -m llmvox_tpu_torch.tools.warmup_cache --llm_pool_capacity 8 \
+      --llm_jax_params llama.npz --llm_checkpoint byte
 
 The port's counterpart of ``llmvox_tpu/tools/warmup_cache.py``, with the
 same flags (the ServeConfig, DecoderConfig and CodecConfig fields) and
@@ -18,7 +20,13 @@ only.  Two parts:
   or ``--pool_ladder``, each pool's (each width and rung, the fused
   vocodes, the ragged synthesis buckets) are captured at the given shapes
   and reported: counts, seconds and the graph pool's bytes (None where
-  the allocator does not name a segment's pool).  CUDA graphs,
+  the allocator does not name a segment's pool); with
+  ``--llm_pool_capacity > 0``, the pooled LLM's (``serve/llm_pool.py``:
+  each prefill bucket, arrival size and prefix variant, each
+  continuation rung, each decode block rung and width), at the geometry
+  of ``--llm_jax_params``' meta (only its ``.json`` is read; the weights
+  are random, drawn on the device), its system-prompt prefix from
+  ``--llm_checkpoint``'s tokenizer.  CUDA graphs,
   unlike XLA executables, do not outlive the process: every server
   captures its own at warmup, so these are discarded, and the run shows
   that every capture succeeds on this card and what it costs.
@@ -99,6 +107,24 @@ def main(argv=None) -> None:
         report(f"pool of {cap} (steps {sorted(pool._decode_fns)})", before,
                t0)
         del pool
+    if scfg.llm_pool_capacity > 0:
+        from llmvox_tpu_torch.streams.llm import (build_llama_stream,
+                                                  llama_config_of)
+        before, t0 = graphs.stats(), time.perf_counter()
+        lcfg = llama_config_of(scfg.llm_jax_params)
+        # quantized under --quantize by the factory, as the server's is
+        model = build_llama_stream(
+            scfg, device=args.device,
+            params=P.init_llama_params(3, lcfg, device=args.device,
+                                       dtype=dtype))
+        model.warmup()
+        pool = model.pool
+        report(f"LLM pool of {pool.B} ({len(pool.warmup_keys())} programs: "
+               f"prefill buckets {pool.buckets}, prefix buckets "
+               f"{pool._prefix_buckets}, attn rungs {pool.attn_buckets}, "
+               f"widths {sorted({k[2] for k in pool.warmup_keys() if k[0] == 'block'})})",
+               before, t0)
+        del model, pool
     print(graphs.summary() + "; every serving graph captured, and "
           "discarded with this process", flush=True)
 

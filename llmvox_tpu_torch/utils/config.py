@@ -117,16 +117,17 @@ class ServeConfig:
     """Serving knobs.  The same flags as the JAX server; the port serves
     every endpoint on the dedicated dual replicas or through the pool,
     with or without speculative decode and quantization, from a scripted
-    reply, the B=1 LLM text stream (``llm_backend`` "jax": the
-    in-framework Llama on the card; "hf": transformers on the host) or the
-    HF multimodal streams, with the ASR of ``asr_backend`` ("jax": the
-    in-framework Whisper on the card; "hf": the host pipeline).  The pooled
-    LLM's knobs (``llm_pool_capacity`` > 0 raises; ``llm_first_block``,
-    ``llm_prefill_buckets``, ``llm_chunked_prefill``,
-    ``llm_prefill_merge``, ``llm_spec_k``, ``llm_spec_ladder``,
-    ``llm_per_request_sampling``, ``llm_prefix_cache``) and
-    ``asr_enable_translation`` are parsed but not used (JAX does not use
-    the last either)."""
+    reply, the LLM text stream (``llm_backend`` "jax": the in-framework
+    Llama on the card, B=1, or pooled with ``llm_pool_capacity`` > 0 and
+    the pool's knobs ``llm_first_block``, ``llm_prefill_buckets``,
+    ``llm_chunked_prefill``, ``llm_prefill_merge``,
+    ``llm_per_request_sampling`` and ``llm_prefix_cache``; "hf":
+    transformers on the host) or the HF multimodal streams, with the ASR
+    of ``asr_backend`` ("jax": the in-framework Whisper on the card; "hf":
+    the host pipeline).  ``llm_spec_k`` and ``llm_spec_ladder`` serve the
+    plain pooled block, as JAX's do without draft heads (a Llama with
+    draft heads is refused); ``asr_enable_translation`` is parsed but not
+    used (JAX does not use it either)."""
 
     chat_type: str = "text"  # ['text','voice','multimodal','visual_speech']
 

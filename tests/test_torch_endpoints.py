@@ -5,9 +5,10 @@ tiny Qwen2.5-VL, ``/multimodalchat`` with the multimodal adapter on a tiny
 GPT-2 (``tests/test_streams.py``'s substitution), each with the same
 injected text stream on both sides and the chunk schedules equal; ``GET
 /demo``; the port's ``RemoteStream`` against a fake SSE endpoint; the
-CLI's ``--chat_type`` and ``--asr_backend`` flags; and the event loop
+CLI's ``--chat_type`` and ``--asr_backend`` flags; the event loop
 during a serial ``/voicechat``, which the port awaits and JAX's server
-blocks on."""
+blocks on; and the overlapped ``/voicechat`` through the pooled LLM
+(the same audio as the serial path, the loop free)."""
 import asyncio
 import base64
 import dataclasses
@@ -17,6 +18,7 @@ import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
+from typing import Dict
 
 import numpy as np
 import pytest
@@ -409,3 +411,110 @@ def test_serial_voicechat_leaves_the_loop_free(tiny_dir):
 
     _, jlags = asyncio.run(_with_ticker(jax_side()))
     assert max(jlags) >= SLOW_S * 0.9
+
+
+# ---------------------------------------------------------------------------
+# the overlapped /voicechat, through the pooled LLM
+# ---------------------------------------------------------------------------
+
+def _pooled_voice_server(weights, tiny_dir, overlap: bool, port: int = 0):
+    """The port's server on two replicas with the tiny in-framework
+    Whisper and a 2-layer pooled Llama (max_seq_len 384: the system prompt
+    and the transcript fit the context, so the overlap path runs, as
+    tests/test_whisper.py's JAX counterpart has it)."""
+    from llmvox_tpu.models import llama as jl
+    from llmvox_tpu_torch.models import llama as tl
+    from llmvox_tpu_torch.serve.llm_pool import LLMPool
+    from llmvox_tpu_torch.serve.scheduler import StreamingScheduler
+    from llmvox_tpu_torch.streams.llm import PooledLlamaStreamModel
+    from tests.test_llama import _ToyTokenizer
+
+    import jax
+    lcfg = jl.LlamaConfig(vocab_size=128, n_layer=2, n_head=4, n_kv_head=2,
+                          n_embd=32, intermediate_size=64, max_seq_len=384)
+    lparams = jax.device_get(jl.init_llama_params(jax.random.PRNGKey(0),
+                                                  lcfg))
+    scfg = dataclasses.replace(SERVE_CFG, api_host="127.0.0.1",
+                               api_port=port, asr_model=tiny_dir,
+                               asr_backend="jax", s2s_overlap=overlap)
+    tcfg = _port_cfg(tconfig.ServeConfig, scfg)
+    pool = LLMPool(lparams, tl.LlamaConfig(**dataclasses.asdict(lcfg)),
+                   capacity=2, block=4, prefill_buckets=(8, 16, 32),
+                   device="cpu")
+    model = PooledLlamaStreamModel(pool, _ToyTokenizer(), max_tokens=10,
+                                   eos_text=scfg.eos_token)
+    asr = tasr.WhisperModelASR(tcfg, device="cpu")
+    asr.load()
+    engines = _port_engines(weights, scfg, 2)
+    return tserver.TTSServer(StreamingScheduler(engines, tcfg), tcfg,
+                             stream_model=model, asr_model=asr)
+
+
+def _voice_body(seconds: float = 7) -> Dict:
+    pcm = (_speechish(seconds) * 32768.0).astype(np.int16)
+    return {"audio_base64": base64.b64encode(pcm.tobytes()).decode(),
+            "source_language": "english", "target_language": "english"}
+
+
+def test_voicechat_overlapped_matches_serial(weights, tiny_dir):
+    """``/voicechat`` through the overlapped path (the in-framework
+    Whisper's partial transcripts streaming into the pooled LLM's
+    prefill) returns exactly the serial path's audio: overlap changes
+    timing, never results."""
+    body = _voice_body()
+    out, streamed = {}, []
+    for overlap in (True, False):
+        port = _free_port()
+        srv = _pooled_voice_server(weights, tiny_dir, overlap, port)
+        real = srv.stream_model.predict_streaming
+
+        def spy(request, texts, _real=real):
+            streamed.append(request)
+            return _real(request, texts)
+        srv.stream_model.predict_streaming = spy
+        with _Running(srv, port):
+            out[overlap] = post_chunks("127.0.0.1", port, "/voicechat",
+                                       body, timeout=300)
+    assert len(streamed) == 1            # the overlapped run, only
+    assert [len(c) for _, c in out[True]] == [len(c) for _, c in out[False]]
+    wav = to_wave(out[True])
+    assert wav.size > 0 and np.isfinite(wav).all()
+    np.testing.assert_array_equal(wav, to_wave(out[False]))
+
+
+def test_overlapped_voicechat_leaves_the_loop_free(weights, tiny_dir):
+    """The overlapped ``/voicechat`` with the ASR's prep launch slowed by
+    0.3 s on the dispatch thread: a 1 ms ticker on the loop is never
+    50 ms late while the text stream is built and drained, and the text
+    equals the serial path's."""
+    body = _voice_body(3)
+    srv = _pooled_voice_server(weights, tiny_dir, True)
+    asr = srv.asr_model
+    prep, threads = asr._prep, set()
+
+    def slow_prep(*a):
+        threads.add(threading.current_thread().name)
+        time.sleep(SLOW_S)
+        return prep(*a)
+
+    asr._prep = slow_prep
+
+    async def overlapped():
+        stream = await srv._make_text_stream("/voicechat", body)
+        text = "".join([d async for d in stream])
+        srv.stream_model.pool.stop()
+        return text
+
+    text, lags = asyncio.run(_with_ticker(overlapped()))
+    assert threads and all(t.startswith("dispatch-cpu") for t in threads)
+    assert max(lags) < MAX_LAG_S, max(lags)
+    serial = _pooled_voice_server(weights, tiny_dir, False)
+
+    async def plain():
+        stream = await serial._make_text_stream("/voicechat", body)
+        out = "".join([d async for d in stream])
+        serial.stream_model.pool.stop()
+        return out
+
+    assert text == asyncio.run(plain()) and text.endswith(
+        SERVE_CFG.eos_token)

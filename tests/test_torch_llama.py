@@ -328,8 +328,7 @@ def test_unported_configurations_raise():
             tl.apply_llama(tp, ids, cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tl.prefill(tp, ids, tl.init_llama_decode_state(tcfg), cfg)
-    for name in ("decode_block_pooled", "prefill_slots",
-                 "decode_block_spec_pooled", "init_llama_pool_state"):
+    for name in ("decode_block_spec_pooled", "llama_loss"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(tl, name)
     with pytest.raises(AttributeError):

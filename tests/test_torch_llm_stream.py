@@ -298,9 +298,16 @@ def test_every_llm_launch_is_on_the_dispatch_thread(npz, monkeypatch):
 
 
 def test_what_is_not_ported_raises(npz, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(npz, llm_pool_capacity=4)
     params = tparams.load_params_npz(npz)
+    # the pooled LLM is ported; its speculative block (draft heads) is not
+    assert isinstance(_port(npz, llm_pool_capacity=4),
+                      llm.PooledLlamaStreamModel)
+    from llmvox_tpu_torch.serve.llm_pool import LLMPool
+    heads = np.zeros((2, CFG.n_embd, CFG.vocab_size), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LLMPool({**params, "draft_heads": heads},
+                tl.LlamaConfig(**{k: getattr(CFG, k) for k in MARGS}),
+                device="cpu")
     for kw in ({"n_experts": 2}, {"n_draft_heads": 2}):
         cfg = dataclasses.replace(tl.LlamaConfig(**{k: getattr(CFG, k)
                                                     for k in MARGS}), **kw)
