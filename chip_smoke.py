@@ -73,7 +73,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      JSON line is the bf16 spec pool rounds'.
  11. kernel K4 (the int4 weight matmul of ``--quantize w4``) against its
      plain version at every served M (1, 5, 16, 48, 80) and the deployed
-     decoder's four weight shapes, f32 and bf16, twice (bitwise equal);
+     decoder's four weight shapes, f32 and bf16, twice (bitwise equal; in
+     f32 each of the two held to the f64 product of the same bf16-rounded
+     operands within sqrt(Cin) * 2^-24 * sum |x||w|, printed per M);
      its bf16 times with the weight copies cycled past L2, beside the
      byte bound, the plain version, a dense bf16 ``torch.matmul`` and,
      where the installed torch has it, ``torch._weight_int4pack_mm``;
@@ -107,8 +109,8 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      w4`` for the LLM and the decoder: the w4 block's time, one served
      request and K4's launches on the LLM's path.  Phase 11 holds K4 at
      the Llama's four weight shapes (M 1, 8, 16, 128, 512, 2048: the B=1
-     stream, the pool's decode step and its burst prefill among them) and
-     times it at M 1, 8, 128 and 2048.
+     stream, the pool's decode step and its burst prefill among them, in
+     f32 and bf16) and times it at M 1, 8, 128 and 2048.
  15. ``/voicechat`` with the in-framework Whisper (``streams/asr.py``) at
      the geometry of openai/whisper-large-v3 (random seeded weights, a
      generation config that masks every id but the printable ones and
@@ -148,9 +150,45 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      captures while serving.  Then phase 14's w4 tree on a cut pool (KV
      1024, one bucket of 512): a burst of 8 and K4's launches on the
      pooled path (7 a layer per token step and per prefill program).
+ 17. the pooled speculative Llama (``decode_block_spec_pooled`` in
+     ``LLMPool``) at phase 14's geometry with 4 random draft heads (4 x
+     4096 x 128256), 8 slots, blocks of 32, a first block of 16, the
+     ladder (0, 2, 4).  2 layers at full width in f32: speculative blocks
+     at k 2 and 4 against the plain pooled blocks (equal, or held by
+     ``near_tie``), oracle drafts in ceil(32 / (k + 1)) iterations,
+     garbage drafts in 16, rows at the cache's last rows; the served
+     path, 8 rows through a graph-captured pool pinned at k 2, against
+     the plain pool (KV cut to 1024).  Phase 14's
+     bf16 tree with bf16 heads: the captures (a block at rung 0, a start
+     and an iteration at the others, per attention rung and width), the
+     calibrated costs, an iteration's and a plain step's device time per
+     rung at attn_len 128 and 8192 beside the byte bound, a burst of 8
+     ``/tts`` through the server with a 16-slot TTS pool on the adaptive
+     ladder (rung picks, first deltas, TTFA, LLM tokens/s, 0 captures
+     while serving) and again with every block pinned at rung 2 (the
+     speculative blocks and iterations issued), the peak memory.  It
+     runs after phase 15, on phase 14's tree, once phases 14-16's
+     streams and pools are freed.
+ 18. the mixture-of-experts Llama at mistralai/Mixtral-8x7B-Instruct-
+     v0.1's published geometry (8 experts top-2 of 14336, random seeded
+     weights, the head zeroed but for the printable ids, the byte
+     tokenizer; cuts: KV 1024 of 32768, pool prefill buckets 32..128, no
+     chunked prefill in the pool).  2
+     layers at full width in f32: the card's chain against the CPU's
+     plain path (``near_tie``), ``moe_ffn`` on the card against the CPU,
+     w4 experts through K4 against JAX's group einsum on the card.  32
+     layers under ``--quantize w4`` (drawn and quantized a layer at a
+     time: 93 GB in bf16): the B=1 block's and an 8-row pooled step's
+     device times beside the byte bound (every expert's packed bytes, as
+     drop-free routing reads them) and, for B=1, the routed bound (the
+     2 chosen experts' bytes a layer), one ``/tts`` on the B=1 stream
+     and a burst of 4 on an 8-slot pool, K4's launches (28 a layer per
+     token step and per prefill program), 0 captures while serving.
 Then a JSON line with phase 14's numbers, one with phase 16's, one with
-phase 15's, one with the kernels' numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+phase 15's, one with phase 17's, one with phase 18's, one with the
+kernels' numbers (each kernel's launches on every served path, the new
+phases' among them), the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -744,6 +782,23 @@ class _LoopLag:
         self._done.result(timeout=30)
         return {"median_ms": statistics.median(self.lags) * 1e3,
                 "max_ms": max(self.lags) * 1e3, "ticks": len(self.lags)}
+
+
+def _zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from llmvox_tpu_torch.ops import (cuda_attn, cuda_batched_attn,
+                                      cuda_int4_mm, cuda_verify_attn)
+    for mod in (cuda_attn, cuda_batched_attn, cuda_verify_attn,
+                cuda_int4_mm):
+        mod.LAUNCHES = 0
+
+
+def _read_launches() -> dict:
+    """Every kernel wrapper's launch count, as ``k1``..``k4``."""
+    from llmvox_tpu_torch.ops import (cuda_attn, cuda_batched_attn,
+                                      cuda_int4_mm, cuda_verify_attn)
+    return {"k1": cuda_attn.LAUNCHES, "k2": cuda_batched_attn.LAUNCHES,
+            "k3": cuda_verify_attn.LAUNCHES, "k4": cuda_int4_mm.LAUNCHES}
 
 
 def _lag_text(lag: dict) -> str:
@@ -1694,10 +1749,16 @@ K4_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "wfc": (768, 3072),
 # pool, and the spec pool's rungs k=2 and k=4 at B=16
 K4_M = (1, 5, 16, 48, 80)
 # K4 and its plain version form the same exact bf16 x bf16 products and
-# sum them in f32 in another order: f32 differs by sum-order noise, a bf16
-# output by one bf16 ulp (K1's limits, with f32 at 1e-5)
-K4_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-          torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
+# sum them in f32 in other orders.  A bf16 output: one bf16 ulp (K1's
+# limits).  An f32 output: ``k4_f32_check`` holds each of the two against
+# an f64 product of the same bf16-rounded operands, within
+# K4_F32_C * sqrt(Cin) * 2^-24 * sum_i |x_i| |w_i| per output: the
+# probabilistic bound on the rounding error of an f32 sum of Cin terms
+# (Higham and Mary, SIAM J. Sci. Comput. 41(5), 2019), which grows with
+# Cin as a fixed tolerance cannot (the fixed 1e-5 failed 20 of 8.4 M sums
+# of 14336 products, where an output near 0 comes of terms that are not)
+K4_TOL = {torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
+K4_F32_C = 1.0
 L2_BYTES = 50e6
 # the Llama-3.1-8B linears that ``--quantize w4`` runs through K4, (Cin,
 # Cout) in groups of 256 (wq and wo share a shape, as wk and wv do); M is
@@ -1705,13 +1766,46 @@ L2_BYTES = 50e6
 K4_LLAMA_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                    "wgate/wup": (4096, 14336), "wdown": (14336, 4096)}
 # M 8: a decode step of the 8-slot LLM pool; 2048: its burst prefill (4
-# arrivals of 512), which the pool serves in bf16 only: f32 is held at the
-# B=1 stream's and the pool's decode shapes (on an H100 at M 2048 and
-# 14336->4096, 20 of K4's 8.4 M f32 sums of 14336 products parted from
-# the plain version's order by up to 1.73e-5, past the 1e-5 of K4_TOL)
+# arrivals of 512), and an expert's rows in a 4 x 512 MoE prefill; f32 and
+# bf16 at every M
 K4_LLAMA_M = (1, 8, 16, 128, 512, 2048)
-K4_LLAMA_M_F32 = (1, 8, 16, 128, 512)
 K4_LLAMA_TIMED = (1, 8, 128, 2048)
+
+
+def k4_f32_check(x, q, s, got, what) -> dict:
+    """K4's f32 output ``got`` and the plain version's, each against the
+    f64 product of the same operands (x and every dequantized weight
+    ``nibble * s`` rounded to bf16, as both compute them), within
+    ``K4_F32_C * sqrt(Cin) * 2^-24 * sum |x||w|`` at every output.
+    Returns the largest errors, the bound's range, the largest
+    error-to-bound ratio and how many outputs the old fixed tolerance
+    (1e-5 absolute and relative, K4 against plain) would have failed."""
+    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    plain = cuda_int4_mm.plain_int4_matmul(x, q, s)
+    xb = x.to(torch.bfloat16).double()
+    wb = quant.dequantize(quant.Int4Tensor(q, s), torch.float32).to(
+        torch.bfloat16).double()
+    ref = xb @ wb
+    bound = K4_F32_C * (x.shape[-1] ** 0.5) * 2.0 ** -24 * (
+        xb.abs() @ wb.abs())
+    out = {"bound_min": bound.min().item(), "bound_max": bound.max().item()}
+    for name, y in (("k4", got), ("plain", plain)):
+        err = (y.double() - ref).abs()
+        ratio = (err / bound).max().item()
+        assert ratio <= 1.0, (what, name, ratio, err.max().item())
+        out[f"{name}_err"], out[f"{name}_ratio"] = err.max().item(), ratio
+    out["old_tol_fails"] = int(((got - plain).abs() > 1e-5 * (
+        1 + plain.abs())).sum().item())
+    out["max_abs_err"] = (got - plain).abs().max().item()
+    return out
+
+
+def _k4_f32_text(r: dict) -> str:
+    return (f"f64 check: max |K4 - f64| {r['k4_err']:.3g}, max |plain - f64| "
+            f"{r['plain_err']:.3g}, bound {r['bound_min']:.3g}.."
+            f"{r['bound_max']:.3g} (c={K4_F32_C}), worst err/bound "
+            f"{max(r['k4_ratio'], r['plain_ratio']):.3g}; old 1e-5 tolerance "
+            f"would fail {r['old_tol_fails']} output(s)")
 
 
 def k4_bound_ms(m: int, cin: int, cout: int, groups: int, dtype) -> tuple:
@@ -1758,19 +1852,7 @@ def phase_k4() -> dict:
         groups = w.s.shape[0]
         for dtype in (torch.float32, torch.bfloat16):
             q, s = w.q.to(dev), w.s.to(dev, dtype)
-            err = 0.0
-            for m in K4_M:
-                x = torch.randn(m, cin, generator=gen).to(dev, dtype)
-                got = cuda_int4_mm.int4_matmul(x, q, s)
-                again = cuda_int4_mm.int4_matmul(x, q, s)
-                ref = cuda_int4_mm.plain_int4_matmul(x, q, s)
-                torch.cuda.synchronize()
-                assert got.shape == (m, cout) and got.dtype == dtype
-                assert torch.equal(got, again), ("K4 not deterministic",
-                                                 name, dtype, m)
-                torch.testing.assert_close(got.float(), ref.float(),
-                                           **K4_TOL[dtype])
-                err = max(err, (got.float() - ref.float()).abs().max().item())
+            err = _k4_shape_check(q, s, K4_M, dtype, gen, name)
             max_err = max(max_err, err)
             log(f"[k4] {str(dtype):15s} {name:5s} {cin}->{cout} ({groups} "
                 f"groups) ok at M {K4_M}, bitwise repeatable, max |err| "
@@ -1784,28 +1866,45 @@ def phase_k4() -> dict:
             cin, cout, generator=dgen, device=dev))
         groups = w.s.shape[0]
         for dtype in (torch.float32, torch.bfloat16):
-            s = w.s.to(dtype)
-            err = 0.0
-            ms = K4_LLAMA_M if dtype == torch.bfloat16 else K4_LLAMA_M_F32
-            for m in ms:
-                x = torch.randn(m, cin, generator=dgen, device=dev).to(dtype)
-                got = cuda_int4_mm.int4_matmul(x, w.q, s)
-                again = cuda_int4_mm.int4_matmul(x, w.q, s)
-                ref = cuda_int4_mm.plain_int4_matmul(x, w.q, s)
-                torch.cuda.synchronize()
-                assert got.shape == (m, cout) and got.dtype == dtype
-                assert torch.equal(got, again), ("K4 not deterministic",
-                                                 name, dtype, m)
-                torch.testing.assert_close(got.float(), ref.float(),
-                                           **K4_TOL[dtype])
-                err = max(err, (got.float() - ref.float()).abs().max().item())
+            err = _k4_shape_check(w.q, w.s.to(dtype), K4_LLAMA_M, dtype,
+                                  dgen, f"Llama {name}")
             max_err = max(max_err, err)
             log(f"[k4] {str(dtype):15s} Llama {name:9s} {cin}->{cout} "
-                f"({groups} groups) ok at M {ms}, bitwise "
+                f"({groups} groups) ok at M {K4_LLAMA_M}, bitwise "
                 f"repeatable, max |err| {err:.3g}")
         for m in K4_LLAMA_TIMED:
             timings[(f"llama {name}", m)] = _time_k4(w, m, gen, quick=True)
     return {"max_abs_err": max_err, "timings": timings}
+
+
+def _k4_shape_check(q, s, ms, dtype, gen, name) -> float:
+    """K4 at one weight shape and each M of ``ms``: called twice (bitwise
+    equal), against its plain version (bf16: ``K4_TOL``; f32: both held to
+    the f64 product, ``k4_f32_check``, printed per M).  Returns the
+    largest |K4 - plain|."""
+    from llmvox_tpu_torch.ops import cuda_int4_mm
+    dev = q.device
+    cin, cout = 2 * q.shape[0], q.shape[1]
+    err = 0.0
+    for m in ms:
+        x = torch.randn(m, cin, generator=gen, device=gen.device).to(dev,
+                                                                     dtype)
+        got = cuda_int4_mm.int4_matmul(x, q, s)
+        again = cuda_int4_mm.int4_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert got.shape == (m, cout) and got.dtype == dtype
+        assert torch.equal(got, again), ("K4 not deterministic", name,
+                                         dtype, m)
+        if dtype == torch.float32:
+            r = k4_f32_check(x, q, s, got, (name, m))
+            log(f"[k4] f32 {name} {cin}->{cout} M={m}: {_k4_f32_text(r)}")
+            err = max(err, r["max_abs_err"])
+        else:
+            ref = cuda_int4_mm.plain_int4_matmul(x, q, s)
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **K4_TOL[dtype])
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+    return err
 
 
 def _time_k4(w, m, gen, quick: bool = False) -> dict:
@@ -2361,21 +2460,34 @@ def speakable_head(params) -> None:
     head.mul_(keep)
 
 
-def llm_token_bound_ms(params, cfg, rows: int, es: int) -> tuple:
+def _llm_weights(params) -> int:
+    """The logical weights of a Llama tree's layer matmuls (a quantized
+    container's shape is logical; the experts' stacks count whole)."""
+    return sum(int(np.prod(x.shape)) for k, x in params["h"].items()
+               if k.startswith(("w", "moe_w", "router")))
+
+
+def llm_token_bound_ms(params, cfg, rows: int, es: int,
+                       expert_share: float = 1.0) -> tuple:
     """Least time for one decode token: every stored weight but the
-    embedding read once (one embedding row), K and V rows 0..pos of every
-    layer (``rows`` of them, ``es`` bytes each), over HBM's rate; or two
-    flops a weight and 4 * rows * C a layer of attention over the bf16
-    peak; whichever is longer."""
+    embedding read once (one embedding row; of an MoE's expert stacks
+    ``expert_share``, top_k / E when only the chosen experts are read),
+    K and V rows 0..pos of every layer (``rows`` of them, ``es`` bytes
+    each), over HBM's rate; or two flops a weight and 4 * rows * C a
+    layer of attention over the bf16 peak; whichever is longer."""
     from llmvox_tpu_torch.ops import quant
     emb = params["tok_emb"]
     c = cfg.n_embd
+    experts = {k: v for k, v in params["h"].items()
+               if k.startswith("moe_w")}
+    skipped = 1.0 - expert_share
     nbytes = (quant.quantized_bytes(params) - emb.numel() * emb.element_size()
+              - skipped * quant.quantized_bytes(experts)
               + c * emb.element_size()
               + 2 * cfg.n_layer * rows * cfg.n_kv_head * cfg.head_dim * es)
     # logical weight counts (a quantized container's shape is logical)
-    n_weights = sum(int(np.prod(x.shape)) for k, x in params["h"].items()
-                    if k.startswith("w"))
+    n_weights = _llm_weights(params) - skipped * sum(
+        int(np.prod(x.shape)) for x in experts.values())
     flops = 2 * (n_weights + c * cfg.vocab_size) + \
         4 * cfg.n_layer * rows * c
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2434,8 +2546,9 @@ def _serve_llm(model, engines, weights, n: int, what: str, card: str,
                device) -> dict:
     """``n`` sequential ``POST /tts`` answered by ``model`` through
     ``build_server`` on ``engines``; per request the first text delta,
-    TTFA, RTF, the LLM's tokens/s and the loop's lag."""
-    from llmvox_tpu_torch.ops import cuda_attn
+    TTFA, RTF, the LLM's tokens/s and the loop's lag; every kernel's
+    launches over the requests (K1 n_layer a TTS step, K2 and K3 none:
+    the replicas neither batch nor speculate)."""
     from llmvox_tpu_torch.serve.client import post_chunks
     from llmvox_tpu_torch.serve.server import build_server
     _, _, _, dcfg, ccfg, scfg = weights
@@ -2450,7 +2563,7 @@ def _serve_llm(model, engines, weights, n: int, what: str, card: str,
     try:
         with _Server(build_server(cfg, engines, stream_model=model),
                      port) as server:
-            cuda_attn.LAUNCHES = 0
+            _zero_launches()
             steps0 = sum(e.decode_steps for e in engines)
             for r in range(n):
                 tok0, blk0 = model.tokens, model.block_s
@@ -2481,13 +2594,15 @@ def _serve_llm(model, engines, weights, n: int, what: str, card: str,
                     f"{row['llm_tok_s']:.1f} tokens/s while the TTS shares "
                     f"the card (host clock, waits for its blocks); "
                     f"{_lag_text(lag)} ({card})")
-            k1 = cuda_attn.LAUNCHES
+            counts = _read_launches()
             steps = sum(e.decode_steps for e in engines) - steps0
     finally:
         del model.predict
     assert captures() == n_cap, "a CUDA graph was captured while serving"
-    assert k1 == dcfg.n_layer * steps > 0, (k1, steps)
-    return {"requests": rows, "tts_steps": steps}
+    assert counts["k1"] == dcfg.n_layer * steps > 0, (counts, steps)
+    assert counts["k2"] == counts["k3"] == 0, counts
+    return {"requests": rows, "tts_steps": steps,
+            **{f"{k}_launches": v for k, v in counts.items()}}
 
 
 def phase_llm(engines, weights, card: str, device="cuda",
@@ -2509,7 +2624,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
     Returns the numbers, the bf16 stream (warmed: phase 15 serves
     ``/voicechat`` with it) and the w4 tree (phase 16 pools it)."""
     from llmvox_tpu_torch.models import llama
-    from llmvox_tpu_torch.ops import cuda_int4_mm, quant
+    from llmvox_tpu_torch.ops import quant
     from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
     from llmvox_tpu_torch.utils import graphs
     from llmvox_tpu_torch.utils import params as P
@@ -2607,6 +2722,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
     # (3) /tts answered by the LLM on the dedicated replicas
     out["served"] = _serve_llm(model, engines, weights, 3, "bf16", card,
                                device)
+    assert out["served"]["k4_launches"] == 0, out["served"]
 
     # (4) --quantize w4: the LLM and the decoder (the bf16 stream stays
     # for phase 15's /voicechat, with its captures)
@@ -2630,7 +2746,6 @@ def phase_llm(engines, weights, card: str, device="cuda",
     qw = _quantized(weights, "w4")
     engines4 = [make_engine(qw, device, torch.bfloat16, warm=True)
                 for _ in range(2)]
-    cuda_int4_mm.LAUNCHES = 0
     tokens0 = qmodel.tokens
     steps0 = sum(e.decode_steps for e in engines4)
     out["w4_served"] = _serve_llm(qmodel, engines4, qw, 1, "w4", card,
@@ -2639,8 +2754,8 @@ def phase_llm(engines, weights, card: str, device="cuda",
     tts_k4 = 4 * qw[3].n_layer * (sum(e.decode_steps for e in engines4)
                                   - steps0)
     if on_card:
-        assert cuda_int4_mm.LAUNCHES == llm_k4 + tts_k4, (
-            cuda_int4_mm.LAUNCHES, llm_k4, tts_k4)
+        assert out["w4_served"]["k4_launches"] == llm_k4 + tts_k4, (
+            out["w4_served"]["k4_launches"], llm_k4, tts_k4)
     out["k4_llm_launches"] = llm_k4
     log(f"[llm] w4 served request: K4 launches {llm_k4 + tts_k4} = LLM "
         f"{llm_k4} (7 x {cfg.n_layer} layers x ({qmodel.tokens - tokens0} "
@@ -2763,8 +2878,7 @@ def llm_pool_step_bound_ms(params, cfg, b: int, rows: int, es: int
               + b * c * emb.element_size()
               + 2 * cfg.n_layer * b * rows * cfg.n_kv_head * cfg.head_dim
               * es)
-    n_weights = sum(int(np.prod(x.shape)) for k, x in params["h"].items()
-                    if k.startswith("w"))
+    n_weights = _llm_weights(params)
     flops = b * (2 * (n_weights + c * cfg.vocab_size)
                  + 4 * cfg.n_layer * rows * c)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2774,16 +2888,16 @@ def llm_pool_step_bound_ms(params, cfg, b: int, rows: int, es: int
 
 
 def make_llm_pool(params, cfg, tok, system: str, device, dtype,
-                  buckets=LLM_POOL_BUCKETS, graphs=None):
+                  buckets=LLM_POOL_BUCKETS, graphs=None, **kw):
     """The pooled LLM stream as ``build_llama_stream`` makes it for
     ``--llm_pool_capacity 8 --llm_block 32 --llm_first_block 16``, the
     system prompt's prefix cached, greedy, replies capped at
-    ``LLM_TOKENS``; not warmed."""
+    ``LLM_TOKENS``, ``kw`` to the pool (``spec_ladder``); not warmed."""
     from llmvox_tpu_torch.serve.llm_pool import LLMPool
     from llmvox_tpu_torch.streams.llm import PooledLlamaStreamModel
     pool = LLMPool(params, cfg, capacity=LLM_POOL_CAP, block=LLM_BLOCK,
                    first_block=LLM_FIRST_BLOCK, dtype=dtype, device=device,
-                   prefill_buckets=buckets, graphs=graphs)
+                   prefill_buckets=buckets, graphs=graphs, **kw)
     model = PooledLlamaStreamModel(pool, tok, max_tokens=LLM_TOKENS)
     model.enable_prefix_cache(system)
     return model
@@ -2808,6 +2922,41 @@ def _pool_rows(pool, prompts, delays, budgets) -> list:
     return asyncio.run(go())
 
 
+def _hold_rows(params, cfg, prompts, got, want, budgets, what) -> tuple:
+    """Each row of ``got`` (the tokens generated after its prompt) holds
+    its first ``budgets[r]`` tokens, each the argmax of the f32 logits of
+    the row's chain teacher-forced through ``apply_llama`` on the card or
+    a near tie of it (``near_tie``); where the row parts from ``want[r]``,
+    the first differing step is such a tie between the two.  Returns the
+    rows that parted and the ties (row, step, gap)."""
+    from llmvox_tpu_torch.models import llama
+    dev = params["tok_emb"].device
+    parted, ties = 0, []
+    for r, (ids, row, ref) in enumerate(zip(prompts, got, want)):
+        n = budgets[r]
+        row, ref = row[:n], ref[:n]
+        assert len(row) == n, (what, r, len(row))
+        seq = torch.tensor([ids + row[:-1]], device=dev)
+        with torch.no_grad():
+            forced = llama.apply_llama(params, seq, cfg)[0, len(ids) - 1:]
+        forced = forced.float().cpu()
+        for d, logits in enumerate(forced):
+            top = int(logits.argmax())
+            if top != row[d]:
+                ties.append((r, d, near_tie(logits, top, row[d],
+                                            (what, r, d, row))))
+        if row != ref:
+            d = next(i for i, (a, b) in enumerate(zip(row, ref)) if a != b)
+            top = int(forced[d].argmax())
+            assert top in (row[d], ref[d]), (what, r, d, top, row[d],
+                                             ref[d])
+            other = ref[d] if top == row[d] else row[d]
+            ties.append((r, d, near_tie(forced[d], top, other,
+                                        (what, r, d))))
+            parted += 1
+    return parted, ties
+
+
 def _pool_f32_check(cfg, scfg, device, card, graphs=None) -> dict:
     """2 layers at full width in f32: ten rows through a graph-captured
     8-slot pool (mixed lengths, staggered arrivals, two rows that reuse
@@ -2819,7 +2968,6 @@ def _pool_f32_check(cfg, scfg, device, card, graphs=None) -> dict:
     near tie of it (``near_tie``).  Then the overlapped prompt: for three
     texts, ``predict_streaming`` of cumulative transcripts gives
     ``predict``'s text exactly."""
-    from llmvox_tpu_torch.models import llama
     from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
     from llmvox_tpu_torch.utils import params as P
     tok = ByteTokenizer()
@@ -2850,28 +2998,8 @@ def _pool_f32_check(cfg, scfg, device, card, graphs=None) -> dict:
     calls0 = pool.prefill_calls
     got = _pool_rows(pool, prompts, delays, budgets)
     assert captures() == n_cap + n_graphs, "captured while serving"
-    parted, ties = 0, []
-    for r, (ids, row, ref) in enumerate(zip(prompts, got, want)):
-        n = budgets[r]
-        row, ref = row[:n], ref[:n]
-        assert len(row) == n, (r, len(row))
-        seq = torch.tensor([ids + row[:-1]], device=device)
-        with torch.no_grad():
-            forced = llama.apply_llama(p32, seq, cfg2)[0, len(ids) - 1:]
-        forced = forced.float().cpu()
-        for d, logits in enumerate(forced):
-            top = int(logits.argmax())
-            if top != row[d]:
-                ties.append((r, d, near_tie(logits, top, row[d],
-                                            ("pool f32", r, d, row))))
-        if row != ref:
-            d = next(i for i, (a, b) in enumerate(zip(row, ref)) if a != b)
-            top = int(forced[d].argmax())
-            assert top in (row[d], ref[d]), (r, d, top, row[d], ref[d])
-            other = ref[d] if top == row[d] else row[d]
-            ties.append((r, d, near_tie(forced[d], top, other,
-                                        ("pool vs B=1", r, d))))
-            parted += 1
+    parted, ties = _hold_rows(p32, cfg2, prompts, got, want, budgets,
+                              "pool vs B=1")
     log(f"[llm-pool] 2 layers at full width, f32, {LLM_POOL_CAP} slots "
         f"({n_graphs} CUDA graphs): 10 rows (prompts of "
         f"{min(map(len, prompts))}..{max(map(len, prompts))} ids, the "
@@ -2997,9 +3125,10 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
     """``texts`` as concurrent ``POST /tts`` through ``build_server`` with
     the pooled LLM ``model`` and the TTS pool; per request the first text
     delta and TTFA; the LLM's tokens/s over the round; the loop's
-    largest lag."""
+    largest lag; every kernel's launches over the round (K2 n_layer a TTS
+    pool step; K1 and K3 none: no replica, and the Llama's verify forward
+    is plain torch; K4 the caller's to check)."""
     from concurrent.futures import ThreadPoolExecutor
-    from llmvox_tpu_torch.ops import cuda_batched_attn, cuda_verify_attn
     from llmvox_tpu_torch.serve.client import post_chunks
     from llmvox_tpu_torch.serve.server import build_server
     _, _, _, dcfg, ccfg, scfg = weights
@@ -3017,7 +3146,7 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
             st0 = dict(pool.stats(), tok=pool.decode_tokens,
                        disp=pool.dispatch_s)
             tts0 = tts_pool.decode_steps
-            cuda_batched_attn.LAUNCHES = cuda_verify_attn.LAUNCHES = 0
+            _zero_launches()
             lag = _LoopLag(server.loop)
 
             def one(text):
@@ -3038,14 +3167,15 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
             st = pool.stats()
         # read once the server has stopped the TTS pool, which waits for
         # its last launch (a step issued ahead may still be launching)
-        k2, k3 = cuda_batched_attn.LAUNCHES, cuda_verify_attn.LAUNCHES
+        counts = _read_launches()
         tts_steps = tts_pool.decode_steps - tts0
         served = captures() - n_cap
     finally:
         del model.predict
     assert served == 0, "a CUDA graph was captured while serving"
-    assert k2 == dcfg.n_layer * tts_steps > 0 and k3 == 0, (k2, k3,
-                                                           tts_steps)
+    k2 = counts["k2"]
+    assert k2 == dcfg.n_layer * tts_steps > 0, (counts, tts_steps)
+    assert counts["k1"] == counts["k3"] == 0, counts
     by_prompt = {r["prompt"]: r for r in stamps["predict"]}
     rows = [by_prompt[t] for t in texts]
     llm_s = max(r["end"] for r in rows)
@@ -3059,8 +3189,8 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
            "host_ms_per_step": (pool.dispatch_s - st0["disp"]) * 1e3
            / max(steps, 1),
            "lag_max_ms": lag["max_ms"], "wall_s": wall,
-           "captures_while_serving": served, "k2_launches": k2,
-           "tts_steps": tts_steps}
+           "captures_while_serving": served, "tts_steps": tts_steps,
+           **{f"{k}_launches": v for k, v in counts.items()}}
     for i, r in enumerate(out["requests"]):
         log(f"[llm-pool] {what} request {i} ({len(texts[i])} characters): "
             f"first text delta {r['first_delta_ms']:.1f} ms, first audio "
@@ -3072,8 +3202,9 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
         f"(host clock, the TTS pool sharing the card), "
         f"{out['host_ms_per_step']:.2f} ms of host issuing a pool "
         f"iteration on the dispatch thread; {_lag_text(lag)}; 0 captures "
-        f"while serving; the TTS pool's K2 launches {k2} = "
-        f"{dcfg.n_layer} layers x {tts_steps} token steps, K3 0 ({card})")
+        f"while serving; launches K1 {counts['k1']}, K2 {k2} (the TTS pool: "
+        f"{dcfg.n_layer} layers x {tts_steps} token steps), K3 "
+        f"{counts['k3']}, K4 {counts['k4']} ({card})")
     return out
 
 
@@ -3094,7 +3225,6 @@ def phase_llm_pool(engines, weights, card: str, llm_model, qtree,
     card).  Returns the numbers and the warmed bf16 pooled stream (phase
     15 serves ``/voicechat`` through it)."""
     from llmvox_tpu_torch.models import llama
-    from llmvox_tpu_torch.ops import cuda_int4_mm
     from llmvox_tpu_torch.serve.pool import DecodePool
     from llmvox_tpu_torch.streams.llm import ByteTokenizer
     from llmvox_tpu_torch.utils import graphs
@@ -3137,6 +3267,7 @@ def phase_llm_pool(engines, weights, card: str, llm_model, qtree,
                              card)
     out["burst"] = _serve_pool(model, tts_pool, weights, burst,
                                "bf16 8-way burst", card)
+    assert out["one"]["k4_launches"] == out["burst"]["k4_launches"] == 0
     out["prefill_calls"] = pool.prefill_calls
     log(f"[llm-pool] bf16 stats {json.dumps(pool.stats())}")
 
@@ -3154,18 +3285,18 @@ def phase_llm_pool(engines, weights, card: str, llm_model, qtree,
     out["w4_capture_s"] = graphs.CAPTURE_S - s0
     log(f"[llm-pool] w4 pool: {out['w4_captures']} CUDA graphs in "
         f"{out['w4_capture_s']:.2f} s")
-    cuda_int4_mm.LAUNCHES = 0
     steps0, calls0 = wpool.decode_steps, wpool.prefill_calls
     out["w4_burst"] = _serve_pool(wmodel, tts_pool, weights, burst,
                                   "w4 8-way burst", card)
-    k4 = cuda_int4_mm.LAUNCHES
+    k4 = out["w4_burst"]["k4_launches"]
     want = 7 * cfg.n_layer * (wpool.decode_steps - steps0
                               + wpool.prefill_calls - calls0)
     if on_card:
         assert k4 == want > 0, (k4, want)
-    out["k4_llm_pool_launches"] = want
-    out["k2_llm_pool_launches"] = sum(out[r]["k2_launches"] for r in
-                                      ("one", "burst", "w4_burst"))
+    out["k4_llm_pool_launches"] = k4
+    for k in ("k2", "k3"):
+        out[f"{k}_llm_pool_launches"] = sum(
+            out[r][f"{k}_launches"] for r in ("one", "burst", "w4_burst"))
     log(f"[llm-pool] w4 burst: K4 launches {want} = 7 x {cfg.n_layer} "
         f"layers x ({wpool.decode_steps - steps0} pooled token steps + "
         f"{wpool.prefill_calls - calls0} prefill programs); the head stays "
@@ -3181,6 +3312,699 @@ def phase_llm_pool(engines, weights, card: str, llm_model, qtree,
         + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card
            else "") + f" ({card})")
     return out, model
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the pooled speculative Llama
+# ---------------------------------------------------------------------------
+
+LLM_SPEC_HEADS = 4              # random draft heads (4 x 4096 x 128256)
+LLM_SPEC_LADDER = (0, 2, 4)
+SPEC_POOL_K = 2                 # the rung a served burst is pinned to
+SPEC_POOL_KV = 1024             # the f32 served check's cut KV
+
+
+def llm_spec_iter_bound_ms(params, cfg, b: int, k: int, rows: int,
+                           es: int) -> tuple:
+    """Least time for one speculative iteration of ``b`` rows at ``k``
+    drafts, each row's K and V ``rows`` deep: a step's bytes (every
+    stored weight but the embedding and the heads, the KV rows), a
+    verify forward's (the weights again, the KV rows and k more), and
+    the k draft heads read once, over HBM's rate; or the b (1 + k)
+    positions' two flops a weight (heads included) over the bf16 peak;
+    whichever is longer."""
+    from llmvox_tpu_torch.ops import quant
+    heads = params["draft_heads"]
+    base = {key: v for key, v in params.items() if key != "draft_heads"}
+    emb = params["tok_emb"]
+    c = cfg.n_embd
+    weights = (quant.quantized_bytes(base)
+               - emb.numel() * emb.element_size())
+    kv_row = 2 * cfg.n_layer * cfg.n_kv_head * cfg.head_dim * es
+    nbytes = (2 * weights + k * heads[0].numel() * heads.element_size()
+              + b * (1 + k) * c * emb.element_size()
+              + b * (2 * rows + k) * kv_row)
+    flops = (b * (1 + k) * 2 * (_llm_weights(base) + c * cfg.vocab_size)
+             + b * k * 2 * c * cfg.vocab_size
+             + b * (1 + k) * 4 * cfg.n_layer * rows * c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _hold_chain(params, cfg, ids, chain, what) -> list:
+    """Each token of ``chain`` (generated after ``ids``) is the argmax of
+    the logits teacher-forced through ``apply_llama`` on the card, or a
+    near tie of it (``near_tie``); returns the ties (step, gap)."""
+    from llmvox_tpu_torch.models import llama
+    dev = params["tok_emb"].device
+    seq = torch.tensor([list(ids) + list(chain[:-1])], device=dev)
+    with torch.no_grad():
+        forced = llama.apply_llama(params, seq, cfg)[0, len(ids) - 1:]
+    forced = forced.float().cpu()
+    ties = []
+    for d, logits in enumerate(forced):
+        top = int(logits.argmax())
+        if top != chain[d]:
+            ties.append((d, near_tie(logits, top, chain[d], (what, d))))
+    return ties
+
+
+def _spec_f32_check(cfg, scfg, device, card) -> dict:
+    """2 layers at full width in f32 with 4 random draft heads: 8 rows
+    (prompts of 129..618 ids) prefilled into a pool state; two plain
+    pooled blocks of 32 against two speculative blocks at each rung of
+    the ladder (equal tokens, or held by ``near_tie`` against the chain
+    teacher-forced on the card); oracle drafts (the plain blocks' tokens)
+    take ceil(32 / (k + 1)) iterations and garbage drafts 16; two rows at
+    the cache's last rows (pos + block + k + 1 = KV) equal the plain
+    block's."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer
+    from llmvox_tpu_torch.utils import params as P
+    tok = ByteTokenizer()
+    cfg2 = dataclasses.replace(cfg, n_layer=2, n_draft_heads=LLM_SPEC_HEADS)
+    p32 = P.init_llama_params(13, cfg2, device=device)
+    speakable_head(p32)
+    texts = [_burst_text(n, r) for r, n in
+             enumerate((9, 40, 70, 120, 200, 300, 450, 500))]
+    prompts = [_llm_prompt(tok, t, scfg.system_prompt) for t in texts]
+    b, block, s_cap = len(prompts), LLM_BLOCK, cfg2.max_seq_len
+    tpad = max(map(len, prompts))
+    tokens = torch.zeros((b, tpad), dtype=torch.int32)
+    for i, ids in enumerate(prompts):
+        tokens[i, :len(ids)] = torch.tensor(ids)
+    valid = torch.tensor([len(ids) for ids in prompts], dtype=torch.int32)
+    active = torch.ones(b, dtype=torch.bool, device=device)
+    attn = 1024
+    assert tpad + 2 * block + max(LLM_SPEC_LADDER) + 1 <= attn
+
+    def fresh():
+        st = llama.init_llama_pool_state(cfg2, b, device=device)
+        first, st = llama.prefill_slots(
+            p32, tokens.to(device), valid.to(device), st,
+            torch.arange(b, dtype=torch.int32, device=device), active, cfg2)
+        return first, st
+
+    first, st = fresh()
+    plain = []
+    for _ in range(2):
+        toks, st = llama.decode_block_pooled(p32, st, active, cfg2,
+                                             block=block, attn_len=attn)
+        plain.append(toks)
+    plain = torch.cat(plain, dim=1).cpu()
+    out = {"rungs": {}}
+    ties = []
+    for k in [r for r in LLM_SPEC_LADDER if r > 0]:
+        _, st = fresh()
+        got, iters = [], []
+        for _ in range(2):
+            toks, st, it = llama.decode_block_spec_pooled(
+                p32, st, active, cfg2, block=block, k_draft=k,
+                attn_len=attn)
+            got.append(toks)
+            iters.append(it)
+        got = torch.cat(got, dim=1).cpu()
+        rows_equal = int((got == plain).all(dim=1).sum())
+        for r in range(b):
+            if not torch.equal(got[r], plain[r]):
+                chain = [int(first[r])] + got[r].tolist()
+                ties += [(k, r, d, g) for d, g in _hold_chain(
+                    p32, cfg2, prompts[r], chain, ("spec f32", k, r))]
+        # oracle drafts (the plain chain) and garbage drafts (never it)
+        _, st = fresh()
+        _, _, it_o = llama.decode_block_spec_pooled(
+            p32, st, active, cfg2, block=block, k_draft=k, attn_len=attn,
+            draft_tokens=plain[:, :block].to(device))
+        _, st = fresh()
+        _, _, it_g = llama.decode_block_spec_pooled(
+            p32, st, active, cfg2, block=block, k_draft=k, attn_len=attn,
+            draft_tokens=((plain[:, :block] + 1) % 95 + 34).to(device))
+        it_o, it_g = it_o.cpu().tolist(), it_g.cpu().tolist()
+        same = (got[:, :block] == plain[:, :block]).all(dim=1).tolist()
+        want_o = -(-block // (k + 1))
+        assert all(i == want_o for i, eq in zip(it_o, same) if eq), (
+            k, it_o, same)
+        assert it_g == [(block + 1) // 2] * b, (k, it_g)
+        # the cache's last rows: rows 0 and 1 at pos S - block - k - 1
+        _, st = fresh()
+        st.pos[:2] = s_cap - block - k - 1
+        st2 = st._replace(k=st.k.clone(), v=st.v.clone())
+        edge_p, _ = llama.decode_block_pooled(p32, st, active, cfg2,
+                                              block=block)
+        edge_s, st2, _ = llama.decode_block_spec_pooled(
+            p32, st2, active, cfg2, block=block, k_draft=k)
+        assert torch.equal(edge_p, edge_s), (k, edge_p[:2], edge_s[:2])
+        assert int(st2.pos[0]) == s_cap - k - 1
+        del st, st2
+        out["rungs"][k] = {"rows_equal": rows_equal,
+                           "iters": torch.stack(iters).sum(0).tolist(),
+                           "oracle_iters": it_o, "garbage_iters": it_g}
+        log(f"[llm-spec] f32, 2 layers at full width, k={k}: {rows_equal} "
+            f"of {b} rows' 64 tokens equal the plain pooled blocks' "
+            f"(iterations per row {out['rungs'][k]['iters']}); oracle "
+            f"drafts {it_o} iterations (ceil(32/{k + 1}) = {want_o}), "
+            f"garbage drafts {it_g}; rows 0-1 at pos {s_cap - block - k - 1}"
+            f" (the cache's last {block + k + 1} rows): equal to the plain "
+            f"block ({card})")
+    if ties:
+        log(f"[llm-spec] f32 rows parted from the plain blocks only at near "
+            f"ties (k, row, step, gap in % of the logits' std): {ties}")
+    out["ties"] = len(ties)
+    out["served"] = _spec_pool_f32_check(p32, cfg2, prompts,
+                                         scfg.system_prompt, device, card)
+    del p32
+    return out
+
+
+def _count_spec_blocks(pool) -> list:
+    """Wrap ``pool._spec_block`` so that each speculative block it issues
+    appends its iterations to the list returned."""
+    blocks = []
+    issue = pool._spec_block
+
+    def counted(*args):
+        bufs, n = issue(*args)
+        blocks.append(n)
+        return bufs, n
+    pool._spec_block = counted
+    return blocks
+
+
+def _spec_pool_f32_check(p32, cfg2, prompts, system, device, card) -> dict:
+    """The served speculative path at 2 layers, full width, f32: the
+    prompts (arrivals 10 ms apart, 64 tokens each) through a graph-captured
+    8-slot pool pinned at ``spec_k`` 2 (each block its start graph, then
+    iteration graphs over the shared buffers of its width, issued by
+    ``run_spec_loop`` on the dispatch thread with ``pipeline_depth`` 2),
+    and through the plain pool on the same params; the speculative rows
+    held to the plain rows (``_hold_rows``).  KV cut to 1024: the prompts
+    and replies fit."""
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer
+    tok = ByteTokenizer()
+    kcfg = dataclasses.replace(cfg2, max_seq_len=SPEC_POOL_KV)
+    plain = {key: v for key, v in p32.items() if key != "draft_heads"}
+    delays = [0.01 * r for r in range(len(prompts))]
+    budgets = [LLM_TOKENS] * len(prompts)
+    rows, n_graphs = {}, {}
+    for name, params, kw in (("plain", plain, {}),
+                             ("spec", p32, {"spec_k": SPEC_POOL_K})):
+        model = make_llm_pool(params, kcfg, tok, system, device,
+                              torch.float32, **kw)
+        pool = model.pool
+        n_cap = captures()
+        model.warmup()
+        n_graphs[name] = captures() - n_cap
+        if name == "spec":
+            assert pool.use_spec and pool._spec_rungs == (SPEC_POOL_K,)
+            blocks = _count_spec_blocks(pool)
+        steps0 = pool.steps
+        rows[name] = _pool_rows(pool, prompts, delays, budgets)
+        assert captures() == n_cap + n_graphs[name], "captured while serving"
+        if name == "spec":
+            assert len(blocks) == pool.steps - steps0 > 0, (
+                len(blocks), pool.steps - steps0)
+        del model, pool
+    parted, ties = _hold_rows(p32, kcfg, prompts, rows["spec"],
+                              rows["plain"], budgets, "spec pool vs plain")
+    log(f"[llm-spec] f32 served, 2 layers at full width, KV "
+        f"{SPEC_POOL_KV}: {len(prompts)} rows through the pool pinned at "
+        f"k={SPEC_POOL_K} ({n_graphs['spec']} CUDA graphs; {len(blocks)} "
+        f"speculative blocks, {sum(blocks)} iterations issued) against the "
+        f"plain pool ({n_graphs['plain']} graphs): "
+        + ("every row's 64 tokens equal" if not parted else
+           f"{len(prompts) - parted} rows equal, {parted} parted")
+        + (f"; near ties (row, step, gap in % of the logits' std): {ties}"
+           if ties else "; every token the teacher-forced argmax")
+        + f"; 0 captures while serving ({card})")
+    return {"rows_equal": len(prompts) - parted, "ties": len(ties),
+            "blocks": len(blocks), "iterations": sum(blocks),
+            "graphs": n_graphs}
+
+
+def _spec_times(model, card: str) -> dict:
+    """Device times of the bf16 spec pool's graphs (CUDA events, median of
+    3 replays), all 8 rows active at pos attn - 32 - 5: the plain step
+    (a block of 32 over its width) and one speculative iteration per
+    rung, at attn_len 128 and 8192, beside their byte bounds."""
+    from llmvox_tpu_torch.utils.graphs import fill
+    pool = model.pool
+    es = pool.state.k.element_size()
+    base = {key: v for key, v in pool.params.items() if key != "draft_heads"}
+
+    def replay_ms(g, reset):
+        times = []
+        for _ in range(3):
+            reset()
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            g.graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(begin.elapsed_time(end))
+        return statistics.median(times)
+
+    out = {}
+    for attn in (128, 8192):
+        pos = attn - LLM_BLOCK - pool._spec_margin
+        fill(pool._in, np.ones(pool.B, np.int32))
+        step = replay_ms(pool._graphs.get(("block", attn, LLM_BLOCK)),
+                         lambda: pool.state.pos.fill_(pos)) / LLM_BLOCK
+        sb, sby = llm_pool_step_bound_ms(base, pool.cfg, pool.B,
+                                         pos + LLM_BLOCK // 2, es)
+        row = {"step_ms": step, "step_bound_ms": sb, "iter": {}}
+        for k in pool._spec_rungs:
+            if k == 0:
+                continue
+            start = pool._graphs.get(("spec_start", LLM_BLOCK, k))
+
+            def reset(start=start):
+                pool.state.pos.fill_(pos)
+                start.graph.replay()
+            ms = replay_ms(pool._graphs.get(("spec_iter", attn, LLM_BLOCK,
+                                             k)), reset)
+            bound, by = llm_spec_iter_bound_ms(pool.params, pool.cfg,
+                                               pool.B, k, pos, es)
+            row["iter"][k] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+            log(f"[llm-spec] bf16 iteration at k={k}, attn_len {attn}, "
+                f"{pool.B} rows: {ms:.3f} ms (device time), bound "
+                f"{bound:.3f} ms ({by}, {bound / ms * 100:.0f}% of it); the "
+                f"plain step {step:.3f} ms, bound {sb:.3f} ms ({card})")
+        out[attn] = row
+    pool.state.pos.zero_()
+    pool.state.tok.zero_()
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_llm_spec(engines, weights, card: str, params, device="cuda",
+                   cfg=None, graphs=None) -> dict:
+    """The pooled speculative Llama (``models/llama.py::
+    decode_block_spec_pooled`` in ``LLMPool``) at phase 14's
+    Llama-3.1-8B geometry with 4 random draft heads, 8 slots, blocks of
+    32, a first block of 16, the ladder (0, 2, 4).  (1) 2 layers at full
+    width in f32 (``_spec_f32_check``).  (2) Phase 14's bf16 tree
+    (``params``) with 4 random bf16 heads (4.2 GB): the captures (per
+    attention rung and width a block at rung 0, a start and an iteration
+    at each other rung), the calibrated costs, the iterations' and a
+    plain step's device times (``_spec_times``), a burst of 8 ``/tts``
+    through the server with a 16-slot bf16 TTS pool on the adaptive
+    ladder (its rung picks, first deltas, TTFA, LLM tokens/s, 0 captures
+    while serving), the same burst with every block pinned at rung 2
+    (random heads park the ladder on rung 0), every kernel's launches
+    over both bursts, the peak memory."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer
+    from llmvox_tpu_torch.utils import graphs
+    dec_p, _, table, dcfg, _, scfg = weights
+    cfg = cfg or llama.LlamaConfig(**LLAMA_8B)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"card": card, "f32": _spec_f32_check(cfg, scfg, device, card)}
+
+    hcfg = dataclasses.replace(cfg, n_draft_heads=LLM_SPEC_HEADS)
+    dtype = params["tok_emb"].dtype
+    gen = torch.Generator(device=device).manual_seed(14)
+    heads = torch.randn((LLM_SPEC_HEADS, cfg.n_embd, cfg.vocab_size),
+                        generator=gen, device=device, dtype=dtype).mul_(0.02)
+    model = make_llm_pool({**params, "draft_heads": heads}, hcfg,
+                          ByteTokenizer(), scfg.system_prompt, device,
+                          torch.bfloat16, graphs=graphs,
+                          spec_ladder=LLM_SPEC_LADDER)
+    del heads
+    pool = model.pool
+    n_cap, s0 = captures(), graphs.CAPTURE_S
+    t0 = time.perf_counter()
+    model.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["captures"] = captures() - n_cap
+    out["capture_s"] = graphs.CAPTURE_S - s0
+    keys = pool.warmup_keys()
+    assert out["captures"] == (len(keys) if pool._graphs.enabled else 0)
+    out["cost_ms"] = dict(pool._spec_ctl.cost_ms)
+    log(f"[llm-spec] bf16 pool of {pool.B} on the ladder "
+        f"{list(pool._spec_rungs)}: {out['captures']} CUDA graphs "
+        f"({sum(k[0] == 'block' for k in keys)} blocks, "
+        f"{sum(k[0] == 'spec_start' for k in keys)} speculative starts, "
+        f"{sum(k[0] == 'spec_iter' for k in keys)} iterations, "
+        f"{sum(k[0] in ('prefill', 'continue') for k in keys)} prefills and "
+        f"continuations) in {out['capture_s']:.2f} s, warmup "
+        f"{out['warmup_s']:.2f} s; calibrated costs (ms a token at rung 0, "
+        f"an iteration at the others) {json.dumps(out['cost_ms'])}; "
+        f"{graphs_text()}")
+    if on_card:
+        out["times"] = _spec_times(model, card)
+    tts_pool = DecodePool(dec_p, table, engines[0].codec, capacity=16,
+                          dcfg=dcfg, scfg=dataclasses.replace(
+                              scfg, pool_capacity=16),
+                          device=device, cache_dtype=torch.bfloat16)
+    tts_pool.warmup()
+    picks = []
+    next_k = pool._spec_ctl.next_k
+
+    def counted():
+        picks.append(next_k())
+        return picks[-1]
+    pool._spec_ctl.next_k = counted
+    burst = [_burst_text(n, r) for r, n in enumerate(BURST_LENGTHS)]
+    out["burst"] = _serve_pool(model, tts_pool, weights, burst,
+                               "bf16 spec-ladder 8-way burst", card)
+    ctl = pool._spec_ctl.stats()
+    out["ladder"] = {"picks": {k: picks.count(k) for k in pool._spec_rungs},
+                     "final": ctl}
+    log(f"[llm-spec] the ladder over the burst: rung picks "
+        f"{out['ladder']['picks']} (the pool's steps), final state "
+        f"{json.dumps(ctl)} ({card})")
+    # the same burst with every block at rung 2: the captured iterations
+    # serve every block at depth (random heads would park the ladder)
+    pool._spec_ctl.next_k = lambda: SPEC_POOL_K
+    blocks = _count_spec_blocks(pool)
+    out["pinned"] = _serve_pool(model, tts_pool, weights, burst,
+                                f"bf16 8-way burst pinned at "
+                                f"k={SPEC_POOL_K}", card)
+    del pool._spec_ctl.next_k, pool._spec_block
+    assert len(blocks) == out["pinned"]["steps"] > 0, (
+        len(blocks), out["pinned"]["steps"])
+    out["pinned"]["iterations"] = sum(blocks)
+    log(f"[llm-spec] the pinned burst: {len(blocks)} speculative blocks at "
+        f"k={SPEC_POOL_K}, {sum(blocks)} iterations issued (captured "
+        f"iterations over {cfg.n_layer} layers) ({card})")
+    for run in ("burst", "pinned"):
+        assert out[run]["k4_launches"] == 0, out[run]
+    for k in ("k1", "k2", "k3", "k4"):
+        out[f"{k}_launches"] = sum(out[run][f"{k}_launches"]
+                                   for run in ("burst", "pinned"))
+    tts_pool.stop()
+    del model, pool, tts_pool
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    if on_card:
+        torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[llm-spec] phase 17 took {out['phase_s']:.1f} s"
+        + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card
+           else "") + f" ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the mixture-of-experts Llama
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-Instruct-v0.1's published geometry; KV cut to
+# 1024 of 32768 (each attention rung is a 32-layer MoE block graph of
+# ~10 s to capture; the requests fit); the capacity factor E / k that
+# JAX's converter writes
+MIXTRAL_8X7B = dict(vocab_size=32000, n_layer=32, n_head=32, n_kv_head=8,
+                    n_embd=4096, intermediate_size=14336, max_seq_len=1024,
+                    rope_theta=1e6, rms_eps=1e-5, tie_embeddings=False,
+                    n_experts=8, moe_top_k=2, moe_capacity_factor=4.0)
+MOE_POOL_BUCKETS = (32, 64, 128)
+MOE_BURST = 4
+# K4 calls a layer per token step or prefill program: wq, wk, wv, wo and
+# three matmuls of each of the 8 experts (the head stays int8)
+MOE_K4_PER_LAYER = 4 + 3 * 8
+# the w4 experts through K4 against JAX's group einsum (the norm of the
+# gap over the output's): K4 rounds x and each weight to bf16
+W4_EINSUM_GAP = 1e-2
+
+
+def draw_moe_w4(seed: int, cfg, device) -> dict:
+    """A random MoE Llama tree quantized ``w4`` (groups of 256; head int8)
+    on ``device``, drawn and quantized a layer at a time: the dense part
+    in bf16, then each layer's experts (bf16, from
+    ``params.draw_llama_experts``) quantized into preallocated stacks, so
+    the bf16 experts (93 GB at Mixtral-8x7B) never exist at once."""
+    from llmvox_tpu_torch.ops import quant
+    from llmvox_tpu_torch.utils import params as P
+    dense = P.init_llama_params(seed, cfg, device=device,
+                                dtype=torch.bfloat16, experts=False)
+    speakable_head(dense)
+    tree = quant.quantize_llama_params(dense, "w4")
+    del dense
+    n, e, c, i = (cfg.n_layer, cfg.n_experts, cfg.n_embd,
+                  cfg.intermediate_size)
+    stacks = {}
+    for key, (cin, cout) in (("moe_wgate", (c, i)), ("moe_wup", (c, i)),
+                             ("moe_wdown", (i, c))):
+        g = cin // 256 if cin % 256 == 0 else 1
+        stacks[key] = quant.Int4Tensor(
+            q=torch.empty((n, e, cin // 2, cout), dtype=torch.int8,
+                          device=device),
+            s=torch.empty((n, e, g, 1, cout), dtype=torch.float32,
+                          device=device))
+    routers = []
+    for layer in range(n):
+        ex = P.draw_llama_experts(seed + 1, cfg, [layer], device,
+                                  torch.bfloat16)
+        routers.append(ex.pop("router")[0])
+        for key, w in ex.items():
+            for j in range(e):
+                w4 = quant.quantize_weight4(w[0, j])
+                stacks[key].q[layer, j].copy_(w4.q)
+                stacks[key].s[layer, j].copy_(w4.s)
+        del ex
+    tree["h"].update(stacks, router=torch.stack(routers))
+    return tree
+
+
+def _moe_f32_check(cfg, scfg, device, card) -> dict:
+    """2 layers at full width in f32, dense: the card's 64-token greedy
+    chain from the B=1 stream (CUDA graph replays) against the CPU's plain
+    ``apply_llama`` teacher-forced on it (``near_tie`` where they part);
+    ``moe_ffn`` of layer 0 on the card against the CPU on the same rows;
+    the layer's experts quantized ``w4`` through K4 (one launch an
+    expert) against JAX's group einsum formulation on the card."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.ops import cuda_int4_mm, moe, quant
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.params import to_torch
+    tok = ByteTokenizer()
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    p32 = P.init_llama_params(30, cfg2, device=device)
+    speakable_head(p32)
+    m32 = LlamaStreamModel(p32, cfg2, tok, block=LLM_BLOCK, device=device)
+    m32.warmup()
+    ids = _llm_prompt(tok, TEXT, scfg.system_prompt)
+    card_chain = llm_chain(m32, ids, LLM_TOKENS // LLM_BLOCK)[:LLM_TOKENS]
+    del m32
+    lp = {k: v[0] for k, v in p32["h"].items()}
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.randn((64, cfg.n_embd), generator=gen, device=device)
+    y_card, _ = moe.moe_ffn(x, lp["router"], lp["moe_wgate"], lp["moe_wup"],
+                            lp["moe_wdown"], cfg.moe_top_k, drop_free=True)
+    cpu = to_torch(p32, "cpu")
+    del p32
+    lcpu = {k: v[0] for k, v in cpu["h"].items()}
+    y_cpu, _ = moe.moe_ffn(x.cpu(), lcpu["router"], lcpu["moe_wgate"],
+                           lcpu["moe_wup"], lcpu["moe_wdown"],
+                           cfg.moe_top_k, drop_free=True)
+    moe_err = ((y_card.cpu() - y_cpu).norm() / y_cpu.norm()).item()
+    assert moe_err < 1e-5, moe_err
+    seq = torch.tensor([ids + card_chain[:-1]])
+    with torch.no_grad():
+        forced = llama.apply_llama(cpu, seq, cfg2)[0, len(ids) - 1:]
+    ties = []
+    for d, logits in enumerate(forced):
+        want = int(logits.argmax())
+        if want != card_chain[d]:
+            ties.append((d, near_tie(logits, want, card_chain[d],
+                                     ("moe f32", d, card_chain))))
+    text = tok.decode(card_chain)
+    assert text and all(32 <= ord(ch) < 127 for ch in text), text
+    # the w4 experts: K4 per expert against JAX's group einsum, on the card
+    w4 = quant.quantize_weight4(lcpu["moe_wup"].to(device))
+    del cpu, lcpu
+    xe = torch.randn((cfg.n_experts, 16, cfg.n_embd), generator=gen,
+                     device=device).to(torch.bfloat16)
+    w4 = quant.Int4Tensor(q=w4.q, s=w4.s.to(torch.bfloat16))
+    n0 = cuda_int4_mm.LAUNCHES
+    got = moe.expert_matmul(xe, w4)
+    launches = cuda_int4_mm.LAUNCHES - n0
+    want = moe.expert_matmul_einsum(xe, w4)
+    gap = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    if torch.device(device).type == "cuda":
+        assert launches == cfg.n_experts, launches
+    assert gap < W4_EINSUM_GAP, gap
+    log(f"[moe] 2 layers at full width, f32: the card's {LLM_TOKENS}-token "
+        f"greedy chain against the CPU plain path teacher-forced on it: "
+        + (f"{len(ties)} near tie(s) (step, gap in % of the logits' std): "
+           f"{ties}" if ties else "every token the CPU's argmax")
+        + f"; text {text[:40]!r}...; moe_ffn of 64 rows on the card against "
+        f"the CPU: relative error {moe_err:.3g}; w4 moe_wup (8 experts, 16 "
+        f"rows each, bf16) through K4 ({launches} launches) against JAX's "
+        f"group einsum on the card: relative gap {gap:.3g} ({card})")
+    return {"ties": len(ties), "moe_ffn_rel_err": moe_err,
+            "w4_einsum_gap": gap}
+
+
+def _moe_step_ms(pool, attn: int, width: int) -> float:
+    """One pooled block of ``width`` as a graph replay (device time, CUDA
+    events, median of 3), 8 rows active at pos attn - width, over its
+    width."""
+    from llmvox_tpu_torch.utils.graphs import fill
+    g = pool._graphs.get(("block", attn, width))
+    times = []
+    for _ in range(3):
+        fill(pool._in, np.ones(pool.B, np.int32))
+        pool.state.pos.fill_(attn - width)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        g.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end) / width)
+    pool.state.pos.zero_()
+    pool.state.tok.zero_()
+    return statistics.median(times)
+
+
+def phase_moe(engines, weights, card: str, device="cuda", cfg=None,
+              graphs=None) -> dict:
+    """The mixture-of-experts Llama at mistralai/Mixtral-8x7B-Instruct-
+    v0.1's published geometry (random seeded weights, the head zeroed but
+    for the printable byte ids, the byte tokenizer; cut: KV 1024 of 32768,
+    pool buckets 32..128, no chunked prefill in the pool).  (1) 2 layers
+    at full width in f32
+    (``_moe_f32_check``).  (2) 32 layers quantized w4 (``draw_moe_w4``:
+    46.7 B parameters are 93 GB in bf16): the B=1 stream's 32-token block
+    and an 8-row pooled step as graph replays beside the byte bound (every
+    expert's packed bytes: drop-free routing runs every expert), and the
+    B=1 block beside the routed bound (the chosen experts' bytes); one
+    ``/tts`` on the B=1 stream with the dedicated replicas and a burst of
+    4 through an 8-slot pool with a 16-slot bf16 TTS pool, each answered,
+    0 captures while serving; K4's launches on each (28 a layer per token
+    step and per prefill program)."""
+    from llmvox_tpu_torch.models import llama
+    from llmvox_tpu_torch.ops import quant
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.streams.llm import ByteTokenizer, LlamaStreamModel
+    dec_p, _, table, dcfg, _, scfg = weights
+    cfg = cfg or llama.LlamaConfig(**MIXTRAL_8X7B)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    out = {"card": card, "f32": _moe_f32_check(cfg, scfg, device, card)}
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[moe] cuts: KV {cfg.max_seq_len} (of 32768), pool prefill "
+        f"buckets {MOE_POOL_BUCKETS} (not {LLM_POOL_BUCKETS}), no chunked "
+        f"prefill in the pool")
+
+    t0 = time.perf_counter()
+    tree = draw_moe_w4(32, cfg, device)
+    _sync(device)
+    out["draw_s"] = time.perf_counter() - t0
+    out["stored_bytes"] = quant.quantized_bytes(tree)
+    log(f"[moe] {cfg.n_layer} layers, w4: {out['stored_bytes']} bytes "
+        f"stored, drawn and quantized on the device a layer at a time in "
+        f"{out['draw_s']:.2f} s")
+    model = LlamaStreamModel(tree, cfg, tok, block=LLM_BLOCK,
+                             max_tokens=LLM_TOKENS, device=device,
+                             dtype=torch.bfloat16)
+    n_cap = captures()
+    model.warmup()
+    out["b1_captures"] = captures() - n_cap
+    if on_card:
+        out["b1_block"] = _llm_block_times(model, None, model.params, cfg,
+                                           card, "MoE w4", (128, 1024))
+        # what the function needs: the dense part and, a layer, the
+        # top_k chosen experts' packed bytes (drop-free runs all E)
+        es = model.state.k.element_size()
+        for attn, row in out["b1_block"].items():
+            bound, by = llm_token_bound_ms(
+                model.params, cfg, attn - LLM_BLOCK // 2, es,
+                expert_share=cfg.moe_top_k / cfg.n_experts)
+            row["routed_bound_ms"], row["routed_bound_by"] = bound, by
+            log(f"[moe] B=1 at attn_len {attn}: routed bound {bound:.3f} ms "
+                f"({by}; the dense part and {cfg.moe_top_k} of "
+                f"{cfg.n_experts} experts' packed bytes a layer), "
+                f"{bound / row['ms_per_token'] * 100:.1f}% of the measured "
+                f"{row['ms_per_token']:.3f} ms a token ({card})")
+    tokens0 = model.tokens
+    b1 = out["b1_served"] = _serve_llm(model, engines, weights, 1,
+                                       "MoE w4", card, device)
+    k4_b1 = MOE_K4_PER_LAYER * cfg.n_layer * (model.tokens - tokens0 + 1)
+    if on_card:
+        assert b1["k4_launches"] == k4_b1, (b1["k4_launches"], k4_b1)
+    log(f"[moe] B=1 request: K4 launches {b1['k4_launches']} = "
+        f"{MOE_K4_PER_LAYER} x {cfg.n_layer} layers x "
+        f"({model.tokens - tokens0} tokens + 1 prefill); K1 "
+        f"{b1['k1_launches']} on the replicas, K2 {b1['k2_launches']}, K3 "
+        f"{b1['k3_launches']}")
+    del model
+
+    # chunked prefill off: the burst's suffixes (the system prompt's
+    # prefix cached) fit the top bucket, and each continuation graph of
+    # the MoE takes ~5 s to capture
+    pmodel = make_llm_pool(tree, cfg, tok, scfg.system_prompt, device,
+                           torch.bfloat16, buckets=MOE_POOL_BUCKETS,
+                           graphs=graphs, chunked_prefill=False)
+    del tree
+    pool = pmodel.pool
+    n_cap = captures()
+    t0 = time.perf_counter()
+    pmodel.warmup()
+    out["pool_warmup_s"] = time.perf_counter() - t0
+    out["pool_captures"] = captures() - n_cap
+    log(f"[moe] w4 pool of {pool.B}: {out['pool_captures']} CUDA graphs in "
+        f"{out['pool_warmup_s']:.2f} s; {graphs_text()}")
+    if on_card:
+        es = pool.state.k.element_size()
+        out["pool_step"] = {}
+        for attn in (128, 1024):
+            ms = _moe_step_ms(pool, attn, LLM_BLOCK)
+            bound, by = llm_pool_step_bound_ms(pool.params, cfg, pool.B,
+                                               attn - LLM_BLOCK // 2, es)
+            out["pool_step"][attn] = {"ms": ms, "bound_ms": bound,
+                                      "bound_by": by}
+            log(f"[moe] w4 pooled step, {pool.B} rows at attn_len {attn}: "
+                f"{ms:.3f} ms (device time; {pool.B * 1e3 / ms:.0f} "
+                f"tokens/s), bound {bound:.3f} ms ({by}, "
+                f"{bound / ms * 100:.0f}% of it) ({card})")
+    tts_pool = DecodePool(dec_p, table, engines[0].codec, capacity=16,
+                          dcfg=dcfg, scfg=dataclasses.replace(
+                              scfg, pool_capacity=16),
+                          device=device, cache_dtype=torch.bfloat16)
+    tts_pool.warmup()
+    steps0, calls0 = pool.decode_steps, pool.prefill_calls
+    burst = [_burst_text(n, r) for r, n in
+             enumerate(BURST_LENGTHS[:MOE_BURST])]
+    out["burst"] = _serve_pool(pmodel, tts_pool, weights, burst,
+                               f"MoE w4 {MOE_BURST}-way burst", card)
+    k4 = MOE_K4_PER_LAYER * cfg.n_layer * (pool.decode_steps - steps0
+                                           + pool.prefill_calls - calls0)
+    if on_card:
+        assert out["burst"]["k4_launches"] == k4 > 0, (
+            out["burst"]["k4_launches"], k4)
+    for k in ("k1", "k2", "k3", "k4"):
+        out[f"{k}_launches"] = (b1[f"{k}_launches"]
+                                + out["burst"][f"{k}_launches"])
+    log(f"[moe] w4 burst: K4 launches {out['burst']['k4_launches']} = "
+        f"{MOE_K4_PER_LAYER} x "
+        f"{cfg.n_layer} layers x ({pool.decode_steps - steps0} pooled token "
+        f"steps + {pool.prefill_calls - calls0} prefill programs); K2 "
+        f"{out['burst']['k2_launches']} on the TTS pool")
+    tts_pool.stop()
+    del pmodel, pool, tts_pool
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    if on_card:
+        torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[moe] phase 18 took {out['phase_s']:.1f} s"
+        + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card
+           else "") + f" ({card})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3916,6 +4740,8 @@ def main(argv) -> int:
     launches = pool_launches = spec_launches = quant_launches = None
     llm_k4_launches = voicechat_launches = None
     pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
+    spec_llm = dict(pool_llm)
+    moe_llm = dict(pool_llm)
     if not kernels_only:
         engines, weights = phase_offline()
         phase_block_graph(weights)
@@ -3940,11 +4766,30 @@ def main(argv) -> int:
         voicechat_launches = asr["served"]["k1_launches"]
         # the pooled LLM's paths: phase 15's pooled /voicechat on the
         # dedicated replicas (K1), phase 16's rounds with the TTS pool
-        # (K2; K3 0: no speculation) and its w4 burst (K4)
+        # (K2, K3) and its w4 burst (K4)
         pool_llm = {"k1": asr["pooled"]["k1_launches"],
-                    "k2": llm_pool["k2_llm_pool_launches"], "k3": 0,
+                    "k2": llm_pool["k2_llm_pool_launches"],
+                    "k3": llm_pool["k3_llm_pool_launches"],
                     "k4": llm_pool["k4_llm_pool_launches"]}
         log(json.dumps({"asr": asr}))
+        # phase 17 speculates on phase 14's bf16 tree; the streams and
+        # pools of phases 14-16 are freed first
+        params = llm_model.params
+        del llm_model, pooled
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm_spec = phase_llm_spec(engines, weights, card, params)
+        del params
+        log(json.dumps({"llm_spec": llm_spec}))
+        # its two bursts, each counted from 0 to its end
+        spec_llm = {k: llm_spec[f"{k}_launches"]
+                    for k in ("k1", "k2", "k3", "k4")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = phase_moe(engines, weights, card)
+        log(json.dumps({"moe": moe}))
+        # its B=1 request and its burst, each counted from 0 to its end
+        moe_llm = {k: moe[f"{k}_launches"] for k in ("k1", "k2", "k3", "k4")}
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -3953,6 +4798,8 @@ def main(argv) -> int:
              "launches": launches, "max_abs_err": k1["max_abs_err"],
              "voicechat_launches": voicechat_launches,
              "llm_pool_launches": pool_llm["k1"],
+             "llm_spec_launches": spec_llm["k1"],
+             "moe_launches": moe_llm["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
              "other": {f"pos {pos}": {key: t[key] for key in
                                       ("ms", "bound_ms", "plain_ms",
@@ -3966,6 +4813,8 @@ def main(argv) -> int:
                      "pallas_batched_decode_attention",
               "launches": pool_launches, "max_abs_err": k2["max_abs_err"],
               "llm_pool_launches": pool_llm["k2"],
+              "llm_spec_launches": spec_llm["k2"],
+              "moe_launches": moe_llm["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
               "other": {name: {key: t[key] for key in
                                ("ms", "bound_ms", "plain_ms", "library_ms")}
@@ -3978,6 +4827,8 @@ def main(argv) -> int:
               "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_verify_attention",
               "launches": spec_launches, "max_abs_err": k3["max_abs_err"],
               "llm_pool_launches": pool_llm["k3"],
+              "llm_spec_launches": spec_llm["k3"],
+              "moe_launches": moe_llm["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
               "dtype": "bfloat16", **k3["timings"][k3_name],
               "other": {name: {key: t[key] for key in
@@ -3992,6 +4843,8 @@ def main(argv) -> int:
               "launches": quant_launches, "max_abs_err": k4["max_abs_err"],
               "llm_launches": llm_k4_launches,
               "llm_pool_launches": pool_llm["k4"],
+              "llm_spec_launches": spec_llm["k4"],
+              "moe_launches": moe_llm["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
               **k4["timings"][k4_main],
               "other": {f"{name} M={m}": {key: t[key] for key in

@@ -22,9 +22,10 @@ the JAX functions of the same names) verifies ``k_draft`` drafted tokens
 per stream in one ``k_draft + 1``-position forward whose attention is
 kernel K3.  JAX runs it as a ``lax.while_loop`` that ends when no stream
 is active; here the loop's stop test comes back to the host one
-iteration late (``run_spec_loop``), and an iteration is a function of
-buffers it updates in place (``SpecBuffers``, ``spec_iteration``), so a
-served block replays one CUDA graph per iteration.
+iteration late (``models/spec.py::run_spec_loop``), and an iteration is a
+function of buffers it updates in place (``SpecBuffers``,
+``spec_iteration``), so a served block replays one CUDA graph per
+iteration.
 
 Served blocks keep one static ``DecodeState`` per engine or pool and
 write the next state into it (``assign_state``), so a CUDA graph can
@@ -44,8 +45,8 @@ import torch
 
 from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
     cuda_verify_attn, nn
+from llmvox_tpu_torch.models.spec import run_spec_loop
 from llmvox_tpu_torch.utils.config import DecoderConfig
-from llmvox_tpu_torch.utils.device import Fetch
 from llmvox_tpu_torch.utils.graphs import register_counter
 
 # Speculative iterations issued since the last reset; each runs one verify
@@ -290,20 +291,6 @@ def decode_block_batch(params: Dict, text_table: torch.Tensor,
 # speculative decode: k_draft drafts per stream verified in one forward
 # ---------------------------------------------------------------------------
 
-def check_draft_heads(params: Dict, dcfg: DecoderConfig, k: int) -> None:
-    """Raise unless ``params["draft_heads"]`` is an (n, C, vocab) tensor
-    with n >= k: speculation at k drafts reads heads 0..k-1."""
-    heads = params["draft_heads"]
-    want = (dcfg.n_embd, dcfg.vocab_size)
-    if (not isinstance(heads, torch.Tensor) or heads.dim() != 3
-            or tuple(heads.shape[1:]) != want or heads.shape[0] < k):
-        shape = (tuple(heads.shape) if isinstance(heads, torch.Tensor)
-                 else type(heads).__name__)
-        raise ValueError(f"speculative decode at {k} drafts needs "
-                         f"draft_heads of shape (>= {k}, {want[0]}, "
-                         f"{want[1]}); got {shape}")
-
-
 def _decode_many_batch(params: Dict, cfg: DecoderConfig, xs: torch.Tensor,
                        states: DecodeState, n: int):
     """Batched teacher-forced verify forward: stream b at positions
@@ -483,26 +470,6 @@ def spec_iteration(params: Dict, text_table: torch.Tensor,
     bufs.flag.copy_(((count < limits) & ~done).any())
     with _spec_lock:
         SPEC_ITERATIONS += 1
-
-
-def run_spec_loop(start, iterate, flag: torch.Tensor, block: int) -> None:
-    """Issue one speculative block: ``start()``, then up to ``block`` calls
-    of ``iterate()`` (eager bodies, or one graph replay each).  JAX's
-    ``lax.while_loop`` runs until no stream is active.  Here the 0-d
-    ``flag`` is copied to pinned host memory after each call without
-    blocking, and the host waits for iteration i's flag only before it
-    issues iteration i+2, so it stays one iteration ahead of the card.
-    So one iteration more than JAX's is issued (none more than
-    ``block``): it is masked and commits nothing.  The copies are issued
-    here, outside any graph: an event recorded inside a capture cannot be
-    waited for."""
-    start()
-    flags = [Fetch(flag)]      # flags[i]: is any stream active before i
-    for i in range(block):
-        if i >= 1 and not bool(flags[i - 1].get()):
-            break
-        iterate()
-        flags.append(Fetch(flag))
 
 
 def decode_block_spec_batch(params: Dict, text_table: torch.Tensor,

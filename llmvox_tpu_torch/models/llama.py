@@ -1,33 +1,35 @@
-"""Llama-family causal LM: the dense decode subset, in PyTorch.
+"""Llama-family causal LM in PyTorch: dense and mixture-of-experts
+layers, draft heads, the B=1 and pooled decode programs, the pooled
+speculative block and the training loss.
 
 Counterpart of ``llmvox_tpu/models/llama.py`` with the same names,
 parameter tree and numerics: RMSNorm, rotary embeddings (with HF's llama3
 frequency rescaling), grouped-query attention against a fixed-capacity KV
-cache without repeating the KV heads, and a SwiGLU MLP.  Parameters keep
+cache without repeating the KV heads, and a SwiGLU MLP, or top-k routed
+SwiGLU experts (``ops/moe.py``) when ``n_experts > 0``.  Parameters keep
 the JAX layout: ``tok_emb (V, C)``; ``h.{ln1_s, wq, wk, wv, wo, ln2_s,
-wgate, wup, wdown}`` stacked on the layer axis, Linear weights
-``(Cin, Cout)``; ``lnf_s``; ``head (C, V)`` unless the embeddings are tied.
-Linears go through ``ops/nn.py::linear``, so a quantized tree
+wgate, wup, wdown}`` (or ``h.{router (C, E), moe_wgate, moe_wup (E, C,
+I), moe_wdown (E, I, C)}``) stacked on the layer axis, Linear weights
+``(Cin, Cout)``; ``lnf_s``; ``head (C, V)`` unless the embeddings are
+tied; ``draft_heads (n, C, V)`` when the checkpoint has them.  Linears go
+through ``ops/nn.py::linear``, so a quantized tree
 (``ops/quant.py::quantize_llama_params``) runs as JAX's does, w4 through
-kernel K4.
+kernel K4 (the experts too, ``ops/moe.py::expert_matmul``).
 
 The JAX package computes attention and everything else here in XLA, no
-Pallas kernel, so the port computes it with plain torch ops.
+Pallas kernel, so the port computes it with plain torch ops.  Every
+inference path routes its experts drop-free, with padding and inactive
+rows masked out of routing, as JAX's do.
 
 As in the speech decoder (``models/decoder.py``), a decode block is a
 Python loop whose ``pos`` and token stay in device tensors: nothing in it
 reads a value back to the host, so a block is enqueued without a sync and
 can be captured in a CUDA graph (``streams/llm.py``).  The caches are
 written in place (the JAX state is immutable; here the state passed in is
-consumed) and each function returns the state with its new ``pos``.
-
-Ported: ``apply_llama``, ``prefill``, ``prefill_padded`` and the B=1
-``decode_block``; the per-row samplers and the pooled programs of
-``serve/llm_pool.py`` (``LlamaPoolState``, ``prefix_kv``,
-``prefill_slots``, ``prefill_slots_continue``, ``decode_block_pooled``);
-dense only.  Mixture-of-experts layers (``n_experts > 0``), draft heads
-(``n_draft_heads > 0``), the pooled speculative block and the training
-loss raise, naming ROADMAP queue 1 item 6.
+consumed) and each function returns the state with its new ``pos``.  The
+speculative block's ``lax.while_loop`` is a start and an iteration over
+buffers updated in place (``SpecBuffers``), issued by
+``models/spec.py::run_spec_loop`` one iteration ahead of the card.
 
 The pooled programs differ from JAX's in work, not in results:
 - JAX sends an arrival batch's padding rows to slot index ``capacity``
@@ -42,6 +44,11 @@ The pooled programs differ from JAX's in work, not in results:
   the chunk on that copy and scatters the whole window back; the port
   writes back the chunk's rows only (the rest of the window is
   unchanged).
+- JAX's draft logits are one f32 einsum over every head and the whole
+  vocab; the port takes the same f32 products per head and vocab chunk
+  (``_draft_logits``), so bf16 heads are not copied whole to f32.
+- The speculative block issues one iteration more than JAX's loop runs
+  (``run_spec_loop``); it is masked and commits nothing.
 """
 from __future__ import annotations
 
@@ -51,9 +58,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from llmvox_tpu_torch.ops import nn
-
-_NOT_PORTED = ("decode_block_spec_pooled", "llama_loss")
+from llmvox_tpu_torch.models.spec import run_spec_loop
+from llmvox_tpu_torch.ops import moe, nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +82,15 @@ class LlamaConfig:
     rope_original_max_position: int = 8192
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
-    # mixture-of-experts FFN and draft heads: not ported (check_dense)
+    # mixture-of-experts FFN (ops/moe.py): n_experts > 0 replaces the dense
+    # SwiGLU with top-k routed experts
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
     moe_aux_weight: float = 0.01
     moe_group_size: int = 0
+    # speculative decoding: head j predicts the token at t+2+j from
+    # position t's final (post-norm) hidden state
     n_draft_heads: int = 0
 
     @property
@@ -93,29 +102,6 @@ class LlamaConfig:
     def q_per_kv(self) -> int:
         assert self.n_head % self.n_kv_head == 0
         return self.n_head // self.n_kv_head
-
-
-def check_dense(cfg: LlamaConfig) -> None:
-    """Raise for the configurations the port does not run yet."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"n_experts={cfg.n_experts}: mixture-of-experts Llama layers "
-            "(llmvox_tpu/ops/moe.py) are not ported to llmvox_tpu_torch yet "
-            "(ROADMAP queue 1 item 6)")
-    if cfg.n_draft_heads > 0:
-        raise NotImplementedError(
-            f"n_draft_heads={cfg.n_draft_heads}: the Llama draft heads and "
-            "speculative decode are not ported to llmvox_tpu_torch yet "
-            "(ROADMAP queue 1 item 6)")
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"llama.{name} (the speculative or training programs of "
-            "llmvox_tpu/models/llama.py) is not ported to llmvox_tpu_torch "
-            "yet (ROADMAP queue 1 item 6)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def attn_window_ladder(max_seq_len: int, min_window: int = 128
@@ -230,12 +216,28 @@ def _gqa_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
         b, t, h, hd)
 
 
-def _mlp(lp: Dict, h: torch.Tensor) -> torch.Tensor:
-    """Dense SwiGLU: wdown(silu(wgate h) * wup h), the silu in f32."""
+def _mlp(lp: Dict, h: torch.Tensor, cfg: LlamaConfig,
+         token_mask: Optional[torch.Tensor] = None,
+         drop_free: bool = False
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN half of a layer: the dense SwiGLU wdown(silu(wgate h) *
+    wup h), the silu in f32, or top-k routed experts when
+    ``cfg.n_experts > 0`` (``ops/moe.py::moe_ffn``).  Returns ``(out,
+    aux)``: aux is the experts' load-balancing statistic (None for the
+    dense FFN).  ``token_mask`` (bool, h's shape without the channel
+    axis) marks the real tokens: padding and inactive rows are kept out
+    of routing.  ``drop_free`` (every inference path) gives the experts
+    room for every token, so no token drops."""
+    if cfg.n_experts:
+        return moe.moe_ffn(h, lp["router"], lp["moe_wgate"], lp["moe_wup"],
+                           lp["moe_wdown"], cfg.moe_top_k,
+                           cfg.moe_capacity_factor, token_mask=token_mask,
+                           group_size=cfg.moe_group_size,
+                           drop_free=drop_free)
     gate = nn.linear(h, lp["wgate"])
     up = nn.linear(h, lp["wup"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    return nn.linear(act, lp["wdown"])
+    return nn.linear(act, lp["wdown"]), None
 
 
 def _layer_params(params: Dict, layer: int) -> Dict:
@@ -248,9 +250,15 @@ def _head(params: Dict):
 
 
 def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Teacher-forced forward: (B, T) int -> (B, T, V) logits."""
-    check_dense(cfg)
+                positions: Optional[torch.Tensor] = None,
+                return_hidden: bool = False, return_moe_aux: bool = False):
+    """Teacher-forced forward: (B, T) int -> (B, T, V) logits.
+    ``return_hidden=True`` also returns the post-final-norm hidden states
+    (the draft heads' input); ``return_moe_aux=True`` appends the mean
+    over layers of the experts' load-balancing statistic (0 for a dense
+    config).  The experts route as JAX's training forward routes them:
+    at ``moe_capacity_factor``, in ``moe_group_size`` groups, tokens
+    past an expert's capacity dropped for it."""
     b, t = tokens.shape
     hd = cfg.head_dim
     dev = tokens.device
@@ -259,6 +267,7 @@ def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     cos, sin = _rope_tables(positions, cfg, hd)
     x = params["tok_emb"][tokens]
+    auxs = []
     for layer in range(cfg.n_layer):
         lp = _layer_params(params, layer)
         h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
@@ -270,9 +279,52 @@ def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
         att = _gqa_cache_attention(q, k, v, causal, cfg)
         x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
         h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-        x = x + _mlp(lp, h)
+        y, aux = _mlp(lp, h, cfg)
+        x = x + y
+        auxs.append(aux)
     x = rms_norm(x, params["lnf_s"], cfg.rms_eps)
-    return nn.linear(x, _head(params))
+    logits = nn.linear(x, _head(params))
+    out = (logits,)
+    if return_hidden:
+        out = out + (x,)
+    if return_moe_aux:
+        out = out + (torch.stack(auxs).mean() if cfg.n_experts
+                     else torch.zeros((), device=x.device),)
+    return out if len(out) > 1 else logits
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def llama_loss(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+               mtp_weight: float = 0.2) -> torch.Tensor:
+    """Next-token cross-entropy over ``tokens`` (B, T): position t's
+    hidden predicts tokens[t+1].  With draft heads in ``params`` it adds
+    the multi-token-prediction terms: head j predicts tokens[t+2+j] from
+    the same hidden state (the shift ``decode_block_spec_pooled``
+    consumes), their mean weighted by ``mtp_weight``.  A
+    mixture-of-experts config adds its load-balancing statistic (the mean
+    over layers) weighted by ``cfg.moe_aux_weight``.  A forward function:
+    autograd differentiates it (the optimizer is not ported)."""
+    heads = params.get("draft_heads")
+    logits, hidden, moe_aux = apply_llama(params, tokens[:, :-1], cfg,
+                                          return_hidden=True,
+                                          return_moe_aux=True)
+    loss = _ce(logits, tokens[:, 1:]) + cfg.moe_aux_weight * moe_aux
+    if heads is None:
+        return loss
+    n_heads = heads.shape[0]
+    aux = 0.0
+    for j in range(n_heads):
+        shift = j + 2                     # hidden t -> tokens[t + shift]
+        t_use = tokens.shape[1] - shift   # positions with a valid target
+        if t_use <= 0:
+            continue
+        lj = nn.linear(hidden[:, :t_use], heads[j])
+        aux = aux + _ce(lj, tokens[:, shift:])
+    return loss + mtp_weight * aux / n_heads
 
 
 class LlamaDecodeState(NamedTuple):
@@ -319,11 +371,13 @@ def _step_tables(pos: torch.Tensor, t: int, s_cap: int,
 
 def _layer_step(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, tables: _StepTables,
-                cfg: LlamaConfig) -> torch.Tensor:
+                cfg: LlamaConfig,
+                token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer for T new tokens, the cache (B, S, KV, hd) already
     holding the tokens before them: writes their K and V rows in place
     and attends the window ``tables`` describes (``_step_tables``, made
-    once a step for every layer).  Returns x."""
+    once a step for every layer).  ``token_mask`` (B, T) marks the real
+    tokens for expert routing.  Returns x."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
@@ -339,20 +393,19 @@ def _layer_step(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                                tables.valid, cfg)
     x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h)
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True)[0]
 
 
 def _layers(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
-            cfg: LlamaConfig, attn_len: Optional[int] = None
-            ) -> torch.Tensor:
+            cfg: LlamaConfig, attn_len: Optional[int] = None,
+            token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every layer over (B, T) new tokens; returns the last hidden x."""
-    check_dense(cfg)
     x = params["tok_emb"][tokens]
     tables = _step_tables(state.pos, tokens.shape[1], state.k.shape[2],
                           attn_len, cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step(_layer_params(params, layer), x, state.k[layer],
-                        state.v[layer], tables, cfg)
+                        state.v[layer], tables, cfg, token_mask)
     return x
 
 
@@ -439,7 +492,9 @@ def prefill_padded(params: Dict, tokens: torch.Tensor, valid_len,
     attn_len (a fresh state may pass ``attn_len=Tpad``)."""
     valid_len = torch.as_tensor(valid_len, dtype=torch.int32,
                                 device=tokens.device)
-    x = _layers(params, tokens, state, cfg, attn_len)
+    valid_mask = (torch.arange(tokens.shape[1], device=tokens.device)
+                  < valid_len).expand(tokens.shape)
+    x = _layers(params, tokens, state, cfg, attn_len, valid_mask)
     last = (valid_len - 1).long().reshape(1)
     x = rms_norm(x.index_select(1, last)[:, 0], params["lnf_s"], cfg.rms_eps)
     logits = nn.linear(x, _head(params))
@@ -488,7 +543,8 @@ def _filtered_logits_rows(logits: torch.Tensor, t: torch.Tensor,
     kk = torch.where((k > 0) & (k < v), k,
                      torch.full_like(k, v)).long()
     srt = torch.sort(x, dim=-1).values                        # ascending
-    kth = torch.gather(srt, -1, (v - kk)[..., None])          # (..., B, 1)
+    kth = torch.gather(srt, -1, (v - kk)[..., None].expand(
+        *srt.shape[:-1], 1))                                  # (..., B, 1)
     x = x.masked_fill(x < kth, float("-inf"))
     # nucleus on the already top-k-filtered rows (the static path's order)
     desc = srt.flip(-1)
@@ -574,12 +630,15 @@ def _row_tables(pos_vec: torch.Tensor, t: int, s_cap: int,
 
 def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, tables: _StepTables,
-                     cfg: LlamaConfig) -> torch.Tensor:
+                     cfg: LlamaConfig,
+                     token_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """One layer for T new tokens per row, each row at its own position
     (``_row_tables``): writes their K and V rows of the cache (B, S, KV,
     hd) in place, attends the window with the per-row causal mask, and
     returns x.  The attention takes x's dtype back when the cache has
-    another (the residual stream keeps x's dtype)."""
+    another (the residual stream keeps x's dtype).  ``token_mask`` (B, T)
+    marks the real tokens for expert routing."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
@@ -596,22 +655,23 @@ def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                                tables.valid, cfg).to(x.dtype)
     x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h)
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True)[0]
 
 
 def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, pos_vec: torch.Tensor,
-                      cfg: LlamaConfig, attn_len: Optional[int] = None
+                      cfg: LlamaConfig, attn_len: Optional[int] = None,
+                      token_mask: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Every layer over (B, T) new tokens at per-row positions, the caches
-    k/v (L, B, S, KV, hd) written in place; returns the last hidden x."""
-    check_dense(cfg)
+    k/v (L, B, S, KV, hd) written in place; returns the last hidden x.
+    ``token_mask`` (B, T) marks the real tokens for expert routing."""
     x = params["tok_emb"][tokens]
     tables = _row_tables(pos_vec, tokens.shape[1], k.shape[2], attn_len,
                          cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step_rows(_layer_params(params, layer), x, k[layer],
-                             v[layer], tables, cfg)
+                             v[layer], tables, cfg, token_mask)
     return x
 
 
@@ -700,7 +760,6 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
     tokens are the suffix after a shared P-token prefix: rows start at
     position P and attend the prefix rows.  The caches are written in
     place; the returned state has the new ``pos`` and ``tok``."""
-    check_dense(cfg)
     n, tpad = tokens.shape
     dev = tokens.device
     p = 0 if prefix_k is None else prefix_k.shape[1]
@@ -710,6 +769,8 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
     valid_lens = valid_lens.to(torch.int32)
     act = active.bool()
     slot_ids = slots.long().clamp(0, cap - 1)
+    tok_mask = ((torch.arange(tpad, device=dev)[None] < valid_lens[:, None])
+                & act[:, None])
     x = params["tok_emb"][tokens]
     tables = _row_tables(torch.full((n,), p, dtype=torch.int32, device=dev),
                          tpad, p + tpad, None, cfg, dev)
@@ -721,7 +782,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
             kc[:, :p] = prefix_k[layer].to(dtype)
             vc[:, :p] = prefix_v[layer].to(dtype)
         x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
-                             tables, cfg)
+                             tables, cfg, tok_mask)
         _write_slot_rows(state.k[layer], slot_ids, act, kc[:, :width])
         _write_slot_rows(state.v[layer], slot_ids, act, vc[:, :width])
     logits = _head_rows(params, x, valid_lens, cfg)
@@ -755,7 +816,6 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
     ``final=False`` (middle chunks) skips the head and returns zeros;
     ``final=True`` samples each row's first token at its last valid
     position and stores it in the slot's ``tok``."""
-    check_dense(cfg)
     n, tpad = tokens.shape
     dev = tokens.device
     cap, s = state.k.shape[1], state.k.shape[2]
@@ -765,6 +825,8 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
     act = active.bool()
     slot_ids = slots.long().clamp(0, cap - 1)
     pos0 = pos0.to(torch.int32)
+    tok_mask = ((torch.arange(tpad, device=dev)[None] < valid_lens[:, None])
+                & act[:, None])
     x = params["tok_emb"][tokens]
     tables = _row_tables(pos0, tpad, s, None, cfg, dev)
     ridx = torch.arange(n, device=dev)[:, None]
@@ -772,7 +834,7 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
         kc = state.k[layer][:, :s].index_select(0, slot_ids)
         vc = state.v[layer][:, :s].index_select(0, slot_ids)
         x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
-                             tables, cfg)
+                             tables, cfg, tok_mask)
         _write_slot_rows(state.k[layer], slot_ids, act,
                          kc[ridx, tables.rows], tables.rows)
         _write_slot_rows(state.v[layer], slot_ids, act,
@@ -811,7 +873,7 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
     out = []
     for i in range(block):
         x = _scan_layers_rows(params, tok[:, None], state.k, state.v, pos,
-                              cfg, attn_len)
+                              cfg, attn_len, token_mask=act[:, None])
         logits = nn.linear(rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps),
                            _head(params))
         nxt = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
@@ -821,3 +883,246 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
         pos = pos + act.to(torch.int32)
         out.append(tok)
     return torch.stack(out, dim=1), state._replace(pos=pos, tok=tok)
+
+
+# ---------------------------------------------------------------------------
+# Pooled speculative decode: B pooled rows advance ``block`` tokens each in
+# fewer sequential iterations when the drafts accept.  JAX's
+# ``lax.while_loop`` is here a start and an iteration over buffers that
+# each updates in place (one CUDA graph each when served), issued by the
+# host one iteration ahead of the card (``run_spec_loop``).
+# ---------------------------------------------------------------------------
+
+# the vocabulary columns of one f32 draft-logit product (``_draft_logits``)
+DRAFT_CHUNK = 8192
+
+
+def _hidden_logits(params: Dict, x: torch.Tensor, cfg: LlamaConfig):
+    """Final norm + lm head on (B, [T,] C) hidden states: (h, logits)."""
+    h = rms_norm(x, params["lnf_s"], cfg.rms_eps)
+    return h, nn.linear(h, _head(params))
+
+
+def _draft_logits(hidden: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+    """The draft heads' f32 logits ``einsum("bc,kcv->bkv", hidden.f32,
+    heads.f32)`` (JAX's product) taken per head and per ``DRAFT_CHUNK``
+    vocabulary columns, so only one chunk of a bf16 head is in f32 at a
+    time (4 heads of Llama-3.1-8B's vocab are 4.2 GB in bf16).  The
+    products are JAX's; each dot is summed in f32 in its own order."""
+    b, (kd, _, v) = hidden.shape[0], heads.shape
+    h32 = hidden.float()
+    out = torch.empty((b, kd, v), dtype=torch.float32, device=hidden.device)
+    for j in range(kd):
+        for v0 in range(0, v, DRAFT_CHUNK):
+            v1 = min(v, v0 + DRAFT_CHUNK)
+            out[:, j, v0:v1] = h32 @ heads[j, :, v0:v1].float()
+    return out
+
+
+class SpecBuffers(NamedTuple):
+    """What a pooled speculative block carries from one iteration to the
+    next, beside the pool state: B rows, ``block`` tokens, k drafts."""
+
+    limits: torch.Tensor  # (B,) int32: block for active rows, else 0
+    out: torch.Tensor     # (B, block + k + 1) int32: emitted, else -1
+    count: torch.Tensor   # (B,) int32: tokens emitted
+    iters: torch.Tensor   # (B,) int32: active iterations
+    flag: torch.Tensor    # () bool: is any row still active
+    dpad: Optional[torch.Tensor]  # (B, block + k + 1): explicit drafts
+
+
+def spec_buffers(batch: int, block: int, k_draft: int, device,
+                 drafts: bool = False) -> SpecBuffers:
+    """Buffers of a speculative block; ``drafts`` for explicit drafts
+    instead of the draft heads."""
+    i32 = dict(dtype=torch.int32, device=device)
+    w = block + k_draft + 1
+    return SpecBuffers(
+        limits=torch.zeros((batch,), **i32),
+        out=torch.full((batch, w), -1, **i32),
+        count=torch.zeros((batch,), **i32),
+        iters=torch.zeros((batch,), **i32),
+        flag=torch.zeros((), dtype=torch.bool, device=device),
+        dpad=torch.zeros((batch, w), **i32) if drafts else None)
+
+
+def spec_start(bufs: SpecBuffers, active: torch.Tensor, block: int,
+               draft_tokens: Optional[torch.Tensor] = None) -> None:
+    """Begin a speculative block of ``block`` tokens in ``bufs``, in place:
+    active rows' limit is the block, nothing is emitted, the explicit
+    drafts (B, block) are clamped at 0 and padded with zeros, and the flag
+    holds whether any row is active before the first iteration."""
+    bufs.limits.copy_(torch.where(active.bool(), block, 0))
+    if bufs.dpad is not None:
+        bufs.dpad[:, :block].copy_(draft_tokens.clamp_min(0))
+        bufs.dpad[:, block:].zero_()
+    bufs.out.fill_(-1)
+    bufs.count.zero_()
+    bufs.iters.zero_()
+    bufs.flag.copy_((bufs.count < bufs.limits).any())
+
+
+def spec_iteration(params: Dict, state: LlamaPoolState, bufs: SpecBuffers,
+                   cfg: LlamaConfig, k_draft: int,
+                   attn_len: Optional[int] = None,
+                   temperature: float = 0.0, top_k: int = 0,
+                   top_p: float = 1.0, rows: Optional[Tuple] = None,
+                   generator: Optional[torch.Generator] = None) -> None:
+    """One iteration of JAX's speculative loop body, in place on the
+    caches, ``state.pos``/``state.tok`` and ``bufs``.
+
+    Each active row (count < limit) takes ONE step from its last token,
+    which also gives the post-norm hidden state the draft heads read;
+    then k drafts for the next positions (head j guesses position +2+j,
+    or the explicit drafts); then ONE batched teacher-forced verify
+    forward over every row's drafts (T = k, per-row positions and causal
+    masks).  A row emits the step's token, its accepted draft prefix and
+    the verifier's first correction, up to its limit.  Greedy
+    (``temperature == 0`` and no ``rows``): a draft is accepted iff it is
+    the verifier's argmax.  Sampled: rejection sampling (accept d with
+    probability p(d)/q(d), else a correction from norm(max(p - q, 0))),
+    so every token has the plain sampler's law; per-row ``rows`` (t, k,
+    p) with t <= 0 take the exact argmax test.  The noise comes from
+    ``generator``.  Rows that are not active write cache rows at and
+    above their ``pos`` and commit nothing.  Ends with the flag of the
+    rows still active."""
+    kd = int(k_draft)
+    dev = state.pos.device
+    k, v, pos, tok = state.k, state.v, state.pos, state.tok
+    count, limits = bufs.count, bufs.limits
+    bsz = pos.shape[0]
+    sampling = temperature > 0.0 or rows is not None
+    offs = torch.arange(kd, dtype=torch.int32, device=dev)
+    active_it = count < limits
+
+    # ---- one batched step from each row's last token -------------------
+    x = _scan_layers_rows(params, tok[:, None], k, v, pos, cfg, attn_len,
+                          token_mask=active_it[:, None])
+    hidden, logits = _hidden_logits(params, x[:, -1], cfg)
+    if rows is not None:
+        token1 = _sample_rows(logits, *rows, generator=generator)
+    elif sampling:
+        token1 = _sample(logits, temperature, top_k, top_p, generator)
+    else:
+        token1 = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos1 = pos + active_it.to(torch.int32)
+    tok1 = torch.where(active_it, token1, tok)
+
+    # ---- per-row drafts for the next k positions -----------------------
+    qf = None
+    if bufs.dpad is not None:
+        d = bufs.dpad.gather(1, (count[:, None] + 1 + offs[None]).long())
+    else:
+        dlogits = _draft_logits(hidden, params["draft_heads"][:kd])
+        if rows is not None:
+            qf = _filtered_logits_rows(dlogits, rows[0][:, None],
+                                       rows[1][:, None], rows[2][:, None])
+        elif sampling:
+            qf = _filtered_logits(dlogits, temperature, top_k, top_p)
+        if qf is None:
+            d = torch.argmax(dlogits, dim=-1).to(torch.int32)
+        else:
+            d = torch.argmax(qf + _gumbel(qf, generator),
+                             dim=-1).to(torch.int32)
+
+    # ---- one batched verify forward for every row's drafts -------------
+    prevs = torch.cat([token1[:, None], d[:, :-1]], dim=1)
+    xs = _scan_layers_rows(params, prevs, k, v, pos1, cfg, attn_len,
+                           token_mask=active_it[:, None].expand(bsz, kd))
+    _, vlogits = _hidden_logits(params, xs, cfg)                # (B, kd, V)
+
+    if sampling:
+        if rows is not None:
+            pf = _filtered_logits_rows(vlogits, rows[0][:, None],
+                                       rows[1][:, None], rows[2][:, None])
+        else:
+            pf = _filtered_logits(vlogits, temperature, top_k, top_p)
+        pp = torch.softmax(pf, dim=-1)                          # target
+        if qf is None:                                          # one-hot
+            qp = torch.nn.functional.one_hot(
+                d.long(), pp.shape[-1]).to(torch.float32)
+        else:
+            qp = torch.softmax(qf, dim=-1)                      # proposal
+        p_d = pp.gather(-1, d.long()[..., None])[..., 0]
+        q_d = qp.gather(-1, d.long()[..., None])[..., 0]
+        u = torch.rand(d.shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+        accept = u * q_d < p_d                                  # (B, kd)
+        resid = (pp - qp).clamp_min(0.0)
+        rsum = resid.sum(dim=-1, keepdim=True)
+        # p == q: rejection has probability 0; keep the (never
+        # committed) correction's distribution valid
+        resid = torch.where(rsum > 0, resid, pp)
+        lr = torch.log(resid.clamp_min(1e-30))
+        corr = torch.argmax(lr + _gumbel(lr, generator),
+                            dim=-1).to(torch.int32)
+        vals = torch.where(accept, d, corr)
+        if rows is not None:
+            # greedy rows: the exact argmax test
+            g = (rows[0] <= 0.0)[:, None]
+            a_greedy = torch.argmax(vlogits, dim=-1).to(torch.int32)
+            accept = torch.where(g, d == a_greedy, accept)
+            vals = torch.where(g, a_greedy, vals)
+    else:
+        vals = torch.argmax(vlogits, dim=-1).to(torch.int32)   # (B, kd)
+        accept = d == vals
+
+    # ---- each row commits its accepted prefix + first correction -------
+    prefix_ok = torch.cat([
+        torch.ones((bsz, 1), dtype=torch.bool, device=dev),
+        torch.cumprod(accept[:, :-1].to(torch.int32), dim=1).bool()],
+        dim=1)
+    commit = (active_it[:, None] & prefix_ok
+              & (count[:, None] + 1 + offs[None] < limits[:, None]))
+    n_commit = commit.sum(dim=1, dtype=torch.int32)
+    last_v = vals.gather(1, (n_commit - 1).clamp_min(0).long()[:, None])[:, 0]
+    tok.copy_(torch.where(n_commit > 0, last_v, tok1))
+    pos.copy_(pos1 + n_commit)
+    emitted = torch.where(
+        torch.cat([active_it[:, None], commit], dim=1),
+        torch.cat([token1[:, None], vals], dim=1), -1)
+    # a frozen row writes -1 at [count..count+kd], at or past its final
+    # count, where out is still -1 (commits are prefix-shaped)
+    bufs.out.scatter_(1, (count[:, None] + torch.arange(
+        kd + 1, device=dev)[None]).long(), emitted)
+    count.add_(active_it.to(torch.int32) + n_commit)
+    bufs.iters.add_(active_it.to(torch.int32))
+    bufs.flag.copy_((count < limits).any())
+
+
+def decode_block_spec_pooled(params: Dict, state: LlamaPoolState,
+                             active: torch.Tensor, cfg: LlamaConfig,
+                             block: int = 16, k_draft: int = 4,
+                             attn_len: Optional[int] = None,
+                             draft_tokens: Optional[torch.Tensor] = None,
+                             temperature: float = 0.0, top_k: int = 0,
+                             top_p: float = 1.0,
+                             rows: Optional[Tuple] = None,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Tuple[torch.Tensor, LlamaPoolState,
+                                        torch.Tensor]:
+    """Speculative ``decode_block_pooled``: every active row advances
+    ``block`` tokens in fewer sequential iterations when the drafts
+    accept (``spec_iteration``).  Greedy output equals the plain pooled
+    block's for any drafts; sampled output has its law.  The drafts are
+    ``params["draft_heads"]``'s (head j guesses position +2+j), or the
+    explicit ``draft_tokens`` (B, block) stream.  Inactive rows ride
+    along frozen.  Mis-speculated cache rows lie above ``pos`` and are
+    overwritten before any later query attends them.
+
+    ``attn_len``: every active row satisfies pos + block + k_draft + 1 <=
+    attn_len (the verifier probes up to k_draft rows past the last
+    committed token).  The caches are written in place; the returned
+    state holds new ``pos`` and ``tok``.
+
+    Returns (tokens (B, block), state, iters (B,): each row's active
+    iterations, as JAX counts them)."""
+    bufs = spec_buffers(state.pos.shape[0], block, k_draft,
+                        state.pos.device, drafts=draft_tokens is not None)
+    st = state._replace(pos=state.pos.clone(), tok=state.tok.clone())
+    run_spec_loop(
+        lambda: spec_start(bufs, active, block, draft_tokens),
+        lambda: spec_iteration(params, st, bufs, cfg, k_draft, attn_len,
+                               temperature, top_k, top_p, rows, generator),
+        bufs.flag, block)
+    return bufs.out[:, :block], st, bufs.iters

@@ -17,9 +17,12 @@ the reply of the LLM: ``--llm_backend jax`` is the in-framework Llama
 CUDA graphs at warmup; with ``--llm_pool_capacity N`` concurrent requests
 share a continuous-batching LLM pool of N slots (``serve/llm_pool.py``,
 its prefills, continuations and blocks captured at warmup), which also
-takes the overlapped ``/voicechat``.  A Llama whose meta has experts or
-draft heads is refused before anything loads.  ``--llm_backend hf`` a
-transformers model on ``--llm_device``.
+takes the overlapped ``/voicechat``.  A Llama whose meta has experts
+(``n_experts``: Mixtral-family, experts through K4 under ``--quantize
+w4``) or draft heads (``n_draft_heads``) is served as JAX serves it: the
+pool speculates with the heads at ``--llm_spec_k`` drafts, or on the
+adaptive rungs of ``--llm_spec_ladder "[0,2,4]"``.  ``--llm_backend hf``
+a transformers model on ``--llm_device``.
 ``--pool_capacity N`` serves concurrent requests through a
 continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
 ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
@@ -79,28 +82,6 @@ def replica_devices(device: str, cfg: ServeConfig) -> list:
             for i in (cfg.tts_device_1, cfg.tts_device_2)]
 
 
-def llm_refusal(cfg: ServeConfig) -> str:
-    """Why the in-framework Llama that ``cfg`` serves cannot run here, from
-    its npz's meta alone (nothing is loaded), or "": mixture-of-experts
-    layers and draft heads are not ported."""
-    import os
-
-    from llmvox_tpu_torch.utils.params import load_meta
-    if (cfg.llm_backend != "jax" or cfg.scripted_reply
-            or cfg.chat_type not in ("text", "voice")
-            or not os.path.exists(cfg.llm_jax_params + ".json")):
-        return ""
-    margs = load_meta(cfg.llm_jax_params).get("model_args", {})
-    for key, what in (("n_experts", "mixture-of-experts layers"),
-                      ("n_draft_heads", "draft heads (the pooled "
-                                        "speculative block)")):
-        if int(margs.get(key, 0)) > 0:
-            return (f"the Llama of --llm_jax_params has {key}="
-                    f"{margs[key]}: its {what} are not ported to "
-                    "llmvox_tpu_torch yet (ROADMAP queue 1 item 6)")
-    return ""
-
-
 def main(argv=None) -> None:
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.ops import quant
@@ -128,9 +109,6 @@ def main(argv=None) -> None:
     if cfg.pool_mesh_dp > 1:
         parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
                      "yet: the multi-device pool is ROADMAP queue 1 item 10")
-    refusal = llm_refusal(cfg)
-    if refusal:
-        parser.error(refusal)
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()

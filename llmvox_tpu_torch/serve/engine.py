@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from llmvox_tpu_torch.codec import codec as codec_mod
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
+from llmvox_tpu_torch.models import spec
 from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
 from llmvox_tpu_torch.utils.config import (CodecConfig, DecoderConfig,
                                            ServeConfig)
@@ -170,7 +171,7 @@ class TTSEngine:
         self._spec = bool(self.scfg.spec_decode
                           and "draft_heads" in self.params)
         if self._spec:
-            dec.check_draft_heads(self.params, self.dcfg,
+            spec.check_draft_heads(self.params, self.dcfg,
                                   self.scfg.spec_k_draft)
             self._heads = self.params["draft_heads"][
                 :self.scfg.spec_k_draft].float()
@@ -306,7 +307,7 @@ class TTSEngine:
                          for k in ("start", "iter"))
             inp, bufs = start.out
             self._fill(inp, state, text_window, text_len, limit)
-            dec.run_spec_loop(start, it, bufs.flag, block)
+            spec.run_spec_loop(start, it, bufs.flag, block)
             tokens = bufs.out[0, :block]
         else:
             g = self._blocks.get(block)

@@ -10,8 +10,14 @@ prefill's token: prefill and first block run back to back in one pool
 iteration, one fetch for the first ``1 + block`` tokens.  The same knobs
 as JAX's: the small first block, the prefill buckets and their merge,
 chunked prefill of long prompts, the shared-prefix KV cache, streaming
-prompts, per-request sampling, the attention-window ladder and the
-``pipeline_depth`` step loop.
+prompts, per-request sampling, the attention-window ladder, the
+``pipeline_depth`` step loop, and speculation: with draft heads in the
+params, ``spec_k`` serves every block as ``decode_block_spec_pooled`` at
+that depth, and ``spec_ladder`` adds rung 0 and lets
+``serve/spec_control.py::SpecController`` pick a rung at each dispatch
+from the iterations earlier blocks fetched, costed by
+``_calibrate_spec_costs`` after warmup.  Every rung gives the plain
+block's tokens (greedy) or its law (sampled).
 
 On the device:
 - One static ``LlamaPoolState`` serves every program.  Each program reads
@@ -23,9 +29,10 @@ On the device:
   per (bucket, arrival size 1 or ``PREFILL_BATCH``, prefix or not), a
   continuation per (attention rung above the top bucket, final or not)
   and a decode block per (attention rung, width ``first_block`` or
-  ``block``).  Any other shape raises, and nothing is captured while
-  serving.  The prefix rows are static too, so ``set_prefix`` is refused
-  once warmup has captured.
+  ``block``) at rung 0, or at a speculative rung an iteration per
+  (attention rung, width, rung) and a start per (width, rung).  Any other
+  shape raises, and nothing is captured while serving.  The prefix rows
+  are static too, so ``set_prefix`` is refused once warmup has captured.
 - A dispatch is split in two.  The event loop plans it (pops the pending
   prefills and the slots' block requests, updates the host's position
   bounds, builds the numpy inputs); the launch (the copies, the replays,
@@ -39,16 +46,23 @@ On the device:
   own iteration.
 - Sampled programs draw Gumbel noise from one device ``torch.Generator``,
   registered with every capture.
+- A speculative block is its start graph, then iteration graphs issued by
+  ``models/spec.py::run_spec_loop``, which waits on the card's "any
+  row active" flag one iteration behind, on the dispatch thread.  So the
+  launch of a speculative block holds the dispatch thread until its last
+  iteration but one has run; with ``pipeline_depth`` 2 the next
+  iteration is planned on the loop meanwhile and launched behind it, and
+  the block's results still come back in the iteration's one fetch (its
+  tokens, and its rows' iterations for the controller).
 
-Not ported here: the pooled speculative block and its draft heads
-(``decode_block_spec_pooled``, ROADMAP queue 1 item 6).  As in JAX,
-``spec_k`` or ``spec_ladder`` without draft heads in the params serve the
-plain block; params that carry draft heads raise.
+As in JAX, ``spec_k`` or ``spec_ladder`` without draft heads in the params
+serve the plain block.
 """
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import statistics
 import time
 import traceback
 from collections import deque
@@ -59,16 +73,12 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.models import llama
+from llmvox_tpu_torch.models.spec import check_draft_heads, run_spec_loop
+from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
                                            resolve_device)
 from llmvox_tpu_torch.utils.graphs import GraphSet, fill, settle, use_graphs
 from llmvox_tpu_torch.utils.params import to_torch
-
-DRAFT_HEADS_NOT_PORTED = (
-    "the Llama params carry draft heads: the pooled speculative block "
-    "(decode_block_spec_pooled) is not ported to llmvox_tpu_torch yet "
-    "(ROADMAP queue 1 item 6)")
-
 
 class PromptRestart(Exception):
     """Raised by a streaming-prompt producer when already-submitted ids
@@ -114,14 +124,18 @@ class _Plan:
     """One pool iteration as the loop planned it: the programs to launch
     in order, each ``(graph key, int32 inputs, sampling rows or None,
     requests its token resolves or None)``; the prefill groups and the
-    block requests it resolves; the decode block's width."""
-    __slots__ = ("items", "parts", "blocks", "width", "gather_s", "launch")
+    block requests it resolves; the decode block's width and rung, and
+    whether its rows' iterations come back for the controller."""
+    __slots__ = ("items", "parts", "blocks", "width", "rung", "observe",
+                 "gather_s", "launch")
 
     def __init__(self):
         self.items: List[Tuple] = []
         self.parts: List[List[_PrefillReq]] = []
         self.blocks: List[Tuple[int, asyncio.Future]] = []
         self.width = 0
+        self.rung = 0
+        self.observe = False
         self.gather_s = 0.0
         self.launch: Optional[concurrent.futures.Future] = None
 
@@ -162,9 +176,6 @@ class LLMPool:
                  prefill_merge: bool = True, chunked_prefill: bool = True,
                  per_request_sampling: bool = False,
                  graphs: Optional[bool] = None):
-        llama.check_dense(cfg)
-        if "draft_heads" in params:
-            raise NotImplementedError(DRAFT_HEADS_NOT_PORTED)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.B = capacity
@@ -182,16 +193,39 @@ class LLMPool:
         self.per_request = bool(per_request_sampling)
         self._samp = np.tile(np.asarray(
             [temperature, float(top_k), top_p], np.float32), (capacity, 1))
-        # speculation needs draft heads, which are refused above: spec_k
-        # and spec_ladder serve the plain block, as JAX's pool does
-        # without heads
+        # speculation (decode_block_spec_pooled) needs draft heads in the
+        # params; without them spec_k and spec_ladder serve the plain
+        # block, as JAX's pool does.  A ladder holds rung 0 and the
+        # controller moves between rungs at dispatch.
+        self.spec_k = int(spec_k)
+        ladder = tuple(int(k) for k in (spec_ladder or ()))
+        has_heads = "draft_heads" in params
+        self._adaptive = has_heads and any(k > 0 for k in ladder)
+        self.use_spec = (self.spec_k > 0 or self._adaptive) and has_heads
+        self._spec_ctl = None
+        if self._adaptive:
+            rungs = sorted({k for k in ladder if k >= 0} | {0})
+            self._spec_rungs = tuple(rungs)
+            self._spec_ctl = SpecController(
+                rungs, k0=self.spec_k if self.spec_k in rungs else None)
+        elif self.use_spec:
+            self._spec_rungs = (self.spec_k,)
+        else:
+            self._spec_rungs = (0,)
+        # the verifier writes up to k + 1 cache rows past the last
+        # committed token: the deepest rung's headroom is reserved in
+        # every capacity check, so a rung switch never changes what fits
+        self._spec_margin = (max(self._spec_rungs) + 1 if self.use_spec
+                             else 0)
         self.prefill_merge = bool(prefill_merge)
         self.chunked_prefill = bool(chunked_prefill)
         self.cache_dtype = dtype or torch.float32
         self.params = to_torch(params, self.device, dtype)
+        if self.use_spec:
+            check_draft_heads(self.params, cfg, max(self._spec_rungs))
         # prompts longer than the largest bucket chunk (or keep their
         # tail); buckets leave room for at least one decode block
-        cap = cfg.max_seq_len - block - 1
+        cap = cfg.max_seq_len - block - 1 - self._spec_margin
         self.buckets = tuple(sorted(b for b in prefill_buckets if b <= cap))
         if not self.buckets:
             self.buckets = (min(16, cap),)
@@ -219,6 +253,7 @@ class LLMPool:
         self._rows_in = torch.zeros((3 * max(self.B, nb),),
                                     dtype=torch.float32, device=self.device)
         sampled = temperature > 0 or self.per_request
+        self._spec_bufs: Dict[Tuple[int, int], llama.SpecBuffers] = {}
         self._graphs = GraphSet(
             "LLM pool", self.device, use_graphs(self.device, graphs),
             self._make, generators=(self.generator,) if sampled else ())
@@ -309,8 +344,9 @@ class LLMPool:
         self._prefix_buckets = pbuckets
 
     def _ctx_cap(self) -> int:
-        """Longest cacheable prompt: room is left for one decode block."""
-        return self.cfg.max_seq_len - self.block - 1
+        """Longest cacheable prompt: room is left for one decode block (and
+        the verifier's rows past it)."""
+        return self.cfg.max_seq_len - self.block - 1 - self._spec_margin
 
     def _chunk0_len(self, n: int, buckets: Tuple[int, ...]) -> Optional[int]:
         """First-chunk length of an n-token chunked prefill: the ragged
@@ -412,7 +448,9 @@ class LLMPool:
 
     def _make(self, key: Tuple):
         """The body of one program: ("prefill", bucket, rows, prefix),
-        ("continue", attn_len, final) or ("block", attn_len, width)."""
+        ("continue", attn_len, final), ("block", attn_len, width), or a
+        speculative block's ("spec_start", width, k) and ("spec_iter",
+        attn_len, width, k)."""
         kind = key[0]
         sample = dict(temperature=self.temperature, top_k=self.top_k,
                       top_p=self.top_p, generator=self.generator)
@@ -450,6 +488,8 @@ class LLMPool:
                 st.tok.copy_(new.tok)
                 out.copy_(first)
             return body, out
+        if kind in ("spec_start", "spec_iter"):
+            return self._make_spec(key, sample)
         _, attn, width = key
         active = self._in[:self.B]
         out = torch.zeros((self.B, width), dtype=torch.int32,
@@ -463,6 +503,37 @@ class LLMPool:
             st.tok.copy_(new.tok)
             out.copy_(toks)
         return body, out
+
+    def _make_spec(self, key: Tuple, sample: Dict):
+        """A speculative block's start (the block's buffers reset from the
+        active mask) or one iteration, over the buffers of its (width,
+        k), which hold its outputs."""
+        width, k = key[-2:]
+        if (width, k) not in self._spec_bufs:
+            self._spec_bufs[(width, k)] = llama.spec_buffers(
+                self.B, width, k, self.device)
+        bufs = self._spec_bufs[(width, k)]
+        if key[0] == "spec_start":
+            active = self._in[:self.B]
+
+            def body():
+                llama.spec_start(bufs, active.bool(), width)
+            return body, bufs
+        attn = key[1]
+
+        def body():
+            llama.spec_iteration(self.params, self.state, bufs, self.cfg, k,
+                                 attn, rows=self._rows(self.B), **sample)
+        return body, bufs
+
+    def _spec_block(self, attn: int, width: int, k: int
+                    ) -> Tuple[llama.SpecBuffers, int]:
+        """Issue one speculative block at rung ``k`` (its start, then its
+        iterations one ahead of the card's flag); returns its buffers and
+        the iterations issued."""
+        start = self._graphs.get(("spec_start", width, k))
+        it = self._graphs.get(("spec_iter", attn, width, k))
+        return start.out, run_spec_loop(start, it, start.out.flag, width)
 
     # -- planning (on the event loop) ----------------------------------
     def _add_prefill(self, plan: _Plan, tokens: np.ndarray,
@@ -621,13 +692,22 @@ class LLMPool:
                                 for i in heads)):
                     width = self.first_block
                 attn = self._attn_bucket(
-                    max(self._ub[i] for i in heads) + width)
+                    max(self._ub[i] for i in heads) + width
+                    + self._spec_margin)
                 for i in heads:
                     self._ub[i] += width
                     self.slots[i].blocks_done += 1
-                plan.width = width
-                plan.items.append((("block", attn, width), active,
-                                   self._rows_all(), plan.blocks))
+                # the rung is picked here, on the loop, where the
+                # controller also observes the fetched blocks
+                rung = (self._spec_ctl.next_k()
+                        if self._spec_ctl is not None
+                        else (self.spec_k if self.use_spec else 0))
+                plan.width, plan.rung = width, rung
+                plan.observe = rung > 0 and self._spec_ctl is not None
+                key = (("spec", attn, width, rung) if rung > 0
+                       else ("block", attn, width))
+                plan.items.append((key, active, self._rows_all(),
+                                   plan.blocks))
                 self.steps += 1
                 self.decode_steps += width
                 self.decode_tokens += width * len(heads)
@@ -654,10 +734,16 @@ class LLMPool:
             fill(self._in, host)
             if rows is not None:
                 fill(self._rows_in, rows)
-            out = self._graphs.get(key)()
+            if key[0] == "spec":
+                bufs, _ = self._spec_block(*key[1:])
+                out = bufs.out[:, :plan.width]
+            else:
+                out = self._graphs.get(key)()
             if part is not None:
                 # the key's output buffer is rewritten by its next replay
                 outs.append(out.reshape(-1).clone())
+        if plan.observe:
+            outs.append(bufs.iters.clone())
         fetch = Fetch(torch.cat(outs)) if outs else None
         self.dispatch_s += plan.gather_s + time.perf_counter() - t0
         return fetch, [o.numel() for o in outs]
@@ -673,6 +759,13 @@ class LLMPool:
         for n in sizes:
             results.append(vals[off:off + n])
             off += n
+        if plan.observe and plan.blocks:
+            # the controller's accept statistics (active rows only): each
+            # row committed ``width`` tokens over its iterations
+            iters = results.pop()
+            act = [i for i, _ in plan.blocks]
+            self._spec_ctl.observe(plan.rung, float(plan.width * len(act)),
+                                   float(sum(iters[i] for i in act)))
         for part, firsts in zip(plan.parts, results):
             for j, r in enumerate(part):
                 if not r.future.done():
@@ -764,21 +857,29 @@ class LLMPool:
 
     def stats(self) -> Dict:
         """Operational counters for GET /stats (serve/server.py)."""
-        return {
+        out = {
             "capacity": self.B,
             "active": sum(1 for s in self.slots if s.active),
             "steps": self.steps,
             "prefill_calls": self.prefill_calls,
             "block": self.block,
             "first_block": self.first_block,
-            "spec_k": 0,
+            "spec_k": self.spec_k if self.use_spec else 0,
             "prefix_cached": self._prefix_ids is not None,
             "chunked_prefill": self.chunked_prefill,
             "per_request_sampling": self.per_request,
         }
+        spec = self.spec_stats()
+        if spec is not None:
+            out["spec"] = spec
+        return out
 
     def spec_stats(self) -> Optional[Dict]:
-        """Speculation state for /stats: None (no draft heads)."""
+        """Speculation state for /stats: None when spec is off."""
+        if self._spec_ctl is not None:
+            return self._spec_ctl.stats()
+        if self.use_spec:
+            return {"k": self.spec_k, "ladder": [self.spec_k]}
         return None
 
     # -- warmup ---------------------------------------------------------
@@ -787,7 +888,9 @@ class LLMPool:
         both arrival sizes of each prefill bucket (and of each prefix
         bucket), the continuation chunks at every attention rung above
         the top bucket when long prompts chunk, and a decode block at
-        every rung and width."""
+        every attention rung, speculative rung and width: the plain block
+        at rung 0, else a speculative iteration (and the start of its
+        width and rung, once)."""
         variants = [(b, False) for b in self.buckets]
         if self._prefix_ids is not None:
             variants += [(b, True) for b in self._prefix_buckets]
@@ -799,21 +902,76 @@ class LLMPool:
                      if a > cw for fin in (False, True)]
         widths = ((self.first_block, self.block) if self.first_block
                   else (self.block,))
-        keys += [("block", a, w) for a in self.attn_buckets for w in widths]
+        for a in self.attn_buckets:
+            for rung in self._spec_rungs:
+                for w in widths:
+                    if rung == 0:
+                        keys.append(("block", a, w))
+                        continue
+                    if ("spec_start", w, rung) not in keys:
+                        keys.append(("spec_start", w, rung))
+                    keys.append(("spec_iter", a, w, rung))
         return keys
 
     def warmup(self) -> None:
         """Capture every program traffic can reach (``warmup_keys``)
         before requests arrive: on a card a CUDA graph each, without
         graphs one eager pass each.  Every input is zero, so every row is
-        inactive and nothing live is disturbed.  Then ``settle``."""
+        inactive and nothing live is disturbed.  Then, on a ladder, each
+        rung's cost (``_calibrate_spec_costs``), and ``settle``."""
         self._in.zero_()
         self._rows_in.zero_()
         for key in self.warmup_keys():
             self._graphs.capture(key)
+        if self._spec_ctl is not None and not self._spec_ctl.cost_ms:
+            self._spec_ctl.cost_ms = self._calibrate_spec_costs()
+        self._sync()
+        settle()
+
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        settle()
+
+    def _calibrate_spec_costs(self, repeats: int = 3) -> Dict[int, float]:
+        """Each rung's cost on the pool's own state and programs (warmup
+        calls it after capture): ms per ITERATION issued for a speculative
+        rung, ms per TOKEN for rung 0, every row active from position 0,
+        each block from fresh slots (positions and tokens zeroed).  Each
+        rung runs one untimed block; then ``repeats`` rounds time every
+        rung once, in an order that rotates from round to round, each
+        block alone between two device syncs; a rung's cost is the median
+        of its rounds.  The slots are left zeroed (the cache rows written
+        lie above every later request's positions until it overwrites
+        them)."""
+        attn = self._attn_bucket(self.block + self._spec_margin)
+        rungs = list(self._spec_rungs)
+
+        def run(rung: int) -> int:
+            self.state.pos.zero_()
+            self.state.tok.zero_()
+            fill(self._in, np.ones((self.B,), np.int32))
+            if self.per_request:
+                fill(self._rows_in, self._rows_all())
+            if rung == 0:
+                self._graphs.get(("block", attn, self.block))()
+                return self.block
+            return self._spec_block(attn, self.block, rung)[1]
+
+        samples: Dict[int, List[float]] = {k: [] for k in rungs}
+        for rung in rungs:
+            run(rung)
+        for r in range(repeats):
+            for rung in rungs[r % len(rungs):] + rungs[:r % len(rungs)]:
+                self._sync()
+                t0 = time.perf_counter()
+                units = run(rung)
+                self._sync()
+                samples[rung].append(
+                    (time.perf_counter() - t0) * 1000.0 / max(units, 1))
+        self.state.pos.zero_()
+        self.state.tok.zero_()
+        self._sync()
+        return {k: statistics.median(v) for k, v in samples.items()}
 
     # -- streaming generation -------------------------------------------
     async def generate(self, ids: List[int], max_tokens: int = 512,
@@ -844,9 +1002,11 @@ class LLMPool:
         in flight ahead of the consumer."""
         n_sub = 0
 
-        # block n+1 writes cache rows up to cached + (n+1)*block - 1
+        # block n+1 writes cache rows up to cached + (n+1)*block - 1 (and
+        # the verifier's rows past them under speculation)
         def room() -> bool:
-            return cached + (n_sub + 1) * self.block <= self.cfg.max_seq_len
+            return (cached + (n_sub + 1) * self.block + self._spec_margin
+                    <= self.cfg.max_seq_len)
 
         # the first block chains on the device-carried token: submitted
         # before the prefill's result is known

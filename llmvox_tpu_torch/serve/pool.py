@@ -70,6 +70,7 @@ import torch.nn.functional as F
 
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
+from llmvox_tpu_torch.models import spec
 from llmvox_tpu_torch.serve.batch import MESH_NOT_PORTED
 from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
@@ -213,7 +214,7 @@ class DecodePool:
                 rungs, k0=(self.scfg.spec_k_draft
                            if self.scfg.spec_k_draft in rungs else None))
         if self._spec:
-            dec.check_draft_heads(self.params, self.dcfg, max(rungs))
+            spec.check_draft_heads(self.params, self.dcfg, max(rungs))
             self._heads = self.params["draft_heads"][:max(rungs)].float()
         # fused first chunks vocode at the bucket of the step's largest
         # fused dump, capped here (dumps never exceed the block)
@@ -371,7 +372,7 @@ class DecodePool:
             start, it = (self._steps.get((width, k, p))
                          for p in ("start", "iter"))
             bufs = start.out
-            dec.run_spec_loop(start, it, bufs.flag, width)
+            spec.run_spec_loop(start, it, bufs.flag, width)
             self._tok[width].copy_(bufs.out[:, :width])
             return self._tok[width], bufs.count, bufs.iters
         return step

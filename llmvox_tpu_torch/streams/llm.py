@@ -128,7 +128,6 @@ class LlamaStreamModel:
                  eos_text: Optional[str] = None, seed: int = 0,
                  device="cuda", dtype: Optional[torch.dtype] = None,
                  graphs: Optional[bool] = None):
-        llama.check_dense(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cache_dtype = dtype or torch.float32

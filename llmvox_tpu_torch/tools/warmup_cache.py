@@ -23,7 +23,9 @@ only.  Two parts:
   the allocator does not name a segment's pool); with
   ``--llm_pool_capacity > 0``, the pooled LLM's (``serve/llm_pool.py``:
   each prefill bucket, arrival size and prefix variant, each
-  continuation rung, each decode block rung and width), at the geometry
+  continuation rung, each decode block rung and width, and with draft
+  heads in the meta and ``--llm_spec_k`` or ``--llm_spec_ladder`` each
+  speculative rung's start and iterations), at the geometry
   of ``--llm_jax_params``' meta (only its ``.json`` is read; the weights
   are random, drawn on the device), its system-prompt prefix from
   ``--llm_checkpoint``'s tokenizer.  CUDA graphs,
@@ -119,11 +121,14 @@ def main(argv=None) -> None:
                                        dtype=dtype))
         model.warmup()
         pool = model.pool
+        widths = sorted({k[2] for k in pool.warmup_keys()
+                         if k[0] in ("block", "spec_iter")})
         report(f"LLM pool of {pool.B} ({len(pool.warmup_keys())} programs: "
                f"prefill buckets {pool.buckets}, prefix buckets "
                f"{pool._prefix_buckets}, attn rungs {pool.attn_buckets}, "
-               f"widths {sorted({k[2] for k in pool.warmup_keys() if k[0] == 'block'})})",
-               before, t0)
+               f"widths {widths}"
+               + (f", spec rungs {list(pool._spec_rungs)}" if pool.use_spec
+                  else "") + ")", before, t0)
         del model, pool
     print(graphs.summary() + "; every serving graph captured, and "
           "discarded with this process", flush=True)

@@ -124,9 +124,9 @@ class ServeConfig:
     ``llm_per_request_sampling`` and ``llm_prefix_cache``; "hf":
     transformers on the host) or the HF multimodal streams, with the ASR
     of ``asr_backend`` ("jax": the in-framework Whisper on the card; "hf":
-    the host pipeline).  ``llm_spec_k`` and ``llm_spec_ladder`` serve the
-    plain pooled block, as JAX's do without draft heads (a Llama with
-    draft heads is refused); ``asr_enable_translation`` is parsed but not
+    the host pipeline).  ``llm_spec_k`` and ``llm_spec_ladder`` make the
+    pool speculate with the Llama's draft heads (the plain pooled block
+    without them, as JAX's); ``asr_enable_translation`` is parsed but not
     used (JAX does not use it either)."""
 
     chat_type: str = "text"  # ['text','voice','multimodal','visual_speech']

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -146,15 +146,27 @@ def init_decoder_params(seed: int, cfg: DecoderConfig) -> Dict:
 
 
 def init_llama_params(seed: int, cfg: LlamaConfig, device="cpu",
-                      dtype: torch.dtype = torch.float32) -> Dict:
-    """A dense Llama tree in the converted-checkpoint layout (HF init:
+                      dtype: torch.dtype = torch.float32,
+                      experts: bool = True) -> Dict:
+    """A Llama tree in the converted-checkpoint layout (HF init:
     normal(0.02) matrices, RMSNorm scales 1), drawn in ``dtype`` on
     ``device`` from a ``torch.Generator`` seeded with ``seed``, in a fixed
-    order, so a seed gives the same tree on every call on one device."""
-    if cfg.n_experts or cfg.n_draft_heads:
-        raise NotImplementedError(
-            "init_llama_params draws dense Llama trees only; MoE layers and "
-            "draft heads are ROADMAP queue 1 item 6")
+    order, so a seed gives the same tree on every call on one device.
+
+    The keys and shapes are JAX's ``init_llama_params``' (its PRNG cannot
+    be reproduced): with ``n_experts`` the dense ``wgate/wup/wdown`` give
+    way to ``router (C, E)`` and ``moe_wgate``, ``moe_wup`` (E, C, I) and
+    ``moe_wdown`` (E, I, C); with ``n_draft_heads`` the tree gains
+    ``draft_heads (n, C, V)``.  In the spirit of JAX's fixed key
+    positions, the draw order keeps a dense tree the same for a seed
+    whatever the draft heads (drawn last), and an MoE tree's embedding
+    and attention weights those of the dense tree (the experts come from
+    generators of their own, ``draw_llama_experts``; the head follows
+    the attention).
+
+    ``experts=False`` leaves the expert weights out, for a caller that
+    draws and quantizes them a layer at a time (``draw_llama_experts``:
+    a Mixtral-8x7B tree is 93 GB in bf16)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     l, c, hd = cfg.n_layer, cfg.n_embd, cfg.head_dim
     kvd, inter = cfg.n_kv_head * hd, cfg.intermediate_size
@@ -175,15 +187,40 @@ def init_llama_params(seed: int, cfg: LlamaConfig, device="cpu",
             "wv": norm(l, c, kvd),
             "wo": norm(l, cfg.n_head * hd, c),
             "ln2_s": ones(l, c),
-            "wgate": norm(l, c, inter),
-            "wup": norm(l, c, inter),
-            "wdown": norm(l, inter, c),
         },
         "lnf_s": ones(c),
     }
+    if not cfg.n_experts:
+        params["h"].update(wgate=norm(l, c, inter), wup=norm(l, c, inter),
+                           wdown=norm(l, inter, c))
     if not cfg.tie_embeddings:
         params["head"] = norm(c, cfg.vocab_size)
+    if cfg.n_draft_heads > 0:
+        params["draft_heads"] = norm(cfg.n_draft_heads, c, cfg.vocab_size)
+    if cfg.n_experts and experts:
+        params["h"].update(draw_llama_experts(seed + 1, cfg, range(l),
+                                              device, dtype))
     return params
+
+
+def draw_llama_experts(seed: int, cfg: LlamaConfig, layers: Sequence[int],
+                       device="cpu", dtype: torch.dtype = torch.float32
+                       ) -> Dict:
+    """The expert weights of ``layers`` of an MoE Llama, stacked on a
+    layer axis: ``router``, ``moe_wgate``, ``moe_wup``, ``moe_wdown``.
+    Layer i is drawn from its own generator (``seed`` * 1000003 + i), so
+    a layer's weights are the same whichever layers are drawn with it."""
+    c, e, inter = cfg.n_embd, cfg.n_experts, cfg.intermediate_size
+    shapes = {"router": (c, e), "moe_wgate": (e, c, inter),
+              "moe_wup": (e, c, inter), "moe_wdown": (e, inter, c)}
+    out = {k: [] for k in shapes}
+    for i in layers:
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 1000003 + int(i))
+        for k, shape in shapes.items():
+            out[k].append(torch.randn(shape, generator=gen, device=device,
+                                      dtype=dtype).mul_(0.02))
+    return {k: torch.stack(v) for k, v in out.items()}
 
 
 def init_whisper_params(seed: int, cfg: WhisperConfig, device="cpu",

@@ -288,6 +288,47 @@ def test_k4_model_matches_plain_and_pallas(m, cin, cout, group, n_kw,
     np.testing.assert_allclose(got.float().numpy(), want, **K4_TOL[dtype])
 
 
+def _cancelling_rows(wb, n_rows, rng):
+    """Row r of x made so that output (r, r % Cout) sums to about 0 from
+    terms that are not: the first half of the products all take one sign
+    and the second half the other, scaled to cancel the first (the
+    running f32 sum climbs to ~Cin/2 * E|x w| and comes back)."""
+    cin, cout = wb.shape
+    h = cin // 2
+    x = np.zeros((n_rows, cin))
+    for r in range(n_rows):
+        col = wb[:, r % cout].numpy()
+        a = rng.uniform(0.5, 1.5, cin)
+        s1 = (np.abs(col[:h]) * a[:h]).sum()
+        s2 = (np.abs(col[h:]) * a[h:]).sum()
+        x[r, :h] = np.sign(col[:h]) * a[:h]
+        x[r, h:] = -np.sign(col[h:]) * a[h:] * s1 / s2
+    return x
+
+
+def test_k4_f32_bound_holds_where_the_fixed_tolerance_is_too_tight():
+    """Phase 11's f32 check of K4 (``chip_smoke.k4_f32_check``) on K4's
+    replayed order of work at Cin 14336 (the Llama's wdown, groups of 256,
+    8 ranks, 4 k-warp groups): K4's model and the plain version each lie
+    within sqrt(Cin) * 2^-24 * sum |x||w| of the f64 product at every
+    output; on rows whose outputs cancel to about 0 they part from each
+    other by more than the old fixed 1e-5 (absolute and relative)."""
+    import chip_smoke
+    cin, cout = 14336, 16
+    w = tq.quantize_weight4(0.02 * torch.randn(
+        cin, cout, generator=torch.Generator().manual_seed(11)), 256)
+    wb = tq.dequantize(w, torch.float32).to(torch.bfloat16).double()
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(np.concatenate([
+        _cancelling_rows(wb, 16, rng),
+        rng.standard_normal((16, cin))]).astype(np.float32))
+    got = k4_model(x, w.q, w.s, n_kw=4)
+    r = chip_smoke.k4_f32_check(x, w.q, w.s, got, "k4 model, Cin 14336")
+    assert r["k4_ratio"] <= 1.0 and r["plain_ratio"] <= 1.0
+    assert r["old_tol_fails"] > 0, r
+    assert r["max_abs_err"] > 1e-5, r
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: CPU path and refusals unchanged
 # ---------------------------------------------------------------------------

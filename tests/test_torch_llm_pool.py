@@ -1348,27 +1348,36 @@ def test_factory_builds_the_pooled_stream(tmp_path):
 
 
 def test_draft_heads_and_experts_are_refused(tmp_path, capsys):
-    """Params with draft heads raise naming ROADMAP item 6, as configs
-    with experts or draft heads do; the CLI refuses both from the meta
-    before it loads anything."""
-    from llmvox_tpu_torch.serve import __main__ as cli
+    """What this test once refused is ported: a pool over params with
+    draft heads speculates (``spec_k``) and streams the plain pool's
+    tokens; an MoE config pools with JAX's tokens; npz metas with experts
+    or draft heads go through the factory (the CLI no longer refuses
+    them).  Without a card the pool still refuses the default device."""
     params = _np(CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tlp.LLMPool({**params, "draft_heads": np.zeros((2, 32, 128),
-                                                       np.float32)},
-                    _tc(CFG), device="cpu")
+    hcfg = dataclasses.replace(CFG, n_draft_heads=2)
+    heads = _np(hcfg)
+    spec = tlp.LLMPool(heads, _tc(hcfg), capacity=2, block=4,
+                       prefill_buckets=(16,), spec_k=2, device="cpu")
+    assert spec.use_spec and spec.stats()["spec"] == {"k": 2, "ladder": [2]}
+    plain = tlp.LLMPool(heads, _tc(hcfg), capacity=2, block=4,
+                        prefill_buckets=(16,), device="cpu")
+    assert _generate(spec, PROMPTS[:2], 9) == _generate(plain, PROMPTS[:2],
+                                                        9)
+    mcfg = dataclasses.replace(CFG, n_experts=4, moe_capacity_factor=2.0)
+    got, want, _ = _both(_np(mcfg), lambda pool: _generate(pool, PROMPTS,
+                                                           9),
+                         mcfg, capacity=4, block=4, prefill_buckets=(16,))
+    assert got == want
     for kw in ({"n_experts": 2}, {"n_draft_heads": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlp.LLMPool(params, dataclasses.replace(_tc(CFG), **kw),
-                        device="cpu")
-        npz = _npz(tmp_path, CFG, **kw)
-        assert "ROADMAP queue 1 item 6" in cli.llm_refusal(_serve_cfg(npz))
-        with pytest.raises(SystemExit):
-            cli.main(["--device", "cpu", "--random_seed", "0",
-                      "--llm_backend", "jax", "--llm_jax_params", npz,
-                      "--llm_pool_capacity", "2"])
-        assert "item 6" in capsys.readouterr().err
-    assert cli.llm_refusal(_serve_cfg(_npz(tmp_path, CFG))) == ""
+        jcfg = dataclasses.replace(CFG, max_seq_len=256, vocab_size=384,
+                                   **kw)
+        from llmvox_tpu.train.checkpoint import save_params_npz
+        npz = str(tmp_path / "llama.npz")
+        save_params_npz(npz, _np(jcfg), meta={"model_args": {
+            **{k: getattr(jcfg, k) for k in MARGS}, **kw}})
+        model = tllm.build_llama_stream(_serve_cfg(npz), device="cpu")
+        assert model.pool.cfg == _tc(jcfg)
+        assert model.pool.use_spec == ("n_draft_heads" in kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tlp.LLMPool(params, _tc(CFG))

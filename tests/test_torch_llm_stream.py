@@ -298,22 +298,29 @@ def test_every_llm_launch_is_on_the_dispatch_thread(npz, monkeypatch):
 
 
 def test_what_is_not_ported_raises(npz, tmp_path):
+    """What this test once refused is ported: npz metas with experts
+    (``n_experts``) and with draft heads (``n_draft_heads``) serve from the
+    B=1 stream with JAX's text, and the pooled stream speculates with the
+    heads; without a card the stream still refuses the default device."""
+    from llmvox_tpu.utils.config import ServeConfig as JServeConfig
     params = tparams.load_params_npz(npz)
-    # the pooled LLM is ported; its speculative block (draft heads) is not
     assert isinstance(_port(npz, llm_pool_capacity=4),
                       llm.PooledLlamaStreamModel)
-    from llmvox_tpu_torch.serve.llm_pool import LLMPool
-    heads = np.zeros((2, CFG.n_embd, CFG.vocab_size), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMPool({**params, "draft_heads": heads},
-                tl.LlamaConfig(**{k: getattr(CFG, k) for k in MARGS}),
-                device="cpu")
-    for kw in ({"n_experts": 2}, {"n_draft_heads": 2}):
-        cfg = dataclasses.replace(tl.LlamaConfig(**{k: getattr(CFG, k)
-                                                    for k in MARGS}), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            llm.LlamaStreamModel(params, cfg, llm.ByteTokenizer(),
-                                 device="cpu")
+    for kw in ({"n_experts": 4, "moe_capacity_factor": 2.0},
+               {"n_draft_heads": 2}):
+        jcfg = dataclasses.replace(CFG, **kw)
+        path = str(tmp_path / f"{sorted(kw)[0]}.npz")
+        save_params_npz(path, jax.device_get(jl.init_llama_params(
+            jax.random.PRNGKey(1), jcfg)), meta={"model_args": {
+                **{k: getattr(CFG, k) for k in MARGS}, **kw}})
+        model = _port(path, llm_max_tokens=12)
+        assert isinstance(model, llm.LlamaStreamModel)
+        assert model.cfg == tl.LlamaConfig(**dataclasses.asdict(jcfg))
+        want = list(jax_llm.build_jax_stream(_llm_cfg(
+            JServeConfig, path, llm_max_tokens=12)).predict(REQUEST))
+        assert list(model.predict(REQUEST)) == want
+        pooled = _port(path, llm_pool_capacity=2, llm_spec_k=2)
+        assert pooled.pool.use_spec == ("n_draft_heads" in kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             llm.LlamaStreamModel(params, tl.LlamaConfig(
