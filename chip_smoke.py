@@ -184,11 +184,37 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      2 chosen experts' bytes a layer), one ``/tts`` on the B=1 stream
      and a burst of 4 on an 8-slot pool, K4's launches (28 a layer per
      token step and per prefill program), 0 captures while serving.
-Then a JSON line with phase 14's numbers, one with phase 16's, one with
-phase 15's, one with phase 17's, one with phase 18's, one with the
-kernels' numbers (each kernel's launches on every served path, the new
-phases' among them), the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``.
+ 19. decoder training (``llmvox_tpu_torch/train``), run right after phase
+     3: (a) at the deployed width with 4 draft heads, B=2, T=512, in f32,
+     the loss and every gradient of a bucketed and a packed batch on the
+     card against the CPU's plain path, then 3 updates (k=2, clipping
+     active, the first a no-op under warmup) with the params held to the
+     CPU's, each tolerance printed beside its error; (b) bf16 at the
+     deployed shape (``TrainConfig()``: batch 2, accumulation 4), bucketed
+     at T=8192 and packed at pack_len 8192, remat off and on: ms a
+     micro-step and an update, tokens/s, MFU against the H100's dense bf16
+     peak, the bound (``estimate_mfu``'s FLOPs over that peak), peak
+     memory, and (remat off) one micro-step under ``torch.profiler``: the
+     device's busy share and its time by kernel class; the loss going
+     down over 40 updates on one fixed batch; then, at T=8192 on the
+     trained params, the bf16 loss of a bucketed and a packed batch
+     against the f32 loss on the card, the packed loss against its
+     unpacked twin (each sentence in a row of its own), and the bf16
+     attention with and without the packed segments, forward and
+     backward, against the port's plain f32 version (with the error a
+     mask that leaked across sentences would show);
+     (c) ``python -m llmvox_tpu_torch.train`` in a subprocess: 4
+     micro-steps with a checkpoint, ``--init_from resume`` carrying
+     ``iter_num``, and the checkpoint serving one offline ``tts``;
+     (d) ``sample_block`` from the trained params: top-k 1 equal to
+     ``decode_block``'s greedy tokens, two seeds at temperature 1 drawing
+     different tokens, K1's launches (K1's ``train_launches``).
+Then a JSON line with phase 19's numbers (printed after it), one with
+phase 14's, one with phase 16's, one with phase 15's, one with phase
+17's, one with phase 18's, one with the kernels' numbers (each kernel's
+launches on every served path, the new phases' among them), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -655,6 +681,524 @@ def phase_offline(dcfg=None, ccfg=None, device="cuda") -> tuple:
         + ", ".join(f"{b}: {ms:.1f}" for b, ms in synth_ms.items()))
     assert captures() == n_cap, "a CUDA graph was captured after warmup"
     return engines, weights
+
+
+# ---------------------------------------------------------------------------
+# phase 19: decoder training
+# ---------------------------------------------------------------------------
+
+TRAIN_CHECK_T = 512      # the f32 card-vs-CPU check's sequence width
+TRAIN_HEADS = 4          # draft heads trained in the f32 check
+TRAIN_LOSS_STEPS = 40    # micro-steps of the loss-goes-down run
+# f32, TF32 off, against the CPU's plain path: the loss to 1e-5 relative;
+# each gradient to 1e-4 of that tensor's largest |gradient| (sums over
+# 1024 tokens in other orders, SDPA's f32 kernel against the naive
+# softmax); the params after 3 updates at lr 1e-3 to 1e-5 (1% of a step)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+# bf16 at T=8192 against f32 on the card: the loss, a mean over ~16k
+# targets in which the roundings (~4e-3 each) average out, to 1e-3
+# relative, below what attention across the packed sentences moves it
+# (which the phase asserts); the attention's output to 2e-2 (|o| up to ~3
+# on N(0,1) inputs) and each input's gradient to 5e-2 of its largest
+# |gradient|; a mask that leaked across sentences must miss the output by
+# more than 10 times its tolerance
+TRAIN_BF16_RTOL = 1e-3
+ATTN_BF16_ATOL = 2e-2
+ATTN_BF16_GRAD_RTOL = 5e-2
+
+
+def synthetic_samples(n: int, seed: int, max_codes: int, cfg) -> list:
+    """Sentences drawn from a seed: lengths up to ``max_codes`` (so at most
+    ``max_codes + 1`` positions with the EOA), byte-range text ids about a
+    fifth as many, and codes from a Zipf-like law over the vocabulary
+    (p(i) ~ 1 / (i + 10), entropy 7.09 nats at 4096 codes against 8.32 for
+    uniform ones), since a codec's codes are far from uniform."""
+    from llmvox_tpu_torch.train.data import Sample
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (np.arange(cfg.vocab_size) + 10.0)
+    p /= p.sum()
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(max(1, max_codes // 16), max_codes + 1))
+        out.append(Sample(
+            text_ids=rng.integers(3, 259, max(1, m // 5)).astype(np.int32),
+            codes=rng.choice(cfg.vocab_size, m, p=p).astype(np.int32)))
+    return out
+
+
+def _grads(tr, batch) -> tuple:
+    """The loss and every gradient of one batch, without an update."""
+    loss = tr.loss(batch, train=True)
+    loss.backward()
+    grads = {}
+    for name, p in zip(tr.names, tr.opt.params):
+        grads[name] = p.grad.detach().cpu().numpy()
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _train_f32_check(cfg, table, codebook, device, t: int) -> dict:
+    """(a) f32 training on the card against the CPU's plain path on the
+    same params and batches: loss and gradients of a bucketed and a packed
+    batch, then 3 updates (k=2, clipping active, the first under warmup)."""
+    from llmvox_tpu_torch.train.data import collate, collate_packed
+    from llmvox_tpu_torch.train.trainer import Trainer
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.config import TrainConfig
+    cfg = dataclasses.replace(cfg, n_draft_heads=TRAIN_HEADS)
+    params = P.init_decoder_params(19, cfg)
+    tcfg = TrainConfig(batch_size=2, gradient_accumulation_steps=2,
+                       learning_rate=1e-3, warmup_iters=1, grad_clip=0.1)
+    card = Trainer(tcfg, cfg, table, codebook, compute_dtype=torch.float32,
+                   device=device, params=params)
+    cpu = Trainer(tcfg, cfg, table, codebook, compute_dtype=torch.float32,
+                  device="cpu", params=params)
+    samples = synthetic_samples(16, 190, t - 1, cfg)
+    longest = max(samples, key=lambda s: len(s.codes))
+    batches = [collate([longest, samples[0]], cfg, bucket=t),
+               collate_packed(samples, cfg, rows=2, seq_len=t)[:4]]
+    assert batches[0][0].shape == batches[1][0].shape == (2, t)
+    out = {}
+    for name, batch in zip(("bucketed", "packed"), batches):
+        lc, gc = _grads(card, batch)
+        lp, gp = _grads(cpu, batch)
+        rel = abs(lc - lp) / abs(lp)
+        worst = max((np.abs(gc[k] - gp[k]).max() / max(np.abs(gp[k]).max(),
+                                                      1e-30), k) for k in gp)
+        norm = float(np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                                 for g in gp.values())))
+        log(f"[train] f32 {name} (2 x {t}, {TRAIN_HEADS} draft heads), card "
+            f"vs CPU: loss {lc:.6f} / {lp:.6f}, rel err {rel:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); gradients, worst max|err| / max|g| "
+            f"{worst[0]:.2e} at {worst[1]} over {len(gp)} tensors (tol "
+            f"{TRAIN_GRAD_RTOL:.0e}); gradient norm {norm:.3f} (clip "
+            f"{tcfg.grad_clip})")
+        assert rel <= TRAIN_LOSS_RTOL, (name, lc, lp)
+        assert worst[0] <= TRAIN_GRAD_RTOL, (name, worst)
+        assert norm > tcfg.grad_clip, "the clip would not be active"
+        out[name] = {"loss_rel_err": rel, "grad_rel_err": float(worst[0]),
+                     "grad_norm": norm}
+    start = {n: p.detach().cpu().numpy().copy()
+             for n, p in zip(cpu.names, cpu.opt.params)}
+    losses = []
+    for i in range(3 * tcfg.gradient_accumulation_steps):
+        batch = batches[i % 2]
+        losses.append((card.step(*batch), cpu.step(*batch)))
+        if i == tcfg.gradient_accumulation_steps - 1:
+            # the first update runs at lr_schedule(0) = 0 under warmup
+            for n, p in zip(card.names, card.opt.params):
+                assert np.array_equal(p.detach().cpu().numpy(), start[n]), n
+    err = max(abs(a - b) / abs(b) for a, b in losses)
+    perr = max((float(np.abs(pc.detach().cpu().numpy()
+                              - pp.detach().numpy()).max()), n)
+               for n, pc, pp in zip(card.names, card.opt.params,
+                                    cpu.opt.params))
+    moved = max(float(np.abs(pp.detach().numpy() - start[n]).max())
+                for n, pp in zip(cpu.names, cpu.opt.params))
+    log(f"[train] f32, 6 micro-steps (k=2: 3 updates, the first a no-op "
+        f"under warmup, clip {tcfg.grad_clip}): losses' worst rel err "
+        f"{err:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); params' max|err| "
+        f"{perr[0]:.2e} at {perr[1]} (tol {TRAIN_PARAM_ATOL:.0e}; the params "
+        f"moved up to {moved:.2e})")
+    assert err <= TRAIN_LOSS_RTOL, losses
+    assert perr[0] <= TRAIN_PARAM_ATOL, perr
+    assert moved > 10 * TRAIN_PARAM_ATOL, moved
+    out.update(step_loss_rel_err=err, param_abs_err=perr[0],
+               param_moved=moved)
+    return out
+
+
+def _train_times(cfg, table, codebook, device, t: int, params,
+                 work: str) -> dict:
+    """(b) bf16 training at the deployed shape: TrainConfig()'s batch 2 and
+    accumulation 4, bucketed at T=t and packed at pack_len t, remat off
+    and on, on a dataset that ``save_prepared`` wrote; per configuration
+    one update of warmup, then two updates timed micro-step by micro-step
+    (host clock, each ending in the loss's fetch), and with remat off one
+    more micro-step under ``torch.profiler`` (``_profile_micro``)."""
+    from llmvox_tpu_torch.train.data import (BatchIterator,
+                                             PackedBatchIterator,
+                                             SpeechDataset, save_prepared)
+    from llmvox_tpu_torch.train.trainer import (H100_PEAK_FLOPS, Trainer,
+                                                estimate_mfu)
+    from llmvox_tpu_torch.utils.config import TrainConfig
+    path = os.path.join(work, "long.npz")
+    save_prepared(path, synthetic_samples(64, 191, t - 1, cfg))
+    data = SpeechDataset(path)
+    tcfg = TrainConfig()
+    k = tcfg.gradient_accumulation_steps
+    out = {}
+    for layout in ("bucketed", "packed"):
+        it = (iter(BatchIterator(data, cfg, tcfg.batch_size, bucket=t,
+                                 seed=tcfg.seed)) if layout == "bucketed"
+              else iter(PackedBatchIterator(data, cfg, tcfg.batch_size, t,
+                                            seed=tcfg.seed)))
+        batches = [next(it) for _ in range(3 * k)]
+        for remat in (False, True):
+            mcfg = dataclasses.replace(cfg, remat_layers=remat)
+            _sync(device)
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(tcfg, mcfg, table, codebook, device=device,
+                         params=params)
+            for b in batches[:k]:
+                tr.step(*b)
+            ms = []
+            for b in batches[k:]:
+                t0 = time.perf_counter()
+                tr.step(*b)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            micro = statistics.median(
+                [m for i, m in enumerate(ms) if (i + 1) % k])
+            update = statistics.median(ms[k - 1::k])
+            cycle = sum(ms) / (len(ms) / k)
+            tokens = tcfg.batch_size * t
+            real = sum(int((b[1] != cfg.ignore_index).sum())
+                       for b in batches[k:]) / len(ms)
+            bound = estimate_mfu(mcfg, tr.n_params, tokens, 1.0,
+                                 seq_len=t) * 1e3
+            mfu = estimate_mfu(mcfg, tr.n_params, tokens * k, cycle / 1e3,
+                               seq_len=t)
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    if torch.device(device).type == "cuda" else 0.0)
+            name = f"{layout} remat {'on' if remat else 'off'}"
+            log(f"[train] bf16 {name}, 2 x {t}, k={k}: micro-step "
+                f"{micro:.2f} ms, micro-step with the update "
+                f"{update:.2f} ms, an update (k micro-steps) {cycle:.2f} ms; "
+                f"{tokens * k / cycle * 1e3:.0f} tokens/s "
+                f"({real / micro * 1e3:.0f} target tokens/s); MFU "
+                f"{mfu * 100:.2f}% of {H100_PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+                f"bound {bound:.2f} ms a micro-step "
+                f"({bound / micro * 100:.1f}% of it); peak "
+                f"{peak:.2f} GiB")
+            out[name] = {"micro_ms": micro, "update_step_ms": update,
+                         "update_ms": cycle,
+                         "tokens_per_s": tokens * k / cycle * 1e3,
+                         "mfu": mfu, "bound_ms": bound, "peak_gib": peak,
+                         "target_tokens": real}
+            if not remat:
+                out[name]["profile"] = _profile_micro(tr, batches[k], name)
+            del tr
+    return out
+
+
+def _profile_micro(tr, batch, name: str) -> dict:
+    """One micro-step under ``torch.profiler``: its wall time, the device's
+    busy time (the sum of the kernels' own times) and that time by kernel
+    class: GEMMs, attention, and the rest (elementwise, norms, the loss)."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(tr.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(*batch)
+        _sync(tr.device)
+        wall = (time.perf_counter() - t0) * 1e3
+    classes = {"gemm_ms": 0.0, "attention_ms": 0.0, "other_ms": 0.0}
+    top = []
+    for e in prof.key_averages():
+        # the kernels themselves: an op's entry repeats its kernels' time
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        low = e.key.lower()
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
+                                  "nvjet", "gemv")):
+            classes["gemm_ms"] += ms
+        elif any(w in low for w in ("fmha", "flash", "attention",
+                                    "mem_eff")):
+            classes["attention_ms"] += ms
+        else:
+            classes["other_ms"] += ms
+        top.append((ms, e.key[:100]))
+    busy = sum(classes.values())
+    top.sort(reverse=True)
+    log(f"[train] profile of one bf16 {name} micro-step: wall {wall:.2f} "
+        f"ms, device busy {busy:.2f} ms ({busy / wall * 100:.1f}%); "
+        + ", ".join(f"{c[:-3]} {ms:.2f} ms" for c, ms in classes.items())
+        + "; top kernels: " + "; ".join(f"{n} {ms:.2f} ms"
+                                        for ms, n in top[:4]))
+    return {"wall_ms": wall, "busy_ms": busy, **classes,
+            "top": [[n, ms] for ms, n in top[:8]]}
+
+
+def _unpacked_twin(batch, cfg) -> tuple:
+    """A packed batch's sentences, each in a row of its own as wide as the
+    packed rows (``collate``'s layout)."""
+    text, targets, seg, _ = batch
+    rows = [(r, s) for r in range(seg.shape[0])
+            for s in range(1, int(seg[r].max()) + 1)]
+    tt = np.full((len(rows), seg.shape[1]), cfg.pad_token_id, np.int32)
+    tg = np.full((len(rows), seg.shape[1]), cfg.ignore_index, np.int32)
+    for i, (r, s) in enumerate(rows):
+        sel = seg[r] == s
+        tt[i, :sel.sum()], tg[i, :sel.sum()] = text[r, sel], targets[r, sel]
+    return tt, tg
+
+
+def _train_bf16_check(tr, table, codebook, t: int) -> dict:
+    """bf16 at the deployed shape against f32 on the card, on ``tr``'s
+    (trained) params: the loss of a bucketed and a packed batch at width
+    t, the packed loss against its unpacked twin in both dtypes, and the
+    packed loss with the segments dropped (what a mask that leaked across
+    sentences would give); then ``_attention_bf16_check`` on the packed
+    batch's segments."""
+    from llmvox_tpu_torch.train.data import collate, collate_packed
+    from llmvox_tpu_torch.train.trainer import Trainer
+    cfg = tr.mcfg
+    f32 = Trainer(tr.tcfg, cfg, table, codebook, compute_dtype=torch.float32,
+                  device=tr.device, params=tr.params)
+    samples = synthetic_samples(16, 194, t - 1, cfg)
+    longest = max(samples, key=lambda s: len(s.codes))
+    packed = collate_packed(samples, cfg, rows=2, seq_len=t)[:4]
+    leak = packed[:2] + (np.minimum(packed[2], 1), packed[3])
+    batches = {"bucketed": collate([longest, samples[0]], cfg, bucket=t),
+               "packed": packed, "twin": _unpacked_twin(packed, cfg),
+               "leak": leak}
+    with torch.no_grad():
+        loss = {(name, dt): float(trainer.loss(b, train=False))
+                for name, b in batches.items()
+                for dt, trainer in (("bf16", tr), ("f32", f32))}
+    del f32
+
+    def rel(a, b):
+        return abs(loss[a] - loss[b]) / abs(loss[b])
+
+    out = {"losses": {f"{n} {d}": v for (n, d), v in loss.items()},
+           "bucketed_rel_err": rel(("bucketed", "bf16"), ("bucketed", "f32")),
+           "packed_rel_err": rel(("packed", "bf16"), ("packed", "f32")),
+           "twin_f32_rel_err": rel(("packed", "f32"), ("twin", "f32")),
+           "twin_bf16_rel_err": rel(("packed", "bf16"), ("twin", "bf16")),
+           "leak_f32_rel_err": rel(("leak", "f32"), ("twin", "f32"))}
+    n_sent = batches["twin"][0].shape[0]
+    log(f"[train] bf16 against f32 on the card at 2 x {t} (trained params): "
+        f"bucketed loss {loss['bucketed', 'bf16']:.5f} / "
+        f"{loss['bucketed', 'f32']:.5f}, rel err "
+        f"{out['bucketed_rel_err']:.2e} (tol {TRAIN_BF16_RTOL:.0e}); packed "
+        f"{loss['packed', 'bf16']:.5f} / {loss['packed', 'f32']:.5f}, rel err "
+        f"{out['packed_rel_err']:.2e} (tol {TRAIN_BF16_RTOL:.0e}); packed "
+        f"against its unpacked twin ({n_sent} sentences in rows of their "
+        f"own): f32 rel err {out['twin_f32_rel_err']:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL:.0e}), bf16 {out['twin_bf16_rel_err']:.2e} (tol "
+        f"{TRAIN_BF16_RTOL:.0e}); the segments dropped (attention across "
+        f"sentences) would miss the twin by {out['leak_f32_rel_err']:.2e} "
+        f"(> tol {TRAIN_BF16_RTOL:.0e})")
+    assert out["bucketed_rel_err"] <= TRAIN_BF16_RTOL, out
+    assert out["packed_rel_err"] <= TRAIN_BF16_RTOL, out
+    assert out["twin_f32_rel_err"] <= TRAIN_LOSS_RTOL, out
+    assert out["twin_bf16_rel_err"] <= TRAIN_BF16_RTOL, out
+    assert out["leak_f32_rel_err"] > TRAIN_BF16_RTOL, out
+    out["attention"] = _attention_bf16_check(packed[2], cfg, tr.device)
+    return out
+
+
+def _attention_bf16_check(segments: np.ndarray, cfg, device) -> dict:
+    """The training attention on the card in bf16 (``causal_attention_auto``:
+    SDPA) at the packed batch's shape (B, T, n_head, head_dim), causal and
+    with its segments, forward and backward, against the port's plain
+    blockwise f32 version (``flash_causal_attention``, which the tests
+    hold to JAX) on the same bf16 inputs, N(0, 1) from a seed; and the
+    causal output against the packed reference: the error a mask that let
+    tokens attend across sentences would show."""
+    from llmvox_tpu_torch.ops import attention as A
+    dev = torch.device(device)
+    b, t = segments.shape
+    g = torch.Generator(device=dev).manual_seed(195)
+    q, k, v, do = (torch.randn((b, t, cfg.n_head, cfg.head_dim),
+                               generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    seg = torch.as_tensor(segments).to(dev)
+    out, outs = {}, {}
+    for name, s in (("causal", None), ("packed", seg)):
+        got, ref = [], []
+        for fn, dt in ((A.causal_attention_auto, torch.bfloat16),
+                       (A.flash_causal_attention, torch.float32)):
+            x = [z.to(dt).detach().requires_grad_() for z in (q, k, v)]
+            o = fn(*x, segments=s)
+            o.backward(do.to(dt))
+            (got if dt == torch.bfloat16 else ref).extend(
+                [o.detach().float()] + [z.grad.float() for z in x])
+            del o, x
+        outs[name] = (got[0], ref[0])
+        err = float((got[0] - ref[0]).abs().max())
+        gerr = max(float((a - r).abs().max() / r.abs().max())
+                   for a, r in zip(got[1:], ref[1:]))
+        out[name] = {"out_abs_err": err, "grad_rel_err": gerr}
+        log(f"[train] bf16 attention {name} ({b} x {t}, {cfg.n_head} heads "
+            f"of {cfg.head_dim}) against the plain f32 version: output "
+            f"max|err| {err:.2e} (tol {ATTN_BF16_ATOL:.0e}); dq, dk, dv worst "
+            f"max|err| / max|g| {gerr:.2e} (tol {ATTN_BF16_GRAD_RTOL:.0e})")
+        assert err <= ATTN_BF16_ATOL, (name, err)
+        assert gerr <= ATTN_BF16_GRAD_RTOL, (name, gerr)
+        del got, ref
+    leak = float((outs["causal"][0] - outs["packed"][1]).abs().max())
+    out["leak_out_abs_err"] = leak
+    log(f"[train] a mask leaking across the packed sentences would miss the "
+        f"packed output by {leak:.2e} (> 10 x tol {ATTN_BF16_ATOL:.0e})")
+    assert leak > 10 * ATTN_BF16_ATOL, leak
+    return out
+
+
+def _train_loss_down(cfg, table, codebook, device, t: int, params):
+    """Loss going down: one fixed bucketed batch at width t, bf16, k=1,
+    warmup 0, TRAIN_LOSS_STEPS micro-steps."""
+    from llmvox_tpu_torch.train.data import collate
+    from llmvox_tpu_torch.train.trainer import Trainer
+    from llmvox_tpu_torch.utils.config import TrainConfig
+    tcfg = TrainConfig(gradient_accumulation_steps=1, warmup_iters=0,
+                       learning_rate=1e-3)
+    tr = Trainer(tcfg, cfg, table, codebook, device=device, params=params)
+    batch = collate(synthetic_samples(2, 192, t - 1, cfg), cfg, bucket=t)
+    losses = [tr.step(*batch) for _ in range(TRAIN_LOSS_STEPS)]
+    log(f"[train] loss on one fixed batch (2 x {batch[0].shape[1]}, bf16, "
+        f"lr 1e-3): {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{TRAIN_LOSS_STEPS} updates")
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0] - 1.0, losses
+    return tr, losses
+
+
+def _train_cli(weights, device, root: str, work: str) -> dict:
+    """(c) ``python -m llmvox_tpu_torch.train`` in a subprocess on an npz
+    that ``save_prepared`` wrote: 4 micro-steps (a checkpoint at 2), then
+    ``--init_from resume`` to 6; the checkpoint's params then serve one
+    offline ``tts``."""
+    from llmvox_tpu_torch.train.checkpoint import save_params_npz
+    from llmvox_tpu_torch.train.data import save_prepared
+    from llmvox_tpu_torch.utils import params as P
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    data = os.path.join(work, "data.npz")
+    save_prepared(data, synthetic_samples(16, 193, 400, dcfg))
+    np.savez(os.path.join(work, "byt5.npz"), table=table)
+    # the CLI reads only the codec's codebooks
+    save_params_npz(os.path.join(work, "codec.npz"),
+                    {"codebooks": codec_p["codebooks"]})
+    out = os.path.join(work, "out")
+    args = [sys.executable, "-m", "llmvox_tpu_torch.train",
+            "--data_path", data, "--out_dir", out,
+            "--byt5_table", os.path.join(work, "byt5.npz"),
+            "--codec_params", os.path.join(work, "codec.npz"),
+            "--batch_size", "2", "--gradient_accumulation_steps", "2",
+            "--eval_interval", "2", "--eval_iters", "1", "--bucket", "256",
+            "--device", str(device)]
+    # the decoder's fields where they are not the defaults (only a
+    # rehearsal at a small size has any)
+    default = type(dcfg)()
+    for f in dataclasses.fields(dcfg):
+        if getattr(dcfg, f.name) != getattr(default, f.name):
+            args += [f"--{f.name}", str(getattr(dcfg, f.name))]
+    runs = []
+    for extra in (["--max_iters", "4"],
+                  ["--max_iters", "6", "--init_from", "resume"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(args + extra, cwd=root, capture_output=True,
+                              text=True, timeout=300)
+        runs.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise RuntimeError(f"training CLI failed:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        text = proc.stdout
+    assert "resumed at iter 2" in text, text
+    ckpt = os.path.join(out, "ckpt.npz")
+    meta = P.load_meta(ckpt)
+    assert meta["iter_num"] == 4, meta["iter_num"]
+    losses = [line for line in text.splitlines() if "loss" in line]
+    log(f"[train] CLI: 4 micro-steps in {runs[0]:.1f} s, resumed at iter 2 "
+        f"to 6 in {runs[1]:.1f} s (checkpoint at iter {meta['iter_num']}); "
+        f"last lines: {losses[-2:]}")
+    trained = P.load_params_npz(ckpt)
+    tcfg = type(dcfg)(**{k: v for k, v in meta["model_args"].items()
+                         if k in type(dcfg).__dataclass_fields__})
+    eng = make_engine((trained, codec_p, table, tcfg, ccfg, scfg), device,
+                      torch.bfloat16, graphs=False)
+    wav, toks = eng.tts(TEXT, max_tokens=64)
+    n = synth_len(toks, tcfg.eoa_token_id)
+    assert n > 0 and np.isfinite(wav).all(), (len(toks), n)
+    assert len(wav) == ccfg.hop_length * n
+    log(f"[train] the CLI's checkpoint served one offline tts: "
+        f"{len(toks)} tokens, {len(wav)} finite samples")
+    return {"cli_s": runs, "tts_tokens": len(toks)}
+
+
+def _train_sample(tr, weights, device) -> dict:
+    """(d) ``sample_block`` from the trained params: top-k 1 against
+    ``decode_block``'s greedy tokens, two generator seeds at temperature 1
+    drawing different tokens, K1's launches on the sampled blocks."""
+    from llmvox_tpu_torch.models import decoder as dec
+    from llmvox_tpu_torch.ops import cuda_attn
+    cfg, block = tr.mcfg, 32
+    dev = torch.device(device)
+    ids = np.frombuffer(TEXT.encode(), np.uint8).astype(np.int32) + 3
+    window = torch.tensor(ids[:block], device=dev)
+    n_text = torch.tensor(len(ids), dtype=torch.int32, device=dev)
+    limit = torch.tensor(block, dtype=torch.int32, device=dev)
+    table = torch.as_tensor(weights[2]).to(dev)
+    codebook = torch.as_tensor(weights[1]["codebooks"][0]).to(dev)
+    params = tr.params
+
+    def state():
+        return dec.init_decode_state(cfg, dtype=torch.float32, device=dev)
+
+    with torch.no_grad():
+        greedy, n, _ = dec.decode_block(params, table, codebook, state(),
+                                        window, n_text, limit, cfg, block)
+        cuda_attn.LAUNCHES = 0
+        top1, m, _ = dec.sample_block(
+            params, table, codebook, state(), window, n_text, limit,
+            torch.Generator(device=dev).manual_seed(0), 1.0, cfg, block,
+            top_k=1)
+        draws = [dec.sample_block(
+            params, table, codebook, state(), window, n_text, limit,
+            torch.Generator(device=dev).manual_seed(s), 1.0, cfg,
+            block)[0].cpu().numpy() for s in (1, 2)]
+        _sync(device)
+        launches = cuda_attn.LAUNCHES
+    greedy, top1 = greedy.cpu().numpy(), top1.cpu().numpy()
+    assert int(n) == int(m) == block
+    assert np.array_equal(top1, greedy), (top1, greedy)
+    differ = int((draws[0] != draws[1]).sum())
+    assert differ > 0, draws
+    assert launches == 3 * block * cfg.n_layer, launches
+    log(f"[train] sample_block from the trained params (f32 cache): top-k 1 "
+        f"= decode_block's {block} greedy tokens; seeds 1 and 2 at "
+        f"temperature 1 differ at {differ} of {block} steps; K1 launches "
+        f"{launches} = 3 blocks x {block} steps x {cfg.n_layer} layers")
+    return {"sample_differ": differ, "k1_train_launches": launches}
+
+
+def phase_train(weights, device="cuda", seq: int = 8192,
+                check_seq: int = TRAIN_CHECK_T) -> dict:
+    """Phase 19, decoder training at the deployed width (smaller widths
+    and the CPU only to rehearse the control flow).  Its files go to the
+    git-ignored ``build/phase19``, removed at the end."""
+    import shutil
+    from llmvox_tpu_torch.utils import params as P
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase19")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dec_p, codec_p, table, dcfg, _, _ = weights
+    codebook = codec_p["codebooks"][0]
+    out = {"f32_check": _train_f32_check(dcfg, table, codebook, device,
+                                         check_seq)}
+    params = P.init_decoder_params(20, dcfg)
+    out["bf16"] = _train_times(dcfg, table, codebook, device, seq, params,
+                               work)
+    tr, losses = _train_loss_down(dcfg, table, codebook, device, seq, params)
+    out["loss_first_last"] = [losses[0], losses[-1]]
+    out["bf16_check"] = _train_bf16_check(tr, table, codebook, seq)
+    out.update(_train_sample(tr, weights, device))
+    del tr
+    out["cli"] = _train_cli(weights, device, root, work)
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 19: {out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4738,12 +5282,15 @@ def main(argv) -> int:
     k4 = phase_k4()
     phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
-    llm_k4_launches = voicechat_launches = None
+    llm_k4_launches = voicechat_launches = train_launches = None
     pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
     spec_llm = dict(pool_llm)
     moe_llm = dict(pool_llm)
     if not kernels_only:
         engines, weights = phase_offline()
+        train = phase_train(weights)
+        train_launches = train["k1_train_launches"]
+        log(json.dumps({"train": train}))
         phase_block_graph(weights)
         launches = phase_server(engines, weights)
         phase_batch(weights)
@@ -4797,6 +5344,7 @@ def main(argv) -> int:
              "tpu": "llmvox_tpu/ops/pallas_attn.py::pallas_decode_attention",
              "launches": launches, "max_abs_err": k1["max_abs_err"],
              "voicechat_launches": voicechat_launches,
+             "train_launches": train_launches,
              "llm_pool_launches": pool_llm["k1"],
              "llm_spec_launches": spec_llm["k1"],
              "moe_launches": moe_llm["k1"],

@@ -1,4 +1,5 @@
-"""LLMVoX on PyTorch and CUDA: the streaming TTS serving path for NVIDIA GPUs.
+"""LLMVoX on PyTorch and CUDA: streaming TTS serving and decoder training on
+NVIDIA GPUs.
 
 A port of the ``llmvox_tpu`` JAX package that keeps its module layout and
 its parameter layout (channel-last activations, Linear weights
@@ -14,9 +15,12 @@ Subpackages
 - ``text``     — ByT5 byte tokenizer, text cleaning
 - ``streams``  — text-stream protocol and the scripted stream
 - ``ops``      — nn ops, attention (plain and CUDA kernel), ISTFT, kernel build
-- ``models``   — the speech-token decoder's streaming decode
+- ``models``   — the speech-token decoder (streaming decode, training
+  forward and loss), the Llama, Whisper, GPT-2 weight import
 - ``codec``    — WavTokenizer decode (VQ lookup, ConvNeXt backbone, ISTFT head)
 - ``serve``    — TTS engine, dual-replica scheduler, HTTP server and CLI
+- ``train``    — decoder training: data, optimizer, checkpoints, trainer, CLI
+- ``tools``    — checkpoint converters, graph warmup
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,13 @@
-"""Streaming decode of the LLMVoX speech-token decoder.
+"""The LLMVoX speech-token decoder: streaming decode and training.
 
-Counterpart of the decode half of ``llmvox_tpu/models/decoder.py``
+Counterpart of ``llmvox_tpu/models/decoder.py``: the decode half
 (``DecodeState``, ``init_decode_state``, ``_decode_one``, ``decode_block``,
-and the multi-stream ``init_decode_state_batch``, ``_decode_one_batch``,
-``decode_block_batch``):
+``sample_block``, and the multi-stream ``init_decode_state_batch``,
+``_decode_one_batch``, ``decode_block_batch``), and at the end of this
+file the full-sequence half that training runs (``apply_decoder``,
+``decoder_loss``, ``num_params``, ``crop_block_size``) with
+``DecoderModel``, the ``nn.Module`` whose parameters are a params tree's
+leaves.  The decode half is
 a 4-layer GPT step per token over a persistent ``(L, S, C)`` KV cache,
 fed with the L2-normalised concatenation of the text byte embedding and
 the previous speech token's codebook feature; the next token is the
@@ -38,13 +42,19 @@ head stays a weight-only int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
     cuda_verify_attn, nn
+from llmvox_tpu_torch.ops.attention import causal_attention_auto, \
+    segment_mask
 from llmvox_tpu_torch.models.spec import run_spec_loop
 from llmvox_tpu_torch.utils.config import DecoderConfig
 from llmvox_tpu_torch.utils.graphs import register_counter
@@ -53,6 +63,8 @@ from llmvox_tpu_torch.utils.graphs import register_counter
 # forward, n_layer K3 launches on the card.  Engines issue from their own
 # dispatch threads, so the count is taken under a lock.
 SPEC_ITERATIONS = 0
+# the draft heads' share of ``decoder_loss``: their mean loss times this
+MTP_WEIGHT = 0.2
 _spec_lock = threading.Lock()
 register_counter(__name__, "SPEC_ITERATIONS", _spec_lock)
 
@@ -80,12 +92,12 @@ def init_decode_state(cfg: DecoderConfig, dtype=torch.bfloat16,
     )
 
 
-def _decode_one(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
-                state: DecodeState, return_logits: bool = False):
+def _decode_logits(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
+                   state: DecodeState) -> torch.Tensor:
     """One transformer step for one new position; x is (C,).
 
     Writes this position's k/v rows into the caches (in place) and returns
-    the argmax token (0-d int32), plus the f32 logits when asked."""
+    the (vocab,) f32 logits."""
     pos = state.pos
     # index ops take int64 indices; clamp keeps a read at capacity in
     # range as the JAX gather does
@@ -111,11 +123,54 @@ def _decode_one(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
     # the head accumulates in f32 even under bf16 params (products of bf16
     # values are exact in f32), so the argmax matches an f32 softmax-argmax;
     # a quantized head dequantizes in x's dtype first, as JAX's does
-    logits = x.float() @ nn.dense_weight(params["head"], x.dtype).float()
-    token = torch.argmax(logits).to(torch.int32)
+    return x.float() @ nn.dense_weight(params["head"], x.dtype).float()
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits).to(torch.int32)
+
+
+def _decode_one(params: Dict, cfg: DecoderConfig, x: torch.Tensor,
+                state: DecodeState, return_logits: bool = False):
+    """``_decode_logits`` and the argmax token (0-d int32), plus the f32
+    logits when asked."""
+    logits = _decode_logits(params, cfg, x, state)
+    token = _argmax(logits)
     if return_logits:
         return token, logits
     return token
+
+
+def _step_block(params: Dict, text_table: torch.Tensor,
+                codebook: torch.Tensor, state: DecodeState,
+                text_window: torch.Tensor, text_len: torch.Tensor,
+                limit: torch.Tensor, cfg: DecoderConfig, block: int,
+                choose):
+    """The loop of ``decode_block`` and ``sample_block``: step i's token is
+    ``choose(i, logits)`` of its (vocab,) f32 logits."""
+    compute_dtype = state.k_cache.dtype
+    pos, prev, done = state.pos, state.prev_token, state.done
+    outs = []
+    # constants enter as Python scalars, never as host-made tensors: a
+    # host-to-device copy would sync, and a CUDA graph cannot capture it
+    for i in range(block):
+        active = (limit > i) & ~done
+        tid = torch.where(pos < text_len, text_window[i], cfg.pad_token_id)
+        temb = text_table.index_select(0, tid.reshape(1))[0]
+        sfeat = torch.where(pos == 0, 0.0,
+                            codebook.index_select(0, prev.reshape(1))[0])
+        x = nn.l2_normalize(torch.cat([temb, sfeat])).to(compute_dtype)
+        token = choose(i, _decode_logits(
+            params, cfg, x,
+            DecodeState(state.k_cache, state.v_cache, pos, prev, done)))
+        pos = torch.where(active, pos + 1, pos)
+        prev = torch.where(active, token, prev)
+        done = done | (active & (token == cfg.eoa_token_id))
+        outs.append(torch.where(active, token, -1))
+    tokens = torch.stack(outs)
+    n = (tokens >= 0).sum(dtype=torch.int32)
+    return tokens, n, DecodeState(state.k_cache, state.v_cache, pos, prev,
+                                  done)
 
 
 def decode_block(params: Dict, text_table: torch.Tensor,
@@ -141,29 +196,41 @@ def decode_block(params: Dict, text_table: torch.Tensor,
     Returns:
       (tokens (block,) int32 with -1 at inactive steps, n_generated, state)
     """
-    compute_dtype = state.k_cache.dtype
-    pos, prev, done = state.pos, state.prev_token, state.done
-    outs = []
-    # constants enter as Python scalars, never as host-made tensors: a
-    # host-to-device copy would sync, and a CUDA graph cannot capture it
-    for i in range(block):
-        active = (limit > i) & ~done
-        tid = torch.where(pos < text_len, text_window[i], cfg.pad_token_id)
-        temb = text_table.index_select(0, tid.reshape(1))[0]
-        sfeat = torch.where(pos == 0, 0.0,
-                            codebook.index_select(0, prev.reshape(1))[0])
-        x = nn.l2_normalize(torch.cat([temb, sfeat])).to(compute_dtype)
-        token = _decode_one(params, cfg, x,
-                            DecodeState(state.k_cache, state.v_cache, pos,
-                                        prev, done))
-        pos = torch.where(active, pos + 1, pos)
-        prev = torch.where(active, token, prev)
-        done = done | (active & (token == cfg.eoa_token_id))
-        outs.append(torch.where(active, token, -1))
-    tokens = torch.stack(outs)
-    n = (tokens >= 0).sum(dtype=torch.int32)
-    return tokens, n, DecodeState(state.k_cache, state.v_cache, pos, prev,
-                                  done)
+    return _step_block(params, text_table, codebook, state, text_window,
+                       text_len, limit, cfg, block,
+                       lambda i, logits: _argmax(logits))
+
+
+def sample_block(params: Dict, text_table: torch.Tensor,
+                 codebook: torch.Tensor, state: DecodeState,
+                 text_window: torch.Tensor, text_len: torch.Tensor,
+                 limit: torch.Tensor, generator: Optional[torch.Generator],
+                 temperature: float, cfg: DecoderConfig, block: int = 32,
+                 top_k: Optional[int] = None,
+                 gumbel: Optional[torch.Tensor] = None):
+    """``decode_block`` with temperature and top-k sampling in place of the
+    argmax: each step draws the argmax of its filtered f32 logits plus
+    Gumbel noise (``jax.random.categorical``'s method) from ``generator``,
+    or from ``gumbel`` (block, vocab) when given.  JAX draws its noise from
+    its own PRNG, so the two agree in distribution, and token for token
+    for the same noise.  Attention is K1 on the card, as in
+    ``decode_block``."""
+    def choose(i: int, logits: torch.Tensor) -> torch.Tensor:
+        logits = logits / max(temperature, 1e-6)
+        if top_k is not None:
+            kth = torch.topk(logits, top_k).values[-1]
+            logits = logits.masked_fill(logits < kth, float("-inf"))
+        if gumbel is None:
+            u = torch.rand(logits.shape, generator=generator,
+                           device=logits.device, dtype=torch.float32)
+            noise = -torch.log(-torch.log(
+                u.clamp_min(torch.finfo(torch.float32).tiny)))
+        else:
+            noise = gumbel[i]
+        return _argmax(logits + noise)
+
+    return _step_block(params, text_table, codebook, state, text_window,
+                       text_len, limit, cfg, block, choose)
 
 
 def assign_state(dst: DecodeState, src: DecodeState) -> None:
@@ -542,3 +609,197 @@ def decode_block_spec(params: Dict, text_table: torch.Tensor,
     return toks[0], n[0], DecodeState(state.k_cache, state.v_cache,
                                       st.pos[0], st.prev_token[0],
                                       st.done[0]), iters[0]
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and loss (training, eval)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def num_params(params: Dict, non_embedding: bool = True) -> int:
+    n = sum(int(np.prod(x.shape)) for x in _leaves(params))
+    if non_embedding:
+        n -= int(np.prod(params["wpe"].shape))
+    return n
+
+
+def _drop(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def _block(x: torch.Tensor, p: Dict, cfg: DecoderConfig,
+           keep: Optional[Tuple[torch.Tensor, torch.Tensor]],
+           segments: Optional[torch.Tensor],
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One pre-LN transformer block over (B, T, C); ``keep`` holds the
+    block's two residual dropout masks, drawn by the caller, and ``mask``
+    the packed batch's attention mask on the card, built once by the
+    caller."""
+    b, t, c = x.shape
+    hnorm = nn.layer_norm(x, p["ln1_s"], p.get("ln1_b"), cfg.ln_eps)
+    qkv = nn.linear(hnorm, p["wqkv"], p.get("bqkv"))
+    shape = (b, t, cfg.n_head, cfg.head_dim)
+    q, k, v = (z.reshape(shape) for z in qkv.split(c, dim=-1))
+    a = causal_attention_auto(q, k, v, segments=segments,
+                              mask=mask).reshape(b, t, c)
+    a = nn.linear(a, p["wo"], p.get("bo"))
+    if keep is not None:
+        a = _drop(a, keep[0], cfg.dropout)
+    x = x + a
+    hnorm = nn.layer_norm(x, p["ln2_s"], p.get("ln2_b"), cfg.ln_eps)
+    m = nn.gelu_tanh(nn.linear(hnorm, p["wfc"], p.get("bfc")))
+    m = nn.linear(m, p["wproj"], p.get("bproj"))
+    if keep is not None:
+        m = _drop(m, keep[1], cfg.dropout)
+    return x + m
+
+
+def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = False, return_hidden: bool = False,
+                  positions: Optional[torch.Tensor] = None,
+                  segments: Optional[torch.Tensor] = None):
+    """(B, T, C) fused input embeddings -> (B, T, vocab) f32 logits, causal.
+
+    The compute dtype is ``emb``'s: f32 params are cast into each product.
+    ``return_hidden`` also returns the final hidden states (the draft
+    heads' input).  Packed batches (``train/data.py::collate_packed``):
+    ``positions`` (B, T) index ``wpe`` per sentence, and ``segments``
+    (B, T) make attention block-diagonal-causal.
+
+    Dropout (``train`` with ``cfg.dropout > 0`` and a ``generator``) at
+    JAX's three sites: the embedding and each block's two residual
+    branches; none on the attention matrix.  Every mask is drawn here,
+    before the layers, so that ``cfg.remat_layers`` (each block recomputed
+    in the backward pass by ``torch.utils.checkpoint``) replays the
+    forward's masks, as JAX passes each layer its key."""
+    b, t, c = emb.shape
+    use_dropout = train and cfg.dropout > 0.0 and generator is not None
+    wpe = (params["wpe"][:t] if positions is None
+           else params["wpe"][positions.long()])
+    x = emb + wpe.to(emb.dtype)
+    keeps: List = [None] * cfg.n_layer
+    if use_dropout:
+        def draw():
+            return torch.rand((b, t, c), generator=generator,
+                              device=emb.device) < 1.0 - cfg.dropout
+        x = _drop(x, draw(), cfg.dropout)
+        keeps = [(draw(), draw()) for _ in range(cfg.n_layer)]
+    # SDPA's boolean mask of a packed batch, (B, 1, T, T): built once here,
+    # not in every layer and every recomputed block
+    mask = (segment_mask(t, segments, emb.device)
+            if segments is not None and emb.is_cuda else None)
+    h = params["h"]
+    for layer in range(cfg.n_layer):
+        p = {k: v[layer] for k, v in h.items()}
+        if cfg.remat_layers and torch.is_grad_enabled():
+            x = checkpoint(_block, x, p, cfg, keeps[layer], segments, mask,
+                           use_reentrant=False)
+        else:
+            x = _block(x, p, cfg, keeps[layer], segments, mask)
+    x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
+    logits = nn.linear(x, params["head"]).float()
+    if return_hidden:
+        return logits, x
+    return logits
+
+
+def _masked_ce(logits: torch.Tensor, targets: torch.Tensor,
+               ignore_index: int) -> torch.Tensor:
+    """Mean cross-entropy over the targets that are not ``ignore_index``
+    (0 when there are none)."""
+    n = (targets != ignore_index).sum().clamp_min(1)
+    total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                            targets.reshape(-1).long(),
+                            ignore_index=ignore_index, reduction="sum")
+    return total / n
+
+
+def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
+                 cfg: DecoderConfig, *,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = True,
+                 positions: Optional[torch.Tensor] = None,
+                 segments: Optional[torch.Tensor] = None,
+                 perm=None) -> torch.Tensor:
+    """Cross-entropy with ``ignore_index``; with draft heads
+    (``params["draft_heads"]``) plus ``MTP_WEIGHT`` times their mean loss,
+    head j predicting the target j+1 further ahead from the same hidden
+    state.  In packed batches a shifted target in another sentence is
+    ignored.  ``perm`` (the zigzag layout of sequence parallelism) is the
+    JAX package's multi-device path: ROADMAP item 10."""
+    if perm is not None:
+        raise NotImplementedError(
+            "decoder_loss(perm=...) is the zigzag sequence-parallel layout, "
+            "not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
+    n_heads = (params["draft_heads"].shape[0]
+               if "draft_heads" in params else 0)
+    shifted = []
+    for j in range(n_heads):
+        shift = j + 1
+        tgt = F.pad(targets[:, shift:], (0, shift), value=cfg.ignore_index)
+        if segments is not None:
+            seg = F.pad(segments[:, shift:], (0, shift), value=0)
+            tgt = torch.where(seg == segments, tgt, cfg.ignore_index)
+        shifted.append(tgt)
+    kw = dict(generator=generator, train=train, positions=positions,
+              segments=segments)
+    if n_heads == 0:
+        logits = apply_decoder(params, emb, cfg, **kw)
+        return _masked_ce(logits, targets, cfg.ignore_index)
+    logits, hidden = apply_decoder(params, emb, cfg, return_hidden=True,
+                                   **kw)
+    loss = _masked_ce(logits, targets, cfg.ignore_index)
+    aux = 0.0
+    for j in range(n_heads):
+        lj = nn.linear(hidden, params["draft_heads"][j]).float()
+        aux = aux + _masked_ce(lj, shifted[j], cfg.ignore_index)
+    return loss + MTP_WEIGHT * aux / n_heads
+
+
+def crop_block_size(params: Dict, cfg: DecoderConfig, new_block: int
+                    ) -> Tuple[Dict, DecoderConfig]:
+    """Shrink a model's context window: ``wpe`` cropped to ``new_block``
+    rows."""
+    assert new_block <= cfg.block_size
+    params = dict(params)
+    params["wpe"] = params["wpe"][:new_block]
+    return params, dataclasses.replace(cfg, block_size=new_block)
+
+
+def _parameter(v, device) -> torch.nn.Parameter:
+    t = (v.detach() if isinstance(v, torch.Tensor)
+         else torch.from_numpy(np.array(v, np.float32)))
+    return torch.nn.Parameter(t.to(device=device, dtype=torch.float32,
+                                    copy=True))
+
+
+class DecoderModel(torch.nn.Module):
+    """The trainable decoder.  Its parameters (f32) are the leaves of a
+    params tree in the JAX layout (stacked ``h``, Linear ``(Cin, Cout)``);
+    ``tree()`` returns that tree of parameters, which ``decoder_loss`` and
+    the serving functions (``decode_block``, ``sample_block``) take as
+    they take any params tree."""
+
+    def __init__(self, params: Dict, cfg: DecoderConfig, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        self.top = torch.nn.ParameterDict(
+            {k: _parameter(v, device) for k, v in params.items()
+             if k != "h"})
+        self.h = torch.nn.ParameterDict(
+            {k: _parameter(v, device) for k, v in params["h"].items()})
+
+    def tree(self) -> Dict:
+        return {**dict(self.top.items()), "h": dict(self.h.items())}
+
+    def forward(self, emb: torch.Tensor, targets: torch.Tensor, **kw
+                ) -> torch.Tensor:
+        return decoder_loss(self.tree(), emb, targets, self.cfg, **kw)

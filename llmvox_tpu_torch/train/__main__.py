@@ -1,0 +1,111 @@
+"""Decoder-training CLI: ``python -m llmvox_tpu_torch.train --flags``.
+
+The port's ``python -m llmvox_tpu.train``: every TrainConfig and
+DecoderConfig field is a flag, and only the flags given override the
+defaults.  ``--device`` (default ``cuda``; ``cpu`` runs the plain path)
+picks the device; ``--dtype`` is the compute dtype (``bfloat16`` or
+``float32``; parameters and moments stay f32).
+
+Inputs (``python -m llmvox_tpu_torch.tools.convert_ckpt`` makes the first
+two from reference checkpoints):
+- ``--byt5_table``: the ByT5 embedding table .npz (key ``table``);
+- ``--codec_params``: converted WavTokenizer params .npz (its
+  ``codebooks`` give the speech features);
+- ``--data_path``: a prepared dataset .npz (``train/data.py::
+  save_prepared``) or a JSON manifest with precomputed codes.
+
+    python -m llmvox_tpu_torch.train --data_path data.npz --out_dir out \\
+        --max_iters 1000 [--pack --pack_len 8192] [--init_from resume]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.train.data import (BatchIterator, PackedBatchIterator,
+                                         SpeechDataset)
+from llmvox_tpu_torch.train.trainer import Trainer
+from llmvox_tpu_torch.utils.config import (
+    DecoderConfig, TrainConfig, add_dataclass_args, apply_cli_overrides)
+from llmvox_tpu_torch.utils.params import load_params_npz
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="LLMVoX decoder training (PyTorch/CUDA)")
+    add_dataclass_args(parser, TrainConfig)
+    add_dataclass_args(parser, DecoderConfig)
+    parser.add_argument("--byt5_table", type=str, default=None)
+    parser.add_argument("--codec_params", type=str, default=None)
+    parser.add_argument("--bucket", type=int, default=256)
+    parser.add_argument("--pack", action="store_true",
+                        help="pack several sentences into each row "
+                             "(train/data.py::collate_packed): one "
+                             "(batch_size, pack_len) shape")
+    parser.add_argument("--pack_len", type=int, default=1024)
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    tcfg = apply_cli_overrides(TrainConfig(), args)
+    mcfg = apply_cli_overrides(DecoderConfig(), args)
+    if tcfg.dtype not in _DTYPES:
+        parser.error(f"--dtype must be one of {sorted(_DTYPES)}")
+
+    if args.byt5_table:
+        table = np.load(args.byt5_table)["table"]
+    else:
+        print("WARNING: no --byt5_table; using random table (smoke mode)")
+        table = 0.02 * np.random.default_rng(0).standard_normal(
+            (mcfg.text_vocab_size, mcfg.text_embed_dim)).astype(np.float32)
+    if args.codec_params:
+        codebook = np.asarray(load_params_npz(args.codec_params)["codebooks"])[0]
+    else:
+        print("WARNING: no --codec_params; using random codebook (smoke mode)")
+        codebook = np.random.default_rng(1).standard_normal(
+            (max(mcfg.vocab_size, mcfg.eoa_token_id + 1),
+             mcfg.speech_embed_dim)).astype(np.float32)
+
+    kw = dict(compute_dtype=_DTYPES[tcfg.dtype], device=args.device)
+    if tcfg.init_from.startswith("gpt2"):
+        # HF gpt2* weights (downloads); forces the gpt2 architecture
+        from llmvox_tpu_torch.models.gpt2_import import init_from_gpt2
+        gpt2_params, mcfg = init_from_gpt2(tcfg.init_from, mcfg.vocab_size)
+        trainer = Trainer(tcfg, mcfg, table, codebook, params=gpt2_params,
+                          **kw)
+        print(f"initialized from {tcfg.init_from}")
+    else:
+        trainer = Trainer(tcfg, mcfg, table, codebook, **kw)
+    if tcfg.init_from == "resume":
+        trainer.load_checkpoint(
+            os.path.join(tcfg.out_dir, tcfg.checkpoint_filename + ".npz"))
+        print(f"resumed at iter {trainer.iter_num}")
+
+    dataset = SpeechDataset(tcfg.data_path)
+    print(f"dataset: {len(dataset)} samples; model: "
+          f"{trainer.n_params / 1e6:.2f}M params; device {trainer.device}")
+    if args.pack:
+        batches = iter(PackedBatchIterator(dataset, mcfg, tcfg.batch_size,
+                                           args.pack_len, seed=tcfg.seed))
+    else:
+        batches = iter(BatchIterator(dataset, mcfg, tcfg.batch_size,
+                                     bucket=args.bucket, seed=tcfg.seed))
+    if tcfg.eval_only:
+        print(f"eval loss: {trainer.estimate_loss(batches, tcfg.eval_iters):.4f}")
+        return
+    from llmvox_tpu_torch.utils.logging import MetricsLogger
+    logger = MetricsLogger(tcfg.out_dir, tcfg.wandb_run_name,
+                           use_wandb=tcfg.wandb_log,
+                           wandb_project=tcfg.wandb_project)
+    try:
+        trainer.train(batches, logger=logger)
+    finally:
+        logger.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,149 @@
+"""Optimizer and learning-rate schedule for decoder training.
+
+Counterpart of ``llmvox_tpu/train/optim.py``, whose optimizer is the optax
+chain ``MultiSteps(chain(clip_by_global_norm, adamw), k)``.  ``AdamW``
+here updates as that chain does, on a list of tensors:
+
+- gradients are averaged over ``k`` micro-steps (``MultiSteps``' running
+  mean ``acc + (g - acc) / (i + 1)``); only every k-th call updates;
+- the mean is clipped by its global norm: scaled by ``max_norm / norm``
+  when ``norm >= max_norm`` and left as it is below (no epsilon; a
+  ``grad_clip`` of 0 therefore zeroes every update, as it does in JAX);
+- Adam with bias correction ``1 - beta ** count`` in f32 and ``eps``
+  added to ``sqrt(nu_hat)``; weight decay added to the Adam step for the
+  tensors ``decay_mask`` selects (by name, not by ndim); then the step is
+  scaled by ``-lr_schedule(u)`` where u counts updates from 0, so with a
+  warmup the first update moves no parameter but does advance the
+  moments.
+
+Every operation stays on the device: nothing reads the norm or the count
+back to the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.utils.config import TrainConfig
+
+_NO_DECAY_KEYS = frozenset({
+    "ln1_s", "ln1_b", "ln2_s", "ln2_b", "lnf_s", "lnf_b",
+    "bqkv", "bo", "bfc", "bproj",
+})
+
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Linear warmup, cosine decay to ``min_lr``, then ``min_lr``; computed
+    in float32 as the JAX schedule is."""
+    f32 = np.float32
+
+    def fn(step) -> float:
+        step = f32(step)
+        lr = f32(cfg.learning_rate)
+        if not cfg.decay_lr:
+            return float(lr)
+        if step < cfg.warmup_iters:
+            return float(lr * step / f32(max(cfg.warmup_iters, 1)))
+        if step > cfg.lr_decay_iters:
+            return float(f32(cfg.min_lr))
+        ratio = (step - f32(cfg.warmup_iters)) / f32(
+            max(cfg.lr_decay_iters - cfg.warmup_iters, 1))
+        ratio = np.clip(ratio, f32(0.0), f32(1.0))
+        coeff = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * ratio))
+        return float(f32(cfg.min_lr) + coeff * (lr - f32(cfg.min_lr)))
+    return fn
+
+
+def decay_mask(params: Dict) -> Dict:
+    """The params tree's structure with True for the leaves that get
+    weight decay (matmul weights and embeddings)."""
+    def pick(node, name):
+        if isinstance(node, dict):
+            return {k: pick(v, k) for k, v in node.items()}
+        return name not in _NO_DECAY_KEYS
+    return pick(params, None)
+
+
+def named_leaves(tree: Dict, prefix: str = "") -> List:
+    """[(path, leaf)] of a nested dict in insertion order, paths joined
+    by ``/`` as in the checkpoint files."""
+    out = []
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.extend(named_leaves(v, path + "/"))
+        else:
+            out.append((path, v))
+    return out
+
+
+class AdamW:
+    """``make_optimizer``'s update on ``params`` (tensors updated in
+    place).  ``decay[i]`` says whether ``params[i]`` gets weight decay.
+    Its state (``state_dict``) is the moments, the accumulated gradients
+    and the two counts, all on the params' device."""
+
+    def __init__(self, cfg: TrainConfig, params: Sequence[torch.Tensor],
+                 decay: Sequence[bool]):
+        self.cfg = cfg
+        self.params = list(params)
+        self.decay = list(decay)
+        self.k = max(cfg.gradient_accumulation_steps, 1)
+        self.schedule = lr_schedule(cfg)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        # the counts are host integers: the device sees them only as the
+        # scalars of each update
+        self.count = 0        # updates applied (optax's adam count)
+        self.mini_step = 0    # micro-steps accumulated since the last one
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> bool:
+        """Take one micro-step's gradients; returns True when this call
+        applied an update."""
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (n + 1))
+        if n < self.k - 1:
+            self.mini_step += 1
+            return False
+        self._update(self.acc)
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+        return True
+
+    def _update(self, grads: List[torch.Tensor]) -> None:
+        cfg = self.cfg
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        clip = ~(norm < cfg.grad_clip)
+        lr = self.schedule(self.count)
+        self.count += 1
+        f32 = np.float32
+        b1, b2 = cfg.beta1, cfg.beta2
+        bc1 = float(f32(1.0) - f32(b1) ** f32(self.count))
+        bc2 = float(f32(1.0) - f32(b2) ** f32(self.count))
+        for p, g, mu, nu, wd in zip(self.params, grads, self.mu, self.nu,
+                                    self.decay):
+            g = torch.where(clip, (g / norm) * cfg.grad_clip, g)
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
+            if wd:
+                u = u + cfg.weight_decay * p
+            p.add_(u, alpha=-lr)
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"mu": self.mu, "nu": self.nu, "acc": self.acc,
+                "count": self.count, "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        for name in ("mu", "nu", "acc"):
+            for dst, src in zip(getattr(self, name), state[name]):
+                dst.copy_(torch.as_tensor(np.asarray(src)))
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])

@@ -1,0 +1,205 @@
+"""Decoder training on one device.
+
+Counterpart of ``llmvox_tpu/train/trainer.py``.  A step builds the fused
+inputs from the int32 ids on the device, runs the loss forward and
+backward in ``compute_dtype`` (bf16 on the card; f32 for the checks)
+against f32 parameters, and hands the gradients to
+``train/optim.py::AdamW``, which updates as the JAX package's optax chain
+does (accumulating ``gradient_accumulation_steps`` micro-steps an update).
+``iter_num`` counts micro-steps, as JAX's does.  The multi-device paths
+of the JAX trainer (data, tensor and sequence parallelism, FSDP) are
+refused: ROADMAP queue 1 item 10.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.models import decoder as dec
+from llmvox_tpu_torch.train import checkpoint as ckpt
+from llmvox_tpu_torch.train.data import build_decoder_inputs
+from llmvox_tpu_torch.train.optim import (AdamW, decay_mask, lr_schedule,
+                                          named_leaves)
+from llmvox_tpu_torch.utils.config import DecoderConfig, TrainConfig
+from llmvox_tpu_torch.utils.device import resolve_device
+from llmvox_tpu_torch.utils.params import init_decoder_params
+
+# The dense bf16 tensor-core peak of one NVIDIA H100 SXM (NVIDIA's H100
+# datasheet: 989 TFLOP/s without sparsity, at the 700 W limit); the
+# environment variable overrides it for another card.
+H100_PEAK_FLOPS = float(os.environ.get("LLMVOX_TPU_TORCH_PEAK_FLOPS", 989e12))
+
+
+def estimate_mfu(cfg: DecoderConfig, n_params: int, tokens_per_iter: int,
+                 dt: float, peak: float = H100_PEAK_FLOPS,
+                 seq_len: int = 0) -> float:
+    """PaLM-style model FLOPs utilisation: 6N + 12·L·H·Q·T FLOPs a token
+    (N the non-embedding parameters, T the step's sequence width,
+    ``cfg.block_size`` when 0), over ``dt`` seconds, against ``peak``."""
+    l, h, q = cfg.n_layer, cfg.n_head, cfg.head_dim
+    t = seq_len or cfg.block_size
+    flops_per_token = 6 * n_params + 12 * l * h * q * t
+    return flops_per_token * tokens_per_iter / dt / peak
+
+
+def _check_one_device(tcfg: TrainConfig) -> None:
+    multi = [name for name, on in (
+        ("dp_size", tcfg.dp_size not in (-1, 1)), ("tp_size", tcfg.tp_size != 1),
+        ("sp_size", tcfg.sp_size != 1), ("fsdp", tcfg.fsdp)) if on]
+    if multi:
+        raise ValueError(
+            f"{', '.join(multi)}: the multi-device trainer (data, tensor and "
+            "sequence parallelism, FSDP) is not ported to llmvox_tpu_torch "
+            "yet: ROADMAP queue 1 item 10")
+
+
+class Trainer:
+    """End-to-end decoder training.  ``params`` (a tree in the JAX layout)
+    replaces the seeded initialisation, as assigning ``state.params`` does
+    for the JAX trainer."""
+
+    def __init__(self, tcfg: TrainConfig, mcfg: DecoderConfig,
+                 text_table: np.ndarray, codebook: np.ndarray, *,
+                 compute_dtype=torch.bfloat16, device="cuda",
+                 params: Optional[Dict] = None):
+        _check_one_device(tcfg)
+        self.device = resolve_device(device)
+        self.tcfg, self.mcfg = tcfg, mcfg
+        self.compute_dtype = compute_dtype
+        # dropout masks; the data order is numpy's, seeded by the iterators
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(tcfg.seed)
+        if params is None:
+            params = init_decoder_params(tcfg.seed, mcfg)
+        self.model = dec.DecoderModel(params, mcfg, self.device)
+        tree = self.model.tree()
+        leaves = named_leaves(tree)
+        self.names = [n for n, _ in leaves]
+        self.opt = AdamW(tcfg, [p for _, p in leaves],
+                         [d for _, d in named_leaves(decay_mask(tree))])
+        self.text_table = torch.as_tensor(
+            np.asarray(text_table, np.float32)).to(self.device)
+        self.codebook = torch.as_tensor(
+            np.asarray(codebook, np.float32)).to(self.device)
+        self.n_params = dec.num_params(tree)
+        self.iter_num = 0
+
+    @property
+    def params(self) -> Dict:
+        return self.model.tree()
+
+    # -- checkpointing ---------------------------------------------------
+    def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        name = tag or self.tcfg.checkpoint_filename
+        path = os.path.join(self.tcfg.out_dir, f"{name}.npz")
+        ckpt.save_params_npz(path, self.params,
+                             meta={"iter_num": self.iter_num,
+                                   "model_args": self.mcfg.__dict__,
+                                   "config": self.tcfg.__dict__})
+        ckpt.save_opt_state(os.path.join(self.tcfg.out_dir,
+                                         f"{name}.adamw.npz"),
+                            self.names, self.opt.state_dict())
+        return path
+
+    @torch.no_grad()
+    def load_checkpoint(self, path: str) -> None:
+        """Params and ``iter_num`` from ``path`` (written by either
+        package); the optimizer from the port's ``.adamw.npz`` beside it,
+        or afresh where there is none."""
+        saved = ckpt.flatten_pytree(ckpt.load_params_npz(path))
+        if saved.keys() != set(self.names):
+            raise ValueError(f"{path}: parameters {sorted(saved)} are not "
+                             f"the model's {sorted(self.names)}")
+        for name, p in zip(self.names, self.opt.params):
+            p.copy_(torch.as_tensor(saved[name]))
+        self.iter_num = int(ckpt.load_meta(path).get("iter_num", 0))
+        opt_path = path[:-len(".npz")] + ".adamw.npz"
+        self.opt = AdamW(self.tcfg, self.opt.params, self.opt.decay)
+        if os.path.exists(opt_path):
+            self.opt.load_state_dict(ckpt.load_opt_state(opt_path,
+                                                         self.names))
+
+    # -- steps -----------------------------------------------------------
+    def loss(self, batch, train: bool) -> torch.Tensor:
+        """The loss of one batch (text, targets[, segments, positions]):
+        with dropout when ``train``, without it otherwise."""
+        dev = [torch.as_tensor(np.asarray(a)).to(self.device) for a in batch]
+        text_ids, targets = dev[:2]
+        segments, positions = dev[2:] if len(dev) == 4 else (None, None)
+        emb = build_decoder_inputs(self.text_table, self.codebook, text_ids,
+                                   targets, self.mcfg, pos_ids=positions)
+        return self.model(emb.to(self.compute_dtype), targets,
+                          generator=self.generator if train else None,
+                          train=train, positions=positions,
+                          segments=segments)
+
+    def step(self, text_ids: np.ndarray, targets: np.ndarray,
+             segments: Optional[np.ndarray] = None,
+             positions: Optional[np.ndarray] = None) -> float:
+        """One micro-step: forward, backward, and the optimizer's
+        accumulation (an update on every k-th).  Returns the loss."""
+        batch = ((text_ids, targets) if segments is None
+                 else (text_ids, targets, segments, positions))
+        loss = self.loss(batch, train=True)
+        loss.backward()
+        self.opt.step([p.grad for p in self.opt.params])
+        for p in self.opt.params:
+            p.grad = None
+        self.iter_num += 1
+        return float(loss.detach())
+
+    @torch.no_grad()
+    def estimate_loss(self, batches: Iterator[Tuple[np.ndarray, ...]],
+                      eval_iters: int) -> float:
+        """Mean loss over ``eval_iters`` batches, without dropout."""
+        return float(np.mean([float(self.loss(next(batches), train=False))
+                              for _ in range(eval_iters)]))
+
+    # -- loop ------------------------------------------------------------
+    def train(self, batches: Iterator[Tuple[np.ndarray, ...]],
+              max_iters: Optional[int] = None, log=print,
+              logger=None) -> None:
+        """Train to ``max_iters`` micro-steps: every ``eval_interval`` an
+        eval loss and a checkpoint, every ``log_interval`` the loss, the
+        time and the MFU against the card's peak (``logger``: a
+        ``utils/logging.py::MetricsLogger``)."""
+        lr_fn = lr_schedule(self.tcfg)
+        tcfg = self.tcfg
+        max_iters = max_iters or tcfg.max_iters
+        t0 = time.time()
+        last_log_iter = self.iter_num
+        while self.iter_num < max_iters:
+            if (self.iter_num % tcfg.eval_interval == 0 and
+                    self.iter_num > 0):
+                val = self.estimate_loss(batches, tcfg.eval_iters)
+                log(f"iter {self.iter_num}: eval loss {val:.4f}")
+                if logger is not None:
+                    logger.log(self.iter_num, {"val/loss": float(val)})
+                self.save_checkpoint()
+                if tcfg.always_save_checkpoint:
+                    self.save_checkpoint(
+                        f"{tcfg.checkpoint_filename}_{self.iter_num}")
+            batch = next(batches)          # (text, targets[, seg, pos])
+            text_ids = batch[0]
+            loss = self.step(*batch)
+            if self.iter_num % tcfg.log_interval == 0:
+                dt = time.time() - t0
+                t0 = time.time()
+                # dt spans every iteration since the last log
+                n_iters = max(self.iter_num - last_log_iter, 1)
+                last_log_iter = self.iter_num
+                tokens = text_ids.shape[0] * text_ids.shape[1] * n_iters
+                mfu = estimate_mfu(self.mcfg, self.n_params, tokens,
+                                   max(dt, 1e-9),
+                                   seq_len=text_ids.shape[1])
+                log(f"iter {self.iter_num}: loss {loss:.4f}, "
+                    f"time {dt * 1000:.1f}ms, mfu {mfu * 100:.2f}%")
+                if logger is not None:
+                    logger.log(self.iter_num, {
+                        "train/loss": float(loss),
+                        "lr": float(lr_fn(self.iter_num)), "mfu": mfu})
+

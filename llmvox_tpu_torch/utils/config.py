@@ -1,9 +1,9 @@
 """Typed configuration for the PyTorch port.
 
 Field for field the same as ``llmvox_tpu/utils/config.py`` (DecoderConfig,
-CodecConfig, ServeConfig) minus the TPU-only decoder knobs
-(``use_pallas_attention``, ``unroll_layers``, ``remat_layers``): the port
-picks the attention kernel by the tensor's device, not by a flag.  CLI
+CodecConfig, ServeConfig, TrainConfig) minus the TPU-only decoder knobs
+(``use_pallas_attention``, ``unroll_layers``): the port picks the
+attention kernel by the tensor's device, not by a flag.  CLI
 overrides follow the same rule: only flags the user passed override the
 defaults.
 """
@@ -56,6 +56,10 @@ class DecoderConfig:
     # speculative decode: head j drafts the token j+1 positions past the
     # next one from a position's final hidden state; 0 = no draft heads
     n_draft_heads: int = 0
+
+    # training: recompute each transformer block in the backward pass
+    # instead of keeping its activations (torch.utils.checkpoint)
+    remat_layers: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -232,6 +236,69 @@ class ServeConfig:
                 break
             d = min(d * self.dump_growth_factor, self.max_dump_size)
         return sizes
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Decoder-training knobs, the same fields and defaults as the JAX
+    package's TrainConfig.  The port's ``train/trainer.py::Trainer`` runs
+    on one device: it refuses any ``dp_size``, ``tp_size``, ``sp_size`` or
+    ``fsdp`` that needs more (ROADMAP item 10)."""
+
+    # System
+    dtype: str = "bfloat16"
+    seed: int = 1337
+
+    # Model init
+    init_from: str = "scratch"  # ['scratch','resume','gpt2',...]
+    out_dir: str = "results"
+    checkpoint_filename: str = "ckpt"
+
+    # Paths
+    encoder_model_path: str = "charsiu/g2p_multilingual_byT5_tiny_16_layers_100"
+    tokenizer_path: str = "google/byt5-small"
+    wav_config_path: str = ""
+    wav_model_path: str = ""
+    data_path: str = ""
+    speech_data_folder: str = ""
+
+    # Control
+    eval_interval: int = 100
+    log_interval: int = 1
+    eval_iters: int = 1
+    eval_only: bool = False
+    always_save_checkpoint: bool = False
+
+    # Logging
+    wandb_log: bool = False
+    wandb_project: str = "llmvox_tpu"
+    wandb_run_name: str = "run"
+
+    # Hyperparameters
+    gradient_accumulation_steps: int = 4
+    batch_size: int = 2
+    learning_rate: float = 3e-4
+    max_iters: int = 2_600_000
+    weight_decay: float = 1e-1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    adam_eps: float = 1e-5
+    grad_clip: float = 1.0
+
+    # LR schedule
+    decay_lr: bool = True
+    warmup_iters: int = 500
+    lr_decay_iters: int = 2_600_000
+    min_lr: float = 3e-6
+
+    # Parallelism: data-parallel size -1 means "all devices" (one, here);
+    # sequence parallelism (sp_size, sp_layout "ring" or "zigzag") and
+    # fsdp are the JAX package's multi-device paths
+    dp_size: int = -1
+    tp_size: int = 1
+    sp_size: int = 1
+    sp_layout: str = "ring"
+    fsdp: bool = False
 
 
 _SIMPLE_TYPES = (int, float, str, bool)

@@ -114,7 +114,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "streams.hf_llm", "models.whisper", "codec.mel",
                   "streams.asr", "streams.remote", "streams.hf_vlm",
                   "streams.hf_multimodal", "serve.demo_page", "utils.audio",
-                  "tools.convert"):
+                  "tools.convert", "tools.convert_ckpt", "train.data",
+                  "train.optim", "train.checkpoint", "train.trainer",
+                  "train.__main__", "models.gpt2_import", "utils.logging"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)
