@@ -209,8 +209,28 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      (d) ``sample_block`` from the trained params: top-k 1 equal to
      ``decode_block``'s greedy tokens, two seeds at temperature 1 drawing
      different tokens, K1's launches (K1's ``train_launches``).
+ 20. codec training (``train/codec_trainer.py``), run right after phase
+     19: (a) ``CodecConfig()``'s widths with every discriminator of
+     ``CodecTrainConfig()``, 2 steps (the first on the uninitialised
+     codebook, with the 200-iteration k-means init) of the card's f32
+     trainer against the CPU's plain path on 2 x 0.4 s crops, from one
+     seeded state with the same draws, each half from one state: every
+     log, every gradient tensor, every param after each half and the
+     codebook at their bounds, the nearest codes (each that differs a
+     near tie), where a discriminator's leaky ReLU whose slope rounding
+     flips is judged against the card's f64 trainer on the same batch;
+     (b)
+     the deployed shape (40 x 3 s), f32, remat off: a warm step, 3 steps
+     timed half by half, one profiled (busy share, time by kernel class),
+     one counted by ``FlopCounterMode`` for the bound (over the f32 rate
+     of the card's SM count and max SM clock), the peak memory, every
+     step's losses finite; (c) ``codec_main`` 2 steps with a validation
+     pass on 4 seeded wav files (2 at 16 kHz), its export loaded into
+     ``WavCodec``, ``copy_synthesis`` and ``prepare_data`` (read back by
+     ``train/data.py``); every kernel's launches on the path (0: codec
+     training reaches no TPU kernel's port).
 Then a JSON line with phase 19's numbers (printed after it), one with
-phase 14's, one with phase 16's, one with phase 15's, one with phase
+phase 20's, one with phase 14's, one with phase 16's, one with phase 15's, one with phase
 17's, one with phase 18's, one with the kernels' numbers (each kernel's
 launches on every served path, the new phases' among them), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -219,6 +239,7 @@ name and power limit, and as the last line ``{"ok": true, "device":
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import gc
 import json
@@ -1198,6 +1219,509 @@ def phase_train(weights, device="cuda", seq: int = 8192,
     shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[train] phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: codec training
+# ---------------------------------------------------------------------------
+
+# (a): 2 crops of 0.4 s (30 frames), cut from 40 x 3 s because the CPU runs
+# the same steps
+CODEC_CHECK_BATCH, CODEC_CHECK_SAMPLES = 2, 9600
+# logs to 1e-4 relative; each gradient tensor to 1e-4 of its largest
+# element (the scale floored at 1e-6 of its tree's largest, for tensors
+# whose exact gradient is 0); params after each half to JAX's own bound
+# between its step implementations (tests/test_codec_train.py:245-251)
+CODEC_LOG_RTOL = 1e-4
+CODEC_GRAD_RTOL = 1e-4
+CODEC_PARAM_RTOL, CODEC_PARAM_ATOL = 2e-3, 5e-5
+# of the 16 sub-discriminators, how many a half may find with a leaky
+# ReLU's slope flipped by rounding (8 at step 0 at the deployed widths)
+CODEC_MAX_FLIPPED = 12
+# the codebook after each step within the CPU tests' bound
+# (tests/test_torch_codec_train.py)
+CODEC_VQ_ATOL = 1e-5
+# a nearest code that differs is a near tie: the CPU's two distances within
+# 1e-5 of ||x||^2 + max ||e||^2
+CODEC_TIE_RTOL = 1e-5
+CODEC_TIMED_STEPS = 3
+
+
+def codec_audio(b: int, n: int, seed: int, sr: int = 24000) -> np.ndarray:
+    """(b, n) speech-like crops at ``sr`` drawn from a seed: each row its
+    own noise, start and gain (peaks 0.2 to 0.9)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(b):
+        x = speechish(n / sr + 1.0, seed * 1000 + i, sr)
+        start = int(rng.integers(0, x.size - n))
+        x = x[start:start + n]
+        rows.append(x * float(rng.uniform(0.2, 0.9)) / np.abs(x).max())
+    return np.stack(rows).astype(np.float32)
+
+
+def _sub_disc(path: str) -> str:
+    """The sub-discriminator a disc leaf belongs to (mpd/#0, dac/mrd/#1)."""
+    parts = path.split("/")
+    return "/".join(parts[:3] if parts[0] == "dac" else parts[:2])
+
+
+def _codec_near_ties(before, audio, draws, cpu_codes, card_codes, cfg,
+                     tcfg) -> tuple:
+    """(codes that differ, the largest distance gap among them relative to
+    its scale): the CPU's encoder output and assignment codebook of the
+    step that ``before`` (encoder params, VQ state) started, recomputed."""
+    from llmvox_tpu_torch.codec import seanet
+    from llmvox_tpu_torch.train import vq_train
+    encoder, vq = before
+    cpu_codes, card_codes = cpu_codes.cpu(), card_codes.cpu()
+    diff = (cpu_codes != card_codes).nonzero().flatten()
+    if not len(diff):
+        return 0, 0.0
+    with torch.no_grad():
+        flat = seanet.apply_seanet_encoder(encoder, torch.from_numpy(audio),
+                                           cfg)
+        flat = flat.reshape(-1, flat.shape[-1])
+        embed = vq.embed if bool(vq.inited) else vq_train.kmeans(
+            flat, cfg.vq_bins, tcfg.vq_kmeans_iters, draws.init_idx)[0]
+        d = vq_train.pairwise_dist(flat[diff], embed)
+        scale = (flat[diff].square().sum(-1) +
+                 embed.square().sum(-1).max())
+        rows = torch.arange(len(diff))
+        gap = (d[rows, cpu_codes[diff].long()] -
+               d[rows, card_codes[diff].long()]) / scale
+    return len(diff), float(gap.max())
+
+
+@torch.no_grad()
+def _codec_sync(dst, src, half: str) -> None:
+    """``dst`` takes ``src``'s state of one half: its params and AdamW
+    moments (and for the generator the VQ state and the step count)."""
+    from llmvox_tpu_torch.train.vq_train import VQState
+    mod, opt = ("disc", "opt_d") if half == "disc" else ("gen", "opt_g")
+    for p, q in zip(getattr(dst, mod).params, getattr(src, mod).params):
+        p.copy_(q)
+    getattr(dst, opt).load_state_dict(getattr(src, opt).state_dict())
+    if half == "gen":
+        dst.vq = VQState(*(t.to(dst.device, dst.dtype)
+                           if t.is_floating_point() else t.to(dst.device)
+                           for t in src.vq))
+        dst.iter_num = src.iter_num
+
+
+@torch.no_grad()
+def _codec_half_grads(names, card, cpu, ref, half: str) -> dict:
+    """One half's gradients, the card's f32 against the CPU's, each tensor
+    within CODEC_GRAD_RTOL of its largest element: the worst error over
+    its bound, the tensors off it, and the sub-discriminators flipped: a
+    tensor of theirs is off, and one f32 side of it is off the card's f64
+    (``ref``) by that bound (a leaky ReLU's slope flipped by rounding);
+    with the bound of every tensor, for the params' check."""
+    dev = card[0].device
+    want = [g.to(dev, torch.float64) for g in cpu]
+    top = max(float(w.abs().max()) for w in want)
+    tols, worst, off, flipped = [], 0.0, [], set()
+    for n, g, w, r in zip(names, card, want, ref):
+        tol = CODEC_GRAD_RTOL * max(float(w.abs().max()), 1e-6 * top)
+        tols.append(tol)
+        g, r = g.double(), r.double()
+        err = float((g - w).abs().max())
+        worst = max(worst, err / tol)
+        if err <= tol:
+            continue
+        off.append(n)
+        if half == "disc" and max(float((g - r).abs().max()),
+                                  float((w - r).abs().max())) > tol:
+            flipped.add(_sub_disc(n))
+    return {"worst": worst, "off": off, "flipped": flipped, "tols": tols,
+            "want": want}
+
+
+@torch.no_grad()
+def _codec_half_params(names, card, cpu, grads: dict, excused) -> dict:
+    """The card's params against the CPU's after one half, from one state:
+    elements outside rtol / atol, and those of them not explained: an
+    element outside must lie in an excused (flipped) sub-discriminator,
+    or have a gradient within its tensor's bound of 0 (Adam's first
+    updates move an element by about lr whatever its gradient's size, so
+    a sign decided by rounding moves it by up to 2 lr)."""
+    n_out = n_all = n_unexplained = 0
+    worst = 0.0
+    for n, p, q, w, tol in zip(names, card, cpu, grads["want"],
+                               grads["tols"]):
+        q = q.to(p.device, torch.float64)
+        excess = (p.double() - q).abs() - (CODEC_PARAM_ATOL +
+                                           CODEC_PARAM_RTOL * q.abs())
+        out = excess > 0
+        n_out += int(out.sum())
+        n_all += out.numel()
+        worst = max(worst, float(excess.max()))
+        if excused(n):
+            continue
+        n_unexplained += int((out & (w.abs() > tol)).sum())
+    return {"outside": n_out, "of": n_all, "unexplained": n_unexplained,
+            "worst_excess": worst}
+
+
+def _codec_check(cfg, tcfg, device, state: dict) -> dict:
+    """(a) the card's f32 trainer against the CPU's plain path and the
+    card's f64 trainer, from one seeded state with the same draws, 2 steps
+    (step 0: the disc half on the uninitialised codebook, the k-means init
+    in the gen half), each half from one state (the card's trainers take
+    the CPU's before it).  Held: every log; every gradient tensor, but in
+    the sub-discriminators where one f32 side is off the f64 run (a leaky
+    ReLU whose input lies within rounding of 0 takes the other slope: a
+    discrete change of that sub-discriminator's gradients), at most
+    CODEC_MAX_FLIPPED of them; every param after each half, where an
+    element outside the bound must lie in such a sub-discriminator or have
+    a gradient within rounding of 0, at most 1 in 1000; the nearest codes
+    (each that differs a near tie) and the codebook."""
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    from llmvox_tpu_torch.utils import params as P
+    card, cpu, ref = (ct.CodecTrainer(cfg, tcfg, device=dev, dtype=dt,
+                                      keep_grads=True, **state)
+                      for dev, dt in ((device, torch.float32),
+                                      ("cpu", torch.float32),
+                                      (device, torch.float64)))
+    trainers = {"card": card, "cpu": cpu, "ref": ref}
+    audio = codec_audio(CODEC_CHECK_BATCH, CODEC_CHECK_SAMPLES, 43)
+    ys = {k: tr._audio(audio) for k, tr in trainers.items()}
+    n_units = (len(tcfg.mpd_periods) + len(tcfg.mrd_resolutions) +
+               len(tcfg.dac_periods) + len(tcfg.dac_fft_sizes))
+    out, failures = {"steps": []}, []
+    for i in range(2):
+        draws = cpu.draw(*audio.shape)
+        # the encoder and codebook the gen half starts from
+        before = (P.to_torch(P.to_numpy(cpu.gen.tree()["encoder"]), "cpu"),
+                  cpu.vq)
+        rec, logs, seconds = {}, {k: {} for k in trainers}, {}
+        for half in ("disc", "gen"):
+            for k, tr in trainers.items():
+                t0 = time.perf_counter()
+                run = tr.disc_half if half == "disc" else tr.gen_half
+                logs[k].update({n: float(v.detach()) for n, v in
+                                run(ys[k], draws).items()})
+                _sync(tr.device)
+                seconds[f"{k} {half}"] = time.perf_counter() - t0
+            mod = getattr(card, half)
+            g = _codec_half_grads(mod.names, card.grads[half],
+                                  cpu.grads[half], ref.grads[half], half)
+            flipped = g["flipped"]
+            bad = [n for n in g["off"] if _sub_disc(n) not in flipped]
+            prm = _codec_half_params(mod.names, mod.params,
+                                     getattr(cpu, half).params, g,
+                                     lambda n: (half == "disc" and
+                                                _sub_disc(n) in flipped))
+            rec[half] = {"grad_worst": g["worst"], "tensors_off": len(
+                g["off"]), "off_unexcused": bad, "flipped": sorted(flipped),
+                "params": prm}
+            if bad:
+                failures.append(f"step {i} {half}: gradients off {bad}")
+            if len(flipped) > CODEC_MAX_FLIPPED:
+                failures.append(f"step {i} {half}: {len(flipped)} flipped")
+            if prm["unexplained"] or prm["outside"] > prm["of"] / 1000:
+                failures.append(f"step {i} {half}: params {prm}")
+            for k in ("card", "ref"):
+                _codec_sync(trainers[k], cpu, half)
+        log_err = max(abs(logs["card"][k] - logs["cpu"][k]) /
+                      max(abs(logs["cpu"][k]), 1e-12) for k in ct.LOG_KEYS)
+        ref_err = max(abs(logs["ref"][k] - logs["cpu"][k]) /
+                      max(abs(logs["cpu"][k]), 1e-12) for k in ct.LOG_KEYS)
+        n, gap = _codec_near_ties(before, audio, draws, cpu.codes,
+                                  card.codes, cpu.cfg, cpu.tcfg)
+        vq_err = float((card.vq.embed.cpu().double() -
+                        cpu.vq.embed.double()).abs().max())
+        if log_err > CODEC_LOG_RTOL:
+            failures.append(f"step {i}: logs {log_err}")
+        if gap > CODEC_TIE_RTOL:
+            failures.append(f"step {i}: codes {n} {gap}")
+        if vq_err > CODEC_VQ_ATOL:
+            failures.append(f"step {i}: codebook {vq_err}")
+        rec.update({"log_rel_err": log_err, "f64_log_rel_err": ref_err,
+                    "codes_differing": n, "code_gap_rel": gap,
+                    "vq_embed_err": vq_err, "seconds": seconds})
+        out["steps"].append(rec)
+        d, gn = rec["disc"], rec["gen"]
+        log(f"[codec] (a) f32, {CODEC_CHECK_BATCH} x {CODEC_CHECK_SAMPLES},"
+            f" step {i}, each half from one state, the card against the "
+            f"CPU: logs {log_err:.2e} (tol {CODEC_LOG_RTOL:g}; the card's "
+            f"f64 {ref_err:.1e}); worst gradient error over its bound "
+            f"({CODEC_GRAD_RTOL:g} of the tensor's largest): gen "
+            f"{gn['grad_worst']:.2e}, disc {d['grad_worst']:.2e}; "
+            f"{d['tensors_off']} disc tensors off it, in "
+            f"{len(d['flipped'])} of {n_units} sub-discriminators with a "
+            f"leaky ReLU's slope flipped by rounding (one f32 side off the "
+            f"card's f64 run; at most {CODEC_MAX_FLIPPED}) {d['flipped']}, "
+            f"tensors off it elsewhere "
+            f"{d['off_unexcused'] + gn['off_unexcused']}; params outside "
+            f"rtol {CODEC_PARAM_RTOL:g} / atol {CODEC_PARAM_ATOL:g}: disc "
+            f"{d['params']['outside']}, gen {gn['params']['outside']} of "
+            f"{d['params']['of'] + gn['params']['of']} (unexplained "
+            f"{d['params']['unexplained'] + gn['params']['unexplained']}), "
+            f"the codebook within {vq_err:.1e} (tol {CODEC_VQ_ATOL:g}); {n} of "
+            f"{card.codes.numel()} nearest codes differ (largest gap "
+            f"{gap:.1e} of the distance scale, tol {CODEC_TIE_RTOL:g}); "
+            "seconds " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                   seconds.items()))
+    assert not failures, failures
+    return out
+
+
+def codec_f32_peak(card_props=None) -> tuple:
+    """(FLOP/s, SMs, max SM MHz): the card's f32 rate outside the tensor
+    cores, 128 FMA lanes an SM at its max clock (``nvidia-smi``)."""
+    props = card_props or torch.cuda.get_device_properties(0)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = props.multi_processor_count
+    return sms * 128 * 2 * mhz * 1e6, sms, mhz
+
+
+def _profile_codec_step(tr, audio) -> dict:
+    """One step under ``torch.profiler``: wall, the device's busy time and
+    that time by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # in this order: cuDNN's RNN kernels are named cudnn:: too
+    classes = {"lstm": ("rnn", "lstm", "persist"),
+               "fft": ("fft",),
+               "conv": ("conv", "cudnn", "xmma", "implicit", "winograd",
+                        "dgrad", "wgrad", "fprop"),
+               "gemm": ("gemm", "cublas", "cutlass", "nvjet", "gemv")}
+    ms = {c: 0.0 for c in (*classes, "elementwise")}
+    # the device's activity only
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(audio)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the trace's raw device events, summed by name (the profiler's
+    # function events and their averages are not built)
+    by_name = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns() / 1e6
+    top = []
+    for name, t in by_name.items():
+        low = name.lower()
+        cls = next((c for c, words in classes.items()
+                    if any(w in low for w in words)), "elementwise")
+        ms[cls] += t
+        top.append((t, name[:90]))
+    busy = sum(ms.values())
+    assert busy > 0, "the profiler saw no kernel"
+    top.sort(reverse=True)
+    return {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+            **{f"{c}_ms": v for c, v in ms.items()},
+            "top": [[n, t] for t, n in top[:6]]}
+
+
+def _codec_deployed(cfg, tcfg, card: str, state: dict) -> dict:
+    """(b) ``CodecConfig()`` and ``CodecTrainConfig()`` (40 x 3 s, every
+    discriminator) in f32 from seeded audio, remat off: a warm step (the
+    k-means init), 3 steps timed half by half, one profiled, one counted
+    by ``FlopCounterMode``; the peak memory; the losses of every step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_b = time.perf_counter()
+    tr = ct.CodecTrainer(cfg, tcfg, device="cuda", **state)
+    n_gen, n_disc = (sum(p.numel() for p in mod.params)
+                     for mod in (tr.gen, tr.disc))
+    audio = codec_audio(tcfg.batch_size, tcfg.num_samples, 44)
+    y = torch.from_numpy(audio).cuda()
+    seconds = {"build": time.perf_counter() - t_b}
+    t0 = time.perf_counter()
+    logs = [tr.step(audio)]
+    warm = time.perf_counter() - t0
+    t_timed = time.perf_counter()
+    times = []
+    for _ in range(CODEC_TIMED_STEPS):
+        draws = tr.draw(tcfg.batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = tr.disc_half(y, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = tr.gen_half(y, draws)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t2 - t0) * 1e3))
+        logs.append({k: float(v.detach()) for k, v in {**d, **g}.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seconds["timed"] = time.perf_counter() - t_timed
+    t0 = time.perf_counter()
+    prof = _profile_codec_step(tr, audio)
+    seconds["profiled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        logs.append(tr.step(audio))
+    flops = fc.get_total_flops()
+    seconds["counted"] = time.perf_counter() - t0
+    rate, sms, mhz = codec_f32_peak()
+    bound = flops / rate * 1e3
+    for lg in logs:
+        assert all(np.isfinite(v) for v in lg.values()), lg
+    disc_ms, gen_ms, step_ms = (statistics.median(t[i] for t in times)
+                                for i in range(3))
+    log(f"[codec] (b) deployed f32, {tcfg.batch_size} x {tcfg.num_samples},"
+        f" every discriminator, remat off ({n_gen / 1e6:.2f} M generator, "
+        f"{n_disc / 1e6:.2f} M discriminator params): a step "
+        f"{step_ms:.1f} ms (disc half {disc_ms:.1f}, gen half "
+        f"{gen_ms:.1f}; warm step with the k-means init {warm * 1e3:.0f} "
+        f"ms); bound {bound:.1f} ms ({flops / 1e12:.2f} TFLOP of convs and "
+        f"matmuls by FlopCounterMode over {rate / 1e12:.1f} TFLOP/s f32: "
+        f"{sms} SMs x 128 lanes x 2 x {mhz:.0f} MHz; {bound / step_ms * 100:.1f}"
+        f"% of the step); peak {peak:.2f} GiB; one profiled step "
+        f"{prof['wall_ms']:.0f} ms, device busy {prof['busy_share'] * 100:.1f}"
+        f"%: " + ", ".join(f"{c[:-3]} {prof[c]:.0f} ms" for c in (
+            "conv_ms", "fft_ms", "lstm_ms", "gemm_ms", "elementwise_ms"))
+        + f"; {card}; seconds " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
+    log(f"[codec] (b) losses over {len(logs)} steps on one batch: mel "
+        + " ".join(f"{lg['mel']:.3f}" for lg in logs) + ", disc_total "
+        + " ".join(f"{lg['disc_total']:.3f}" for lg in logs))
+    out = {"step_ms": step_ms, "disc_ms": disc_ms, "gen_ms": gen_ms,
+           "steps_ms": times, "warm_ms": warm * 1e3, "bound_ms": bound,
+           "tflop": flops / 1e12, "f32_tflops": rate / 1e12, "sms": sms,
+           "max_sm_mhz": mhz, "peak_gib": peak, "profile": prof,
+           "seconds": seconds,
+           "mel": [lg["mel"] for lg in logs],
+           "disc_total": [lg["disc_total"] for lg in logs]}
+    del tr, y
+    return out
+
+
+def _write_pcm16(path: str, wav: np.ndarray, sr: int) -> None:
+    import wave
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def _codec_clis(cfg, device, work: str, cfg_flags=()) -> dict:
+    """(c) 4 wav files from a seed (2 at 24 kHz, 2 at 16 kHz): the
+    training CLI 2 steps with a validation pass, its export loaded into
+    ``WavCodec``; ``copy_synthesis`` of one file; ``prepare_data`` of the
+    four, read back by ``train/data.py``."""
+    from llmvox_tpu_torch.codec.codec import WavCodec
+    from llmvox_tpu_torch.tools import copy_synthesis, prepare_data
+    from llmvox_tpu_torch.train import codec_main
+    from llmvox_tpu_torch.train.data import SpeechDataset
+    from llmvox_tpu_torch.utils.params import load_meta
+    files, items = [], []
+    for i, sr in enumerate((24000, 16000, 24000, 16000)):
+        path = os.path.join(work, f"utt{i}.wav")
+        _write_pcm16(path, speechish(3.5 + 0.5 * i, 50 + i, sr), sr)
+        files.append(path)
+        items.append({"id": f"utt{i}", "answer_text": f"Utterance {i}."})
+    lst = os.path.join(work, "files.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(files))
+    out = os.path.join(work, "out")
+    t0 = time.perf_counter()
+    codec_main.main(["--filelist_train", lst, "--filelist_val", lst,
+                     "--out_dir", out, "--max_steps", "2", "--val_interval",
+                     "2", "--log_interval", "1", "--batch_size", "2",
+                     "--val_batch_size", "2", "--device", str(device),
+                     *cfg_flags])
+    train_s = time.perf_counter() - t0
+    assert load_meta(os.path.join(out, "codec_ckpt.npz"))["iter_num"] == 2
+    for name in ("codec_ckpt.npz", "codec_ckpt.disc.npz",
+                 "codec_inference.npz"):
+        assert os.path.exists(os.path.join(out, name)), name
+    export = os.path.join(out, "codec_inference.npz")
+    codec = WavCodec.from_pretrained(export, cfg, device=device,
+                                     graphs=False)
+    _, codes = codec.encode_infer(speechish(1.0, 49, 24000)[None])
+    assert codes.shape == (1, -(-24000 // cfg.hop_length)), codes.shape
+    del codec
+    t0 = time.perf_counter()
+    copy_synthesis.main(["--codec_params", export, "--inputs", files[1],
+                         "--out_dir", os.path.join(work, "recon"),
+                         "--device", str(device)])
+    recon = os.path.join(work, "recon", "utt1_recon.wav")
+    from llmvox_tpu_torch.utils.audio import read_wav
+    wav, sr = read_wav(recon)
+    assert sr == 24000 and wav.shape[1] == 24000 * 4, wav.shape
+    assert np.isfinite(wav).all()
+    copy_s = time.perf_counter() - t0
+    manifest = os.path.join(work, "data.json")
+    with open(manifest, "w") as f:
+        json.dump(items, f)
+    t0 = time.perf_counter()
+    prepare_data.main(["--data_path", manifest, "--speech_data_folder", work,
+                       "--codec_params", export, "--out",
+                       os.path.join(work, "prepared.npz"),
+                       "--device", str(device)])
+    prep_s = time.perf_counter() - t0
+    data = SpeechDataset(os.path.join(work, "prepared.npz"))
+    assert len(data) == 4
+    lens = [len(s.codes) for s in data.samples]
+    # every frame's code but the natural EOA's (453), stripped
+    full = [-(-int(24000 * (3.5 + 0.5 * i)) // cfg.hop_length)
+            for i in range(4)]
+    assert all(0 < n <= m for n, m in zip(lens, full)), (lens, full)
+    log(f"[codec] (c) codec_main 2 steps with a validation pass "
+        f"{train_s:.1f} s (checkpoint, discriminators, export written; the "
+        f"export loads into WavCodec); copy_synthesis of a 16 kHz file "
+        f"{copy_s:.1f} s ({wav.shape[1]} samples at 24 kHz); prepare_data "
+        f"of 4 files {prep_s:.1f} s ({lens} codes, read back by "
+        f"SpeechDataset)")
+    return {"train_s": train_s, "copy_s": copy_s, "prepare_s": prep_s,
+            "codes": lens}
+
+
+def phase_codec_train(card: str, device="cuda", cfg=None, tcfg=None,
+                      check_tcfg=None, cli_flags=()) -> dict:
+    """Phase 20, codec training at the deployed widths (smaller configs and
+    the CPU only to rehearse the control flow).  Its files go to the
+    git-ignored ``build/phase20``, removed at the end."""
+    import shutil
+    from llmvox_tpu_torch.utils.config import CodecConfig, CodecTrainConfig
+    t_phase = time.perf_counter()
+    cfg = cfg or CodecConfig()
+    tcfg = tcfg or CodecTrainConfig()
+    check_tcfg = check_tcfg or dataclasses.replace(
+        tcfg, batch_size=CODEC_CHECK_BATCH, num_samples=CODEC_CHECK_SAMPLES)
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    from llmvox_tpu_torch.train.vq_train import init_vq_state
+    # one seeded state for (a) and (b) (drawn once: ~5 s of numpy)
+    state = {"gen_params": ct.init_generator_params(40, cfg),
+             "disc_params": ct.init_discriminator_params(41, tcfg),
+             "vq_state": init_vq_state(42, cfg.vq_bins, cfg.vq_dim)}
+    state_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out = {"check": _codec_check(cfg, check_tcfg, device, state),
+           "state_s": state_s}
+    out["check_s"] = time.perf_counter() - t0
+    _zero_launches()
+    if torch.device(device).type == "cuda":
+        t0 = time.perf_counter()
+        out["deployed"] = _codec_deployed(cfg, tcfg, card, state)
+        out["deployed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = _codec_clis(cfg, device, work, cli_flags)
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"] = _read_launches()
+    assert not any(out["launches"].values()), out["launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[codec] phase 20: {out['phase_s']:.1f} s (the state {state_s:.1f}, (a) "
+        f"{out['check_s']:.1f}, (b) {out.get('deployed_s', 0.0):.1f}, (c) "
+        f"{out['cli_s']:.1f}); the kernels' launches "
+        f"on its path {out['launches']} (codec training reaches none)")
     return out
 
 
@@ -4593,13 +5117,13 @@ def asr_generation(cfg) -> dict:
             "max_length": cfg.max_target_positions}
 
 
-def speechish(seconds: float, seed: int) -> np.ndarray:
-    """A speech-like 16 kHz signal: voiced harmonics under a syllable-rate
-    envelope, plus noise."""
+def speechish(seconds: float, seed: int, sr: int = 16000) -> np.ndarray:
+    """A speech-like signal at ``sr``: voiced harmonics under a
+    syllable-rate envelope, plus noise."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(16000 * seconds)) / 16000
+    t = np.arange(int(sr * seconds)) / sr
     f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    phase = 2 * np.pi * np.cumsum(f0) / sr
     voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
     env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.5 * t) ** 2
     return (0.3 * env * voiced + 0.02 * rng.standard_normal(t.size)).astype(
@@ -5283,6 +5807,7 @@ def main(argv) -> int:
     phase_other_cards()
     launches = pool_launches = spec_launches = quant_launches = None
     llm_k4_launches = voicechat_launches = train_launches = None
+    codec_launches = {"k1": None, "k2": None, "k3": None, "k4": None}
     pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
     spec_llm = dict(pool_llm)
     moe_llm = dict(pool_llm)
@@ -5291,6 +5816,9 @@ def main(argv) -> int:
         train = phase_train(weights)
         train_launches = train["k1_train_launches"]
         log(json.dumps({"train": train}))
+        codec_train = phase_codec_train(card)
+        codec_launches = codec_train["launches"]
+        log(json.dumps({"codec_train": codec_train}))
         phase_block_graph(weights)
         launches = phase_server(engines, weights)
         phase_batch(weights)
@@ -5348,6 +5876,7 @@ def main(argv) -> int:
              "llm_pool_launches": pool_llm["k1"],
              "llm_spec_launches": spec_llm["k1"],
              "moe_launches": moe_llm["k1"],
+             "codec_train_launches": codec_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
              "other": {f"pos {pos}": {key: t[key] for key in
                                       ("ms", "bound_ms", "plain_ms",
@@ -5363,6 +5892,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k2"],
               "llm_spec_launches": spec_llm["k2"],
               "moe_launches": moe_llm["k2"],
+              "codec_train_launches": codec_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
               "other": {name: {key: t[key] for key in
                                ("ms", "bound_ms", "plain_ms", "library_ms")}
@@ -5377,6 +5907,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k3"],
               "llm_spec_launches": spec_llm["k3"],
               "moe_launches": moe_llm["k3"],
+              "codec_train_launches": codec_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
               "dtype": "bfloat16", **k3["timings"][k3_name],
               "other": {name: {key: t[key] for key in
@@ -5393,6 +5924,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k4"],
               "llm_spec_launches": spec_llm["k4"],
               "moe_launches": moe_llm["k4"],
+              "codec_train_launches": codec_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
               **k4["timings"][k4_main],
               "other": {f"{name} M={m}": {key: t[key] for key in

@@ -48,7 +48,7 @@ def _attn_block(p: Dict, x: torch.Tensor, cfg: CodecConfig,
     q = nn.linear(h, p["q_w"], p["q_b"])
     k = nn.linear(h, p["k_w"], p["k_b"])
     v = nn.linear(h, p["v_w"], p["v_b"])
-    logits = torch.einsum("blc,bmc->blm", q.float(), k.float()) * (c ** -0.5)
+    logits = torch.einsum("blc,bmc->blm", nn.wide(q), nn.wide(k)) * (c ** -0.5)
     if valid_len is not None:
         kmask = valid_mask(x.shape[1], valid_len, x.device)[:, None, :]
         logits = logits.masked_fill(kmask == 0, float("-inf"))

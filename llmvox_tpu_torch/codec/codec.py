@@ -1,8 +1,9 @@
-"""WavCodec: the WavTokenizer-compatible codec's decode path.
+"""WavCodec: the WavTokenizer-compatible codec's decode path and encoder.
 
 Counterpart of ``llmvox_tpu/codec/codec.py`` (``DEFAULT_BUCKETS``,
 ``_decode_codes``, and ``WavCodec``'s decode surface, the pool's ragged
-batched decode included).  Chunks are decoded
+batched decode included, and ``encode_infer``, eager, for the offline
+tools).  Chunks are decoded
 at a few bucket lengths: a ragged chunk is zero-padded to the next bucket,
 the ``valid_len`` masking inside the backbone and the ISTFT keeps the
 kept samples equal to an exact-length decode, and the tail is trimmed.
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.codec import backbone as bb
-from llmvox_tpu_torch.codec import heads, vq
+from llmvox_tpu_torch.codec import heads, seanet, vq
 from llmvox_tpu_torch.utils.config import CodecConfig
 from llmvox_tpu_torch.utils.device import Fetch, resolve_device
 from llmvox_tpu_torch.utils.graphs import GraphSet, fill, use_graphs
@@ -168,6 +169,20 @@ class WavCodec:
         work (or inside a graph's body) and fetch once."""
         return _decode_codes(self.params, codes, bandwidth_id, lengths,
                              self.cfg)
+
+    @torch.no_grad()
+    def encode_infer(self, wav) -> Tuple[np.ndarray, np.ndarray]:
+        """(B, T) waveform -> ((B, L, dim) features, (B, L) int32 codes)
+        on the host: the SEANet encoder, the nearest code of the first
+        codebook and its features, eagerly in f32."""
+        if "encoder" not in self.params:
+            raise ValueError("codec params have no SEANet encoder weights")
+        wav = torch.as_tensor(np.asarray(wav, np.float32)).to(self.device)
+        emb = seanet.apply_seanet_encoder(self.params["encoder"], wav,
+                                          self.cfg)
+        codes = vq.nearest_code(self.params["codebooks"][0], emb)
+        feats = vq.codes_to_features(self.params["codebooks"], codes)
+        return feats.cpu().numpy(), codes.cpu().numpy()
 
     def warmup(self, batch_size: int = 1) -> None:
         """Capture every bucket at ``batch_size`` (a CUDA graph each, on

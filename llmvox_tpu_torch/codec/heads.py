@@ -16,7 +16,7 @@ from llmvox_tpu_torch.utils.config import CodecConfig
 def apply_istft_head(params: Dict, x: torch.Tensor, cfg: CodecConfig,
                      valid_len=None) -> torch.Tensor:
     """(B, L, 768) hidden -> (B, hop_length * L) waveform."""
-    h = nn.linear(x, params["w"], params["b"]).float()
+    h = nn.wide(nn.linear(x, params["w"], params["b"]))
     nbins = cfg.n_fft // 2 + 1
     mag = torch.exp(h[..., :nbins]).clamp(max=1e2)
     phase = h[..., nbins:]

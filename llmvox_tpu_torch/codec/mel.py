@@ -1,8 +1,11 @@
 """STFT with torch.stft's conventions, and mel spectrograms.
 
-Counterpart of ``_frame``, ``stft``, ``mel_filterbank`` and
-``mel_spectrogram_features`` (its centered form) in
-``llmvox_tpu/codec/mel.py``.  Whisper's log-mel frontend
+Counterpart of ``llmvox_tpu/codec/mel.py``: ``_frame``, ``stft``,
+``spectrogram``, ``mel_filterbank``, ``mel_spectrogram``, ``safe_log`` and
+``mel_spectrogram_features`` (centered, or reflect-padded by ``n_fft -
+hop`` first with ``padding="same"``).  The codec's training losses take
+the magnitude mel spectrogram, the discriminators the rectangular-window
+STFT.  Whisper's log-mel frontend
 (``models/whisper.py::log_mel``) uses the STFT: reflect padding of
 ``n_fft // 2`` on both sides when ``center``, sliding frames, the periodic
 Hann window, and ``torch.fft.rfft`` over each frame.  The JAX side is XLA
@@ -12,11 +15,15 @@ capture the STFT.
 """
 from __future__ import annotations
 
+import threading
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from llmvox_tpu_torch.ops.istft import device_window
+from llmvox_tpu_torch.ops.istft import device_window, np_dtype
+from llmvox_tpu_torch.ops.nn import wide_dtype
 
 
 def _frame(x: torch.Tensor, win: int, hop: int) -> torch.Tensor:
@@ -37,7 +44,8 @@ def stft(x: torch.Tensor, *, n_fft: int, hop_length: int,
         x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     frames = _frame(x, win_length, hop_length)
     if windowed:
-        frames = frames * device_window(win_length, x.device)
+        frames = frames * device_window(win_length, x.device,
+                                        wide_dtype(x.dtype))
     if win_length < n_fft:
         pad = n_fft - win_length
         frames = F.pad(frames, (pad // 2, pad - pad // 2))
@@ -69,14 +77,59 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
 
 
+# filterbanks on their devices, made once (a pageable host copy per call
+# would sync the stream at every loss)
+_filterbanks: Dict[Tuple, torch.Tensor] = {}
+_filterbanks_lock = threading.Lock()
+
+
+def device_filterbank(sample_rate: int, n_fft: int, n_mels: int,
+                      device, dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    key = (sample_rate, n_fft, n_mels, torch.device(device), dtype)
+    with _filterbanks_lock:
+        fb = _filterbanks.get(key)
+        if fb is None:
+            fb = _filterbanks[key] = torch.from_numpy(mel_filterbank(
+                sample_rate, n_fft, n_mels).astype(np_dtype(dtype))).to(
+                    key[3])
+        return fb
+
+
+def spectrogram(x: torch.Tensor, *, n_fft: int, hop_length: int,
+                win_length: int = None, windowed: bool = True,
+                power: float = 1.0) -> torch.Tensor:
+    """|STFT| (centered) of (B, T) -> (B, frames, bins), to ``power``."""
+    mag = stft(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+               windowed=windowed).abs()
+    return mag if power == 1.0 else mag ** power
+
+
+def mel_spectrogram(x: torch.Tensor, *, sample_rate: int = 24000,
+                    n_fft: int = 1024, hop_length: int = 256,
+                    n_mels: int = 100) -> torch.Tensor:
+    """(B, T) -> (B, n_mels, frames) magnitude mel spectrogram (power 1,
+    the mel loss's transform)."""
+    spec = spectrogram(x, n_fft=n_fft, hop_length=hop_length)
+    fb = device_filterbank(sample_rate, n_fft, n_mels, spec.device,
+                           wide_dtype(spec.dtype))
+    return torch.einsum("btf,fm->bmt", spec, fb.to(spec.dtype))
+
+
+def safe_log(x: torch.Tensor, clip_val: float = 1e-7) -> torch.Tensor:
+    return torch.log(x.clamp_min(clip_val))
+
+
 def mel_spectrogram_features(audio: torch.Tensor, *,
                              sample_rate: int = 24000, n_fft: int = 1024,
-                             hop_length: int = 256,
-                             n_mels: int = 100) -> torch.Tensor:
-    """(B, T) -> (B, n_mels, frames): the log (clipped at 1e-7) of the
-    magnitude mel spectrogram with a centered Hann STFT."""
-    spec = stft(audio, n_fft=n_fft, hop_length=hop_length).abs()
-    fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels)).to(
-        spec.device)
-    mel = torch.einsum("btf,fm->bmt", spec, fb)
-    return torch.log(mel.clamp_min(1e-7))
+                             hop_length: int = 256, n_mels: int = 100,
+                             padding: str = "center") -> torch.Tensor:
+    """(B, T) -> (B, n_mels, frames): the safe log of the magnitude mel
+    spectrogram.  ``padding="same"`` reflect-pads ``(n_fft - hop) // 2``
+    a side before the (still centered) STFT, as JAX's function does."""
+    if padding == "same":
+        pad = (n_fft - hop_length) // 2
+        audio = F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
+    return safe_log(mel_spectrogram(audio, sample_rate=sample_rate,
+                                    n_fft=n_fft, hop_length=hop_length,
+                                    n_mels=n_mels))

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from llmvox_tpu_torch.ops.nn import valid_mask
+from llmvox_tpu_torch.ops.nn import valid_mask, wide
 
 # Hann windows on their devices, made once: a copy from pageable host
 # memory per call would sync the stream (every synthesis would wait for
@@ -30,15 +30,21 @@ def hann_window(win_length: int) -> np.ndarray:
         np.float32)
 
 
-def device_window(win_length: int, device) -> torch.Tensor:
-    """The periodic Hann window as a tensor on ``device``, cached per
-    (length, device)."""
-    key = (win_length, torch.device(device))
+def np_dtype(dtype: torch.dtype):
+    """numpy's f32 or f64 for torch's."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def device_window(win_length: int, device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The periodic Hann window (its f32 values) as a ``dtype`` tensor on
+    ``device``, cached per (length, device, dtype)."""
+    key = (win_length, torch.device(device), dtype)
     with _windows_lock:
         w = _windows.get(key)
         if w is None:
-            w = _windows[key] = torch.from_numpy(
-                hann_window(win_length)).to(key[1])
+            w = _windows[key] = torch.from_numpy(hann_window(
+                win_length).astype(np_dtype(dtype))).to(key[1])
         return w
 
 
@@ -67,8 +73,9 @@ def istft_same(spec: torch.Tensor, *, n_fft: int, hop_length: int,
     pad = (win - hop_length) // 2
     b, t, nbins = spec.shape
     assert nbins == n_fft // 2 + 1
-    window = device_window(win, spec.device)
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1).float() * window
+    frames = wide(torch.fft.irfft(spec, n=n_fft, dim=-1))
+    window = device_window(win, spec.device, frames.dtype)
+    frames = frames * window
     env_frames = window.square().expand(1, t, win)
     if valid_len is not None:
         fmask = valid_mask(t, valid_len, spec.device)[:, :, None]

@@ -7,6 +7,9 @@ the JAX package's: keys are ``/``-joined tree paths (list indices as
 ``#i``) in the JAX flattening order (dict keys sorted), with an optional
 JSON sidecar ``<path>.json`` for the meta.
 
+``save_opaque`` writes a tree's leaves by position, as JAX's does (the
+codec trainer's ``<tag>.disc.npz``, which JAX's ``fill_like`` reads).
+
 The optimizer's state goes to ``<name>.adamw.npz`` beside the params:
 the port's own layout (``mu/``, ``nu/``, ``acc/`` plus each parameter's
 path, ``count``, ``mini_step``), which only the port's trainer resumes
@@ -27,7 +30,7 @@ from llmvox_tpu_torch.utils.params import load_meta, load_params_npz
 
 __all__ = ["flatten_pytree", "save_params_npz", "load_params_npz",
            "load_meta", "average_checkpoints", "load_partial",
-           "save_opt_state", "load_opt_state"]
+           "save_opaque", "save_opt_state", "load_opt_state"]
 
 
 def _numpy(leaf) -> np.ndarray:
@@ -60,6 +63,15 @@ def save_params_npz(path: str, params, meta: Dict[str, Any] = None) -> None:
     if meta is not None:
         with open(path + ".json", "w") as f:
             json.dump(meta, f, indent=2, default=str)
+
+
+def save_opaque(path: str, tree) -> None:
+    """A tree's leaves by position (``leaf_0``, ``leaf_1``, ...) in JAX's
+    leaf order (dict keys sorted), as JAX's ``save_opaque`` writes them
+    for its ``fill_like``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    leaves = flatten_pytree(tree).values()
+    np.savez(path, **{f"leaf_{i}": a for i, a in enumerate(leaves)})
 
 
 def _mean(trees: Sequence):

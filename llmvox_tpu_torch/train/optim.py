@@ -1,12 +1,16 @@
-"""Optimizer and learning-rate schedule for decoder training.
+"""Optimizer and learning-rate schedules for decoder and codec training.
 
-Counterpart of ``llmvox_tpu/train/optim.py``, whose optimizer is the optax
-chain ``MultiSteps(chain(clip_by_global_norm, adamw), k)``.  ``AdamW``
-here updates as that chain does, on a list of tensors:
+Counterpart of ``llmvox_tpu/train/optim.py``, whose decoder optimizer is
+the optax chain ``MultiSteps(chain(clip_by_global_norm, adamw), k)``, and
+of the codec trainer's two ``optax.adamw(warmup_cosine_lr, b1, b2)``
+(eps 1e-8, weight decay 1e-4 on every tensor, no clipping, no
+accumulation; ``llmvox_tpu/train/codec_trainer.py:122-135, 523-525``).
+``AdamW`` here updates as those do, on a list of tensors, with the
+hyperparameters of the config it is given (``hyper``):
 
 - gradients are averaged over ``k`` micro-steps (``MultiSteps``' running
   mean ``acc + (g - acc) / (i + 1)``); only every k-th call updates;
-- the mean is clipped by its global norm: scaled by ``max_norm / norm``
+- the mean is clipped by its global norm (the decoder's only): scaled by ``max_norm / norm``
   when ``norm >= max_norm`` and left as it is below (no epsilon; a
   ``grad_clip`` of 0 therefore zeroes every update, as it does in JAX);
 - Adam with bias correction ``1 - beta ** count`` in f32 and ``eps``
@@ -22,12 +26,12 @@ back to the host.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from llmvox_tpu_torch.utils.config import TrainConfig
+from llmvox_tpu_torch.utils.config import CodecTrainConfig, TrainConfig
 
 _NO_DECAY_KEYS = frozenset({
     "ln1_s", "ln1_b", "ln2_s", "ln2_b", "lnf_s", "lnf_b",
@@ -57,6 +61,50 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return fn
 
 
+def warmup_cosine_lr(tcfg: CodecTrainConfig) -> Callable[[int], float]:
+    """The codec trainer's schedule: linear warmup over
+    ``num_warmup_steps``, then a cosine from ``initial_learning_rate`` to
+    0 over ``max_steps // 2`` (transformers'
+    ``get_cosine_schedule_with_warmup``), in float32 as JAX's."""
+    f32 = np.float32
+    total = max(tcfg.max_steps // 2, 1)
+    warm = tcfg.num_warmup_steps
+
+    def fn(step) -> float:
+        step = f32(step)
+        lr = f32(tcfg.initial_learning_rate)
+        if step < warm:
+            return float(lr * step / f32(max(warm, 1)))
+        progress = np.clip((step - f32(warm)) / f32(max(total - warm, 1)),
+                           f32(0.0), f32(1.0))
+        return float(f32(tcfg.initial_learning_rate * 0.5) *
+                     (f32(1.0) + np.cos(f32(math.pi) * progress)))
+    return fn
+
+
+class Hyper(NamedTuple):
+    """What ``AdamW`` reads of a config: the schedule of the update
+    count, the moments' decays, eps, the weight decay, the global-norm
+    clip (None: none) and the micro-steps an update."""
+    schedule: Callable[[int], float]
+    b1: float
+    b2: float
+    eps: float
+    weight_decay: float
+    grad_clip: Optional[float]
+    k: int
+
+
+def hyper(cfg: Union[TrainConfig, CodecTrainConfig]) -> Hyper:
+    if isinstance(cfg, CodecTrainConfig):
+        # optax.adamw's defaults, as the codec trainer builds it
+        return Hyper(warmup_cosine_lr(cfg), cfg.adam_b1, cfg.adam_b2, 1e-8,
+                     1e-4, None, 1)
+    return Hyper(lr_schedule(cfg), cfg.beta1, cfg.beta2, cfg.adam_eps,
+                 cfg.weight_decay, cfg.grad_clip,
+                 max(cfg.gradient_accumulation_steps, 1))
+
+
 def decay_mask(params: Dict) -> Dict:
     """The params tree's structure with True for the leaves that get
     weight decay (matmul weights and embeddings)."""
@@ -81,18 +129,20 @@ def named_leaves(tree: Dict, prefix: str = "") -> List:
 
 
 class AdamW:
-    """``make_optimizer``'s update on ``params`` (tensors updated in
+    """``make_optimizer``'s update (a ``TrainConfig``) or the codec
+    trainer's (a ``CodecTrainConfig``) on ``params`` (tensors updated in
     place).  ``decay[i]`` says whether ``params[i]`` gets weight decay.
     Its state (``state_dict``) is the moments, the accumulated gradients
     and the two counts, all on the params' device."""
 
-    def __init__(self, cfg: TrainConfig, params: Sequence[torch.Tensor],
-                 decay: Sequence[bool]):
+    def __init__(self, cfg: Union[TrainConfig, CodecTrainConfig],
+                 params: Sequence[torch.Tensor], decay: Sequence[bool]):
         self.cfg = cfg
+        self.hyper = hyper(cfg)
         self.params = list(params)
         self.decay = list(decay)
-        self.k = max(cfg.gradient_accumulation_steps, 1)
-        self.schedule = lr_schedule(cfg)
+        self.k = self.hyper.k
+        self.schedule = self.hyper.schedule
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = [torch.zeros_like(p) for p in self.params]
@@ -118,23 +168,25 @@ class AdamW:
         return True
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        cfg = self.cfg
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        clip = ~(norm < cfg.grad_clip)
+        hp = self.hyper
+        if hp.grad_clip is not None:
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            clip = ~(norm < hp.grad_clip)
         lr = self.schedule(self.count)
         self.count += 1
         f32 = np.float32
-        b1, b2 = cfg.beta1, cfg.beta2
+        b1, b2 = hp.b1, hp.b2
         bc1 = float(f32(1.0) - f32(b1) ** f32(self.count))
         bc2 = float(f32(1.0) - f32(b2) ** f32(self.count))
         for p, g, mu, nu, wd in zip(self.params, grads, self.mu, self.nu,
                                     self.decay):
-            g = torch.where(clip, (g / norm) * cfg.grad_clip, g)
+            if hp.grad_clip is not None:
+                g = torch.where(clip, (g / norm) * hp.grad_clip, g)
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + hp.eps)
             if wd:
-                u = u + cfg.weight_decay * p
+                u = u + hp.weight_decay * p
             p.add_(u, alpha=-lr)
 
     def state_dict(self) -> Dict[str, object]:

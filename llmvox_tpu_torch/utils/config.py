@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port.
 
 Field for field the same as ``llmvox_tpu/utils/config.py`` (DecoderConfig,
-CodecConfig, ServeConfig, TrainConfig) minus the TPU-only decoder knobs
+CodecConfig, ServeConfig, TrainConfig, CodecTrainConfig) minus the TPU-only decoder knobs
 (``use_pallas_attention``, ``unroll_layers``): the port picks the
 attention kernel by the tensor's device, not by a flag.  CLI
 overrides follow the same rule: only flags the user passed override the
@@ -299,6 +299,63 @@ class TrainConfig:
     sp_size: int = 1
     sp_layout: str = "ring"
     fsdp: bool = False
+
+
+@dataclass(frozen=True)
+class CodecTrainConfig:
+    """WavTokenizer GAN-training knobs, the same fields and defaults as the
+    JAX package's CodecTrainConfig.  The port's
+    ``train/codec_trainer.py::CodecTrainer`` runs one eager step for every
+    ``step_impl`` (JAX's three values only size its compiled programs) and
+    refuses a ``dp_size`` above 1 (ROADMAP item 10)."""
+
+    sample_rate: int = 24000
+    initial_learning_rate: float = 2e-4
+    mel_loss_coeff: float = 45.0
+    mrd_loss_coeff: float = 1.0
+    commit_loss_coeff: float = 1000.0
+    num_warmup_steps: int = 0
+    pretrain_mel_steps: int = 0
+    max_steps: int = 20_000_000
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+
+    # data
+    filelist_train: str = ""
+    filelist_val: str = ""
+    num_samples: int = 72000     # 3 s crops at 24 kHz
+    batch_size: int = 40
+    val_batch_size: int = 5
+    train_gain_db_range: Tuple[float, float] = (-6.0, -1.0)
+    val_gain_db: float = -3.0
+
+    # discriminator families (the full reference sets by default)
+    mpd_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    mrd_resolutions: Tuple[Tuple[int, int, int], ...] = (
+        (1024, 256, 1024), (2048, 512, 2048), (512, 128, 512))
+    dac_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    dac_fft_sizes: Tuple[int, ...] = (2048, 1024, 512)
+
+    # VQ
+    vq_decay: float = 0.99
+    vq_kmeans_iters: int = 200
+    vq_threshold_dead: float = 2.0
+
+    # eval toggles
+    evaluate_utmos: bool = False
+    evaluate_pesq: bool = False
+    evaluate_periodicity: bool = False
+
+    # "fused", "split" or "micro": one eager step in the port
+    step_impl: str = "split"
+
+    seed: int = 3407
+    out_dir: str = "results_codec"
+    log_interval: int = 100
+    val_interval: int = 10000
+    use_wandb: bool = False
+    use_tensorboard: bool = False
+    dp_size: int = -1
 
 
 _SIMPLE_TYPES = (int, float, str, bool)

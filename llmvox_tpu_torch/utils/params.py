@@ -19,6 +19,15 @@ well under a second, where numpy would take minutes), and
 init_whisper_params``.  They are not the
 JAX initialisers' values: ``jax.random``, numpy and torch draw different
 numbers.
+
+The codec trainer's state crosses the same way: ``codec_train_trees``
+turns a ``CodecTrainState`` (JAX's after ``jax.device_get``, or the
+port's) into numpy trees, the generator's and discriminators' params
+(weight norms as ``{g, v, b}``) and the VQ state as the dict JAX's
+checkpoint writes (``embed``, ``embed_avg``, ``cluster_size``,
+``inited``): the port's ``CodecTrainer`` takes them as they are, and
+JAX's state is rebuilt from them (``vq_from_numpy`` makes the port's
+``VQState``).
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch
 from llmvox_tpu_torch.models.llama import LlamaConfig
 from llmvox_tpu_torch.models.whisper import WhisperConfig
 from llmvox_tpu_torch.ops import quant
+from llmvox_tpu_torch.train.vq_train import VQState
 from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
 
 
@@ -346,3 +356,39 @@ def random_text_table(seed: int, cfg: DecoderConfig) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal(
         (cfg.text_vocab_size, cfg.text_embed_dim)).astype(np.float32)
+
+
+def vq_to_numpy(vq) -> Dict[str, np.ndarray]:
+    """A VQ state (the port's, JAX's or a dict) -> JAX's dict of arrays."""
+    d = vq._asdict() if hasattr(vq, "_asdict") else dict(vq)
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in d.items()}
+
+
+def vq_from_numpy(vq, device) -> VQState:
+    """A VQ state (the port's, JAX's or a dict) -> the port's on
+    ``device``."""
+    d = vq_to_numpy(vq)
+    return VQState(**{k: torch.as_tensor(np.array(d[k])).to(device)
+                      for k in VQState._fields})
+
+
+def to_numpy(tree):
+    """Nested dict/list of tensors or arrays -> the same of numpy arrays
+    (``to_torch``'s inverse)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def codec_train_trees(state) -> Dict[str, Any]:
+    """A codec ``CodecTrainState`` (either package's) -> numpy
+    ``gen_params``, ``disc_params`` and ``vq_state`` (a dict), the
+    keywords ``CodecTrainer`` takes."""
+    return {"gen_params": to_numpy(state.gen_params),
+            "disc_params": to_numpy(state.disc_params),
+            "vq_state": vq_to_numpy(state.vq_state)}

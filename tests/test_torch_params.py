@@ -116,7 +116,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "streams.hf_multimodal", "serve.demo_page", "utils.audio",
                   "tools.convert", "tools.convert_ckpt", "train.data",
                   "train.optim", "train.checkpoint", "train.trainer",
-                  "train.__main__", "models.gpt2_import", "utils.logging"):
+                  "train.__main__", "models.gpt2_import", "utils.logging",
+                  "codec.seanet", "codec.discriminators", "codec.losses",
+                  "train.vq_train", "train.codec_trainer", "train.codec_data",
+                  "train.codec_main", "tools.prepare_data",
+                  "tools.copy_synthesis"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)
