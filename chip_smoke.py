@@ -229,8 +229,23 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      ``WavCodec``, ``copy_synthesis`` and ``prepare_data`` (read back by
      ``train/data.py``); every kernel's launches on the path (0: codec
      training reaches no TPU kernel's port).
+ 21. codec evaluation and compression, run right after phase 20, at full
+     width with seeded numpy weights: (a) the UTMOS scorer at
+     wav2vec2-base's geometry (``UTMOSConfig()``): a 3 s 16 kHz clip's
+     score and frame scores in f32 against the card's f64, one f32 score
+     of a 10 s clip timed, the peak memory; (b) the Encodec LM
+     (``lm_config_for(CodecConfig())``) compressing and decompressing 750
+     frames of ``encode_infer`` codes through one captured T=1 step,
+     exactly, ms a step (with the coder, and the graph replay's device
+     time), bytes a frame against the raw 12 bits, the f32 pdfs against
+     the f64 step's over 64 frames; (c) ``encode_frames`` /
+     ``decode_frames`` of 2 x 3 s at 1 s segments, overlap 0.01,
+     normalised, f32 against f64 (a differing code a near tie); (d) the
+     eval CLI in both modes over 4 seeded wav files (2 at 16 kHz) and
+     ``validation_metrics(full=True)`` on 2 x 3 s, the UTMOS of (a)
+     registered; every kernel's launches on the path (0).
 Then a JSON line with phase 19's numbers (printed after it), one with
-phase 20's, one with phase 14's, one with phase 16's, one with phase 15's, one with phase
+phase 20's, one with phase 21's, one with phase 14's, one with phase 16's, one with phase 15's, one with phase
 17's, one with phase 18's, one with the kernels' numbers (each kernel's
 launches on every served path, the new phases' among them), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -243,6 +258,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import socket
 import statistics
@@ -1722,6 +1738,332 @@ def phase_codec_train(card: str, device="cuda", cfg=None, tcfg=None,
         f"{out['check_s']:.1f}, (b) {out.get('deployed_s', 0.0):.1f}, (c) "
         f"{out['cli_s']:.1f}); the kernels' launches "
         f"on its path {out['launches']} (codec training reaches none)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: codec evaluation and compression
+# ---------------------------------------------------------------------------
+
+# (a) UTMOS: the f32 score and frame scores against the card's f64 run on
+# the same weights and clip, absolute.  f32 keeps 24 bits; the frame
+# scores come out of 7 convs, 12 post-norm layers (sums of up to 3072
+# terms, each layer renormalised) and a 150-frame BiLSTM, which keep the
+# features to ~1e-5 relative; the head's frame scores are ~0.1 in size
+# with these weights, so 1e-4 is some 100 times that rounding and far
+# below a real fault (a wrong norm or gate moves them by ~1e-2 or more)
+UTMOS_ATOL = 1e-4
+UTMOS_SECONDS, UTMOS_TIMED_SECONDS = 3.0, 10.0
+# (b) the LM: 10 s of codes at 75 frames/s; the f32 probabilities against
+# the card's f64 run over the first 64 frames, absolute (probabilities are
+# at most 1; logits of a few units through 5 layers of width 200-800 keep
+# ~1e-6 relative, so the softmax's entries move by under 1e-5)
+LM_FRAMES, LM_CHECK_FRAMES = 750, 64
+LM_PDF_ATOL = 1e-5
+# (c) segmented encode/decode: 2 x 3 s, 1 s segments, overlap 0.01,
+# volume normalisation; a code the f32 encoder picks other than f64's is a
+# near tie (the f64 distances within CODEC_TIE_RTOL of the scale, phase
+# 20's rule); the f32 decode of f64's frames within 1e-4 of the f64
+# decode's peak (~30 convs and a 2-layer LSTM of width 512 in f32)
+SEG_SECONDS, SEG_S, SEG_OVERLAP = 3.0, 1.0, 0.01
+SEG_RTOL = 1e-4
+
+
+def _utmos_check(cfg, weights, device) -> dict:
+    """(a) the score and frame scores of a 3 s clip in f32 and f64, the f32
+    scorer's ms on a 10 s clip and the peak memory."""
+    from llmvox_tpu_torch.codec import metrics, utmos
+    from llmvox_tpu_torch.utils.params import to_torch
+    clip = speechish(UTMOS_SECONDS, 70, 16000)
+    scores, frames = {}, {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        p = to_torch(weights, device, dtype)
+        with torch.no_grad():
+            fr = utmos.frame_scores(p, torch.from_numpy(clip)[None].to(
+                device, dtype), cfg)
+        frames[name] = fr[0].double().cpu().numpy()
+        scores[name] = float(frames[name].mean() * 2 + 3)
+        del p
+    frame_err = float(np.abs(frames["f32"] - frames["f64"]).max())
+    score_err = abs(scores["f32"] - scores["f64"])
+    assert np.isfinite(frames["f32"]).all()
+    assert frame_err <= UTMOS_ATOL and score_err <= UTMOS_ATOL, (
+        frame_err, score_err)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    utmos.register(weights, cfg, device=device)
+    long_clip = speechish(UTMOS_TIMED_SECONDS, 71, 16000)
+    metrics.utmos_score(long_clip)                      # warm
+    _sync(device)
+    t0 = time.perf_counter()
+    score10 = metrics.utmos_score(long_clip)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.device(device).type == "cuda" else None)
+    assert np.isfinite(score10)
+    log(f"[eval] (a) UTMOS (wav2vec2-base + head, {cfg.encoder_layers} "
+        f"layers of {cfg.encoder_dim}): a {UTMOS_SECONDS:.0f} s clip scores "
+        f"{scores['f32']:.6f} in f32, {scores['f64']:.6f} in f64 (|diff| "
+        f"{score_err:.3e}; {frames['f32'].size} frame scores, max |diff| "
+        f"{frame_err:.3e}, tolerance {UTMOS_ATOL}); one f32 score of a "
+        f"{UTMOS_TIMED_SECONDS:.0f} s clip {ms:.2f} ms; peak "
+        + (f"{peak:.2f} GiB" if peak is not None else "not measured"))
+    return {"score_f32": scores["f32"], "score_f64": scores["f64"],
+            "score_err": score_err, "frame_err": frame_err,
+            "frames": int(frames["f32"].size), "score_10s": score10,
+            "ms_10s": ms, "peak_gib": peak}
+
+
+def _lm_check(codec, cfg, device) -> dict:
+    """(b) 10 s of codes from ``encode_infer`` compressed and decompressed
+    through one captured LM step, exactly; ms a step; the f32 pdfs against
+    the f64 run over 64 frames."""
+    from llmvox_tpu_torch.codec import compress, lm
+    from llmvox_tpu_torch.codec.entropy import quantized_cdf
+    from llmvox_tpu_torch.utils.params import init_lm_params
+    lcfg = lm.lm_config_for(cfg)
+    weights = init_lm_params(72, lcfg)
+    audio = codec_audio(1, LM_FRAMES * cfg.hop_length, 73)
+    _, codes = codec.encode_infer(audio)
+    assert codes.shape == (1, LM_FRAMES), codes.shape
+    stepper = lm.LMStepper(weights, lcfg, device)
+    t0 = time.perf_counter()
+    blob = compress.compress_codes(stepper, codes)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = compress.decompress_codes(stepper, blob)
+    dec_s = time.perf_counter() - t0
+    assert np.array_equal(back, codes), "the LM round trip is not exact"
+    # device time of one step: replays back to back
+    replay_ms = None
+    if torch.device(device).type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(100):
+            stepper.graph()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / 100
+    # f32 against f64 over the first frames, the same previous codes
+    ref = lm.LMStepper(weights, lcfg, device, dtype=torch.float64)
+    stepper.reset()
+    prev = np.zeros((lcfg.n_q,), np.int64)
+    pdf_err, cdf_differ = 0.0, 0
+    for i in range(LM_CHECK_FRAMES):
+        a, b = stepper.step(prev), ref.step(prev)
+        pdf_err = max(pdf_err, float(np.abs(a - b).max()))
+        cdf_differ += int(any((quantized_cdf(a[:, q]) !=
+                               quantized_cdf(b[:, q])).any()
+                              for q in range(lcfg.n_q)))
+        prev = codes[:, i].astype(np.int64) + 1
+    assert pdf_err <= LM_PDF_ATOL, pdf_err
+    per_frame = (len(blob) - 6) / LM_FRAMES
+    raw = lcfg.n_q * math.log2(lcfg.card) / 8
+    step_ms = enc_s * 1e3 / LM_FRAMES
+    log(f"[eval] (b) LM (n_q {lcfg.n_q}, card {lcfg.card}, dim {lcfg.dim}, "
+        f"{lcfg.num_layers} layers, past {lcfg.past_context}) over "
+        f"{LM_FRAMES} frames of encode_infer codes: compress {enc_s:.2f} s, "
+        f"decompress {dec_s:.2f} s, round trip exact; {step_ms:.3f} ms a "
+        f"frame with the coder (host), a step's graph replay "
+        + (f"{replay_ms:.3f} ms (device)" if replay_ms else "not measured")
+        + f"; {len(blob)} bytes, {per_frame:.3f} bytes a frame against "
+        f"{raw:.1f} raw ({lcfg.n_q * math.log2(lcfg.card):.0f} bits); f32 "
+        f"pdfs against f64 over {LM_CHECK_FRAMES} frames max |diff| "
+        f"{pdf_err:.3e} (tolerance {LM_PDF_ATOL}), quantized cdfs differing "
+        f"in {cdf_differ} of {LM_CHECK_FRAMES} frames")
+    return {"frames": LM_FRAMES, "bytes": len(blob),
+            "bytes_per_frame": per_frame, "raw_bytes_per_frame": raw,
+            "compress_s": enc_s, "decompress_s": dec_s,
+            "ms_per_step": step_ms, "replay_ms": replay_ms,
+            "pdf_err": pdf_err, "cdf_differ": cdf_differ}
+
+
+def _segment_check(codec, codec64, cfg, device) -> dict:
+    """(c) ``encode_frames`` / ``decode_frames`` at 1 s segments, overlap
+    0.01, normalised, f32 against the card's f64."""
+    from llmvox_tpu_torch.codec import seanet
+    audio = codec_audio(2, int(SEG_SECONDS * cfg.sample_rate), 74)
+    t0 = time.perf_counter()
+    f32 = codec.encode_frames(audio, SEG_S, SEG_OVERLAP, normalize=True)
+    enc_s = time.perf_counter() - t0
+    f64 = codec64.encode_frames(audio, SEG_S, SEG_OVERLAP, normalize=True)
+    seg, stride = codec.segment_geometry(SEG_S, SEG_OVERLAP)
+    differ = 0
+    book = codec64.params["codebooks"][0]
+    for k, ((c32, s32), (c64, s64)) in enumerate(zip(f32, f64)):
+        assert np.array_equal(s32, s64), "the volume scales differ"
+        bad = np.argwhere(c32 != c64)
+        if not len(bad):
+            continue
+        x = torch.from_numpy(audio[:, k * stride: k * stride + seg] / s64
+                             ).to(device, torch.float64)
+        with torch.no_grad():
+            emb = seanet.apply_seanet_encoder(codec64.params["encoder"], x,
+                                              cfg)
+        for b, i in bad:
+            e = emb[b, i]
+            d = ((e - book[[int(c32[b, i]), int(c64[b, i])]]) ** 2).sum(-1)
+            scale = float(e.square().sum() + book.square().sum(-1).max())
+            assert float(d[0] - d[1]) <= CODEC_TIE_RTOL * scale, (k, b, i)
+            differ += 1
+    t0 = time.perf_counter()
+    y32 = codec.decode_frames(f64, SEG_S, SEG_OVERLAP)
+    dec_s = time.perf_counter() - t0
+    y64 = codec64.decode_frames(f64, SEG_S, SEG_OVERLAP)
+    err = float(np.abs(y32 - y64).max())
+    peak = float(np.abs(y64).max())
+    assert np.isfinite(y32).all() and y32.shape[1] >= audio.shape[1]
+    assert err <= SEG_RTOL * peak, (err, peak)
+    n_codes = sum(c.size for c, _ in f32)
+    log(f"[eval] (c) segmented encode/decode, 2 x {SEG_SECONDS:.0f} s at "
+        f"{SEG_S:.0f} s segments, overlap {SEG_OVERLAP}, normalised: "
+        f"{len(f32)} frames, {n_codes} codes ({differ} differing f32 "
+        f"against f64, each a near tie); encode {enc_s * 1e3:.0f} ms, "
+        f"decode {dec_s * 1e3:.0f} ms (f32); f32 decode against f64 max "
+        f"|diff| {err:.3e} of peak {peak:.3f} (tolerance {SEG_RTOL} of the "
+        f"peak); {y32.shape[1]} samples out for {audio.shape[1]} in")
+    return {"frames": len(f32), "codes": int(n_codes),
+            "codes_differing": differ, "decode_err": err,
+            "decode_peak": peak, "encode_s": enc_s, "decode_s": dec_s}
+
+
+def _eval_cli(codec_tree, cfg, device, work: str, cfg_flags=()) -> dict:
+    """(d) ``python -m llmvox_tpu_torch.codec.eval`` in both modes over 4
+    seeded wav files (2 at 16 kHz), in this process; the second scores the
+    first's reconstructions."""
+    import glob
+    import tempfile
+    from llmvox_tpu_torch.codec import eval as codec_eval
+    from llmvox_tpu_torch.train.checkpoint import save_params_npz
+    files = []
+    for i, sr in enumerate((24000, 16000, 24000, 16000)):
+        path = os.path.join(work, f"ref{i}.wav")
+        _write_pcm16(path, speechish(3.5 + 0.5 * i, 80 + i, sr), sr)
+        files.append(path)
+    lst = os.path.join(work, "refs.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(files))
+    npz = os.path.join(work, "codec.npz")
+    save_params_npz(npz, {k: v for k, v in codec_tree.items()
+                          if k != "seanet_decoder"})
+    quiet = open(os.devnull, "w")
+    old_tmp, old_out = tempfile.tempdir, sys.stdout
+    tempfile.tempdir = work     # the CLI's reconstructions land in ``work``
+    sys.stdout = quiet          # its per-file rows
+    try:
+        t0 = time.perf_counter()
+        synth = codec_eval.main(["--refs", lst, "--codec_params", npz,
+                                 "--device", str(device), *cfg_flags])
+        synth_s = time.perf_counter() - t0
+        recon_dir, = glob.glob(os.path.join(work, "llmvox_eval_*"))
+        t0 = time.perf_counter()
+        scored = codec_eval.main(["--refs", lst, "--recon_dir", recon_dir,
+                                  "--device", str(device), *cfg_flags])
+        score_s = time.perf_counter() - t0
+    finally:
+        tempfile.tempdir, sys.stdout = old_tmp, old_out
+        quiet.close()
+    assert synth["n"] == scored["n"] == 4
+    assert synth["mean"] == scored["mean"], (synth["mean"], scored["mean"])
+    for k in ("mel_distance", "si_snr", "periodicity", "pesq", "stoi",
+              "utmos"):
+        assert synth["mean"].get(k) is not None and np.isfinite(
+            synth["mean"][k]), (k, synth["mean"])
+    log(f"[eval] (d) the eval CLI: --codec_params {synth_s:.1f} s (4 files "
+        f"copy-synthesised and scored), --recon_dir {score_s:.1f} s, the "
+        f"same means: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    sorted(synth["mean"].items())))
+    return {"synth_s": synth_s, "score_s": score_s, "mean": synth["mean"]}
+
+
+def _validation_full(codec_tree, cfg, device) -> dict:
+    """(d) ``CodecTrainer.validation_metrics(full=True)`` on 2 x 3 s, the
+    UTMOS of (a) registered.  Validation reads the generator and the VQ
+    only, so the trainer is built with one discriminator of each family."""
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    from llmvox_tpu_torch.train.vq_train import init_vq_state
+    from llmvox_tpu_torch.utils.config import CodecTrainConfig
+    tcfg = dataclasses.replace(
+        CodecTrainConfig(), mpd_periods=(2,),
+        mrd_resolutions=((512, 128, 512),), dac_periods=(2,),
+        dac_fft_sizes=(512,))
+    gen = {k: codec_tree[k] for k in ("encoder", "backbone", "head")}
+    vq = init_vq_state(75, cfg.vq_bins, cfg.vq_dim)
+    tr = ct.CodecTrainer(cfg, tcfg, device=device, gen_params=gen,
+                         vq_state=vq)
+    audio = codec_audio(2, int(3 * cfg.sample_rate), 76)
+    t0 = time.perf_counter()
+    out = tr.validation_metrics(audio, full=True)
+    val_s = time.perf_counter() - t0
+    want = {"val_mel_loss", "val_mel_distance", "val_si_snr",
+            "val_periodicity", "val_pitch_rmse_cents", "val_voicing_f1",
+            "val_pesq", "val_stoi", "val_utmos"}
+    assert want <= set(out), sorted(out)
+    assert all(np.isfinite(v) for v in out.values()), out
+    log(f"[eval] (d) validation_metrics(full=True) on 2 x 3 s {val_s:.1f} s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(out.items())))
+    return {"seconds": val_s, **out}
+
+
+def phase_codec_eval(card: str, device="cuda", cfg=None, ucfg=None,
+                     cli_flags=()) -> dict:
+    """Phase 21, codec evaluation and compression at full width (smaller
+    configs and the CPU only to rehearse the control flow).  Its files go
+    to the git-ignored ``build/phase21``, removed at the end."""
+    import shutil
+    from llmvox_tpu_torch.codec import metrics, seanet, utmos
+    from llmvox_tpu_torch.codec.codec import WavCodec
+    from llmvox_tpu_torch.utils.config import CodecConfig
+    from llmvox_tpu_torch.utils.device import resolve_device
+    from llmvox_tpu_torch.utils.params import (init_codec_params,
+                                               init_utmos_params)
+    t_phase = time.perf_counter()
+    # TF32 off before the first f32 product (the entry points' rule)
+    device = resolve_device(device)
+    cfg = cfg or CodecConfig()
+    ucfg = ucfg or utmos.UTMOSConfig()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase21")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # the seeded trees, drawn by numpy
+    uweights = init_utmos_params(77, ucfg)
+    tree = init_codec_params(78, cfg)
+    tree["encoder"] = seanet.init_seanet_encoder(79, cfg)
+    tree["seanet_decoder"] = seanet.init_seanet_decoder(80, cfg)
+    draw_s = time.perf_counter() - t_phase
+    out = {"draw_s": draw_s}
+    _zero_launches()
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        out["utmos"] = _utmos_check(ucfg, uweights, device)
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        codec = WavCodec(tree, cfg, device=device, graphs=False)
+        codec64 = WavCodec(tree, cfg, device=device, graphs=False,
+                           dtype=torch.float64)
+        out["lm"] = _lm_check(codec, cfg, device)
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["segments"] = _segment_check(codec, codec64, cfg, device)
+        seconds["c"] = time.perf_counter() - t0
+        del codec, codec64
+        t0 = time.perf_counter()
+        out["cli"] = _eval_cli(tree, cfg, device, work, cli_flags)
+        out["validation"] = _validation_full(tree, cfg, device)
+        seconds["d"] = time.perf_counter() - t0
+    finally:
+        metrics.register_plugin("utmos", None)
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = _read_launches()
+    assert not any(out["launches"].values()), out["launches"]
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[eval] phase 21: {out['phase_s']:.1f} s (the trees {draw_s:.1f}, "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items())
+        + f"); the kernels' launches on its path {out['launches']} (codec "
+        f"evaluation and compression reach none); {card}")
     return out
 
 
@@ -5808,6 +6150,7 @@ def main(argv) -> int:
     launches = pool_launches = spec_launches = quant_launches = None
     llm_k4_launches = voicechat_launches = train_launches = None
     codec_launches = {"k1": None, "k2": None, "k3": None, "k4": None}
+    eval_launches = dict(codec_launches)
     pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
     spec_llm = dict(pool_llm)
     moe_llm = dict(pool_llm)
@@ -5819,6 +6162,9 @@ def main(argv) -> int:
         codec_train = phase_codec_train(card)
         codec_launches = codec_train["launches"]
         log(json.dumps({"codec_train": codec_train}))
+        codec_eval = phase_codec_eval(card)
+        eval_launches = codec_eval["launches"]
+        log(json.dumps({"codec_eval": codec_eval}))
         phase_block_graph(weights)
         launches = phase_server(engines, weights)
         phase_batch(weights)
@@ -5877,6 +6223,7 @@ def main(argv) -> int:
              "llm_spec_launches": spec_llm["k1"],
              "moe_launches": moe_llm["k1"],
              "codec_train_launches": codec_launches["k1"],
+             "codec_eval_launches": eval_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
              "other": {f"pos {pos}": {key: t[key] for key in
                                       ("ms", "bound_ms", "plain_ms",
@@ -5893,6 +6240,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k2"],
               "moe_launches": moe_llm["k2"],
               "codec_train_launches": codec_launches["k2"],
+              "codec_eval_launches": eval_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
               "other": {name: {key: t[key] for key in
                                ("ms", "bound_ms", "plain_ms", "library_ms")}
@@ -5908,6 +6256,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k3"],
               "moe_launches": moe_llm["k3"],
               "codec_train_launches": codec_launches["k3"],
+              "codec_eval_launches": eval_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
               "dtype": "bfloat16", **k3["timings"][k3_name],
               "other": {name: {key: t[key] for key in
@@ -5925,6 +6274,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k4"],
               "moe_launches": moe_llm["k4"],
               "codec_train_launches": codec_launches["k4"],
+              "codec_eval_launches": eval_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
               **k4["timings"][k4_main],
               "other": {f"{name} M={m}": {key: t[key] for key in

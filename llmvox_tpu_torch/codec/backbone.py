@@ -6,7 +6,9 @@ x2, GroupNorm] -> AdaLayerNorm -> 12 ConvNeXt blocks -> final LayerNorm,
 channel-last throughout.  With ``valid_len`` every global op (GroupNorm
 statistics, attention keys, conv paddings) ignores frames at index >=
 valid_len, so the valid frames equal a run at the exact length: ragged
-chunks decode at a few padded bucket lengths.
+chunks decode at a few padded bucket lengths.  ``apply_resnet_backbone``
+is the reference's alternative VocosResNetBackbone (HiFi-GAN ResBlock1
+stacks of weight-norm convs).
 """
 from __future__ import annotations
 
@@ -115,3 +117,38 @@ def apply_backbone(params: Dict, features: torch.Tensor, bandwidth_id: int,
                             bandwidth_id, eps, mask)
     return nn.layer_norm(x, params["final_ln"]["s"], params["final_ln"]["b"],
                          eps)
+
+
+# ---------------------------------------------------------------------------
+# VocosResNetBackbone, the reference's shipped alternative backbone
+# (decoder/models.py:238-264 with ResBlock1, decoder/modules.py:89-191);
+# its initialiser is ``utils/params.py::init_resnet_backbone``
+# ---------------------------------------------------------------------------
+
+def _resblock1(p: Dict, x: torch.Tensor, lrelu_slope: float = 0.1,
+               dilations=(1, 3, 5)) -> torch.Tensor:
+    """HiFi-GAN V1 ResBlock without upsampling (modules.py:172-181)."""
+    for c1, c2, gamma, dil in zip(p["convs1"], p["convs2"], p["gamma"],
+                                  dilations):
+        xt = nn.leaky_relu(x, lrelu_slope)
+        pad = (3 * dil - dil) // 2
+        xt = nn.conv1d(xt, nn.effective_weight(c1), c1["b"],
+                       padding=[(pad, pad)], dilation=dil)
+        xt = nn.leaky_relu(xt, lrelu_slope)
+        xt = nn.conv1d(xt, nn.effective_weight(c2), c2["b"],
+                       padding=[(1, 1)])
+        if gamma is not None:
+            xt = gamma.to(xt.dtype) * xt
+        x = xt + x
+    return x
+
+
+def apply_resnet_backbone(params: Dict, features: torch.Tensor,
+                          **_) -> torch.Tensor:
+    """(B, L, Cin) -> (B, L, dim); VocosResNetBackbone.forward
+    (models.py:260-264)."""
+    x = nn.conv1d(features, nn.effective_weight(params["embed"]),
+                  params["embed"]["b"], padding=[(1, 1)])
+    for block in params["blocks"]:
+        x = _resblock1(block, x)
+    return x

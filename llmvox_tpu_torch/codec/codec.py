@@ -50,14 +50,17 @@ def _decode_codes(params: Dict, codes: torch.Tensor, bandwidth_id: int,
 class WavCodec:
     """Codec parameters (f32) on one device, decoded at bucket lengths.
     ``graphs`` (None: on for a card) serves every bucket through a CUDA
-    graph captured by ``warmup``; ``graphs=False`` runs eagerly."""
+    graph captured by ``warmup``; ``graphs=False`` runs eagerly.
+    ``dtype=torch.float64`` keeps the params in f64 for the eager encode
+    and the segmented paths, the reference that f32 is checked against."""
 
     def __init__(self, params: Dict, cfg: Optional[CodecConfig] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, *,
-                 device="cuda", graphs: Optional[bool] = None):
+                 device="cuda", graphs: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32):
         self.cfg = cfg or CodecConfig()
         self.device = resolve_device(device)
-        self.params = to_torch(params, self.device)
+        self.params = to_torch(params, self.device, dtype)
         self.buckets = sorted(buckets)
         self._graphs = GraphSet("codec", self.device,
                                 use_graphs(self.device, graphs), self._make)
@@ -174,10 +177,11 @@ class WavCodec:
     def encode_infer(self, wav) -> Tuple[np.ndarray, np.ndarray]:
         """(B, T) waveform -> ((B, L, dim) features, (B, L) int32 codes)
         on the host: the SEANet encoder, the nearest code of the first
-        codebook and its features, eagerly in f32."""
+        codebook and its features, eagerly in the params' dtype."""
         if "encoder" not in self.params:
             raise ValueError("codec params have no SEANet encoder weights")
-        wav = torch.as_tensor(np.asarray(wav, np.float32)).to(self.device)
+        wav = torch.as_tensor(np.asarray(wav, np.float32)).to(
+            self.device, self.params["codebooks"].dtype)
         emb = seanet.apply_seanet_encoder(self.params["encoder"], wav,
                                           self.cfg)
         codes = vq.nearest_code(self.params["codebooks"][0], emb)
@@ -189,3 +193,94 @@ class WavCodec:
         a card; without graphs one eager decode each)."""
         for n in self.buckets:
             self._graphs.capture((batch_size, n, 0))
+
+    # -- Encodec frame segmentation (encoder/model.py:126-188) -------------
+    def segment_geometry(self, segment_s: Optional[float],
+                         overlap: float = 0.01):
+        """(segment_length, stride) in samples; (None, None) = the whole
+        signal (the deployed config, encoder/model.py:112-123)."""
+        if segment_s is None:
+            return None, None
+        seg = int(segment_s * self.cfg.sample_rate)
+        return seg, max(1, int((1 - overlap) * seg))
+
+    def encode_frames(self, wav, segment_s: Optional[float] = None,
+                      overlap: float = 0.01, normalize: bool = False
+                      ) -> List[Tuple[np.ndarray, Optional[np.ndarray]]]:
+        """Segmented encode (EncodecModel.encode, encoder/model.py:126-163):
+        (B, T) audio sliced into segment_length windows every stride
+        samples, each optionally volume-normalised (scale = 1e-8 + rms)
+        and then encoded (``encode_infer``).  A list of (codes (B, L),
+        scale (B, 1) or None) frames."""
+        wav = np.asarray(wav, np.float32)
+        b, length = wav.shape
+        seg, stride = self.segment_geometry(segment_s, overlap)
+        if seg is None:
+            seg = stride = length
+        frames = []
+        for off in range(0, length, stride):
+            x = wav[:, off: off + seg]
+            scale = None
+            if normalize:
+                volume = np.sqrt(np.mean(x ** 2, axis=-1, keepdims=True))
+                scale = 1e-8 + volume
+                x = x / scale
+            _, codes = self.encode_infer(x)
+            frames.append((codes, scale))
+        return frames
+
+    @torch.no_grad()
+    def decode_frames(self, frames, segment_s: Optional[float] = None,
+                      overlap: float = 0.01) -> np.ndarray:
+        """Segmented decode (EncodecModel.decode, encoder/model.py:166-188):
+        each frame's codes through the SEANet DECODER (Encodec's
+        reconstruction path; serving uses the ConvNeXt/ISTFT head), scaled
+        back if normalised, merged by linear overlap-add.  The output may
+        be longer than the input; the caller trims (model.py:189-191)."""
+        if "seanet_decoder" not in self.params:
+            raise ValueError("codec params have no SEANet decoder weights")
+        _, stride = self.segment_geometry(segment_s, overlap)
+        outs = []
+        for codes, scale in frames:
+            feats = vq.codes_to_features(
+                self.params["codebooks"],
+                torch.tensor(np.asarray(codes, np.int32)).to(
+                    self.device))
+            wav = _seanet_decode(self.params, feats, self.cfg).cpu().numpy()
+            if scale is not None:
+                wav = wav * np.asarray(scale)
+            outs.append(wav)
+        if stride is None:
+            assert len(outs) == 1
+            return outs[0]
+        return linear_overlap_add(outs, stride)
+
+
+def _seanet_decode(params: Dict, feats: torch.Tensor,
+                   cfg: CodecConfig) -> torch.Tensor:
+    return seanet.apply_seanet_decoder(params["seanet_decoder"], feats, cfg)
+
+
+def linear_overlap_add(frames, stride: int) -> np.ndarray:
+    """Triangle-weighted overlap-add (encoder/utils.py:16-60
+    ``_linear_overlap_add``): each frame is weighted by a triangle peaking
+    at its middle and the sum normalised by the total weight per position,
+    so a one-frame region is unchanged and a two-frame overlap is the
+    exact linear crossfade."""
+    assert len(frames)
+    frames = [np.asarray(f, np.float32) for f in frames]
+    shape = frames[0].shape[:-1]
+    total = stride * (len(frames) - 1) + frames[-1].shape[-1]
+    frame_length = frames[0].shape[-1]
+    t = np.linspace(0, 1, frame_length + 2, dtype=np.float32)[1:-1]
+    weight = 0.5 - np.abs(t - 0.5)
+    sum_weight = np.zeros((total,), np.float32)
+    out = np.zeros(shape + (total,), np.float32)
+    offset = 0
+    for frame in frames:
+        n = frame.shape[-1]
+        out[..., offset: offset + n] += weight[:n] * frame
+        sum_weight[offset: offset + n] += weight[:n]
+        offset += stride
+    assert sum_weight.min() > 0
+    return out / sum_weight

@@ -1,4 +1,4 @@
-"""Inverse STFT with "same" padding.
+"""Inverse STFT with "same" padding, and the inverse MDCT.
 
 Counterpart of ``llmvox_tpu/ops/istft.py::istft_same``: irfft per frame,
 Hann window, overlap-add, window-envelope normalisation, then trimming
@@ -58,6 +58,38 @@ def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     for j in range(r):
         out[:, j:j + t] += segs[:, :, j]
     return out.reshape(b, (t + r - 1) * hop)
+
+
+def cosine_window(n: int) -> np.ndarray:
+    """scipy.signal.windows.cosine: sin(pi * (k + 0.5) / n)."""
+    k = np.arange(n)
+    return np.sin(np.pi * (k + 0.5) / n).astype(np.float32)
+
+
+def imdct(x: torch.Tensor, *, frame_len: int,
+          padding: str = "same") -> torch.Tensor:
+    """Inverse MDCT (reference decoder/spectral_ops.py:133-192), as
+    ``llmvox_tpu/ops/istft.py::imdct``: (B, L, N) MDCT coefficients, N =
+    frame_len // 2 -> (B, T) waveform; "same" keeps hop * L samples (hop
+    = N), "center" trims N a side.  Complex64 (complex128 for f64)."""
+    b, l, n = x.shape
+    assert n == frame_len // 2
+    cdtype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    n0 = (n + 1) / 2.0
+    k2 = np.arange(2 * n)
+    npc = np.complex128 if cdtype == torch.complex128 else np.complex64
+    pre = torch.from_numpy(np.exp(1j * np.pi * n0 * k2 / n).astype(npc))
+    post = torch.from_numpy(
+        np.exp(1j * np.pi * (k2 + n0) / (2 * n)).astype(npc))
+    xc = x.to(cdtype)
+    y_full = torch.cat([xc, -torch.conj(torch.flip(xc, dims=(-1,)))], dim=-1)
+    y = torch.fft.ifft(y_full * pre.to(x.device), dim=-1)
+    y = torch.real(y * post.to(x.device)) * np.sqrt(n) * np.sqrt(2.0)
+    window = torch.from_numpy(cosine_window(frame_len).astype(
+        np_dtype(y.dtype))).to(x.device)
+    audio = _overlap_add(y * window, frame_len // 2)
+    pad = frame_len // 2 if padding == "center" else frame_len // 4
+    return audio[:, pad:-pad]
 
 
 def istft_same(spec: torch.Tensor, *, n_fft: int, hop_length: int,

@@ -8,7 +8,10 @@ numpy out, so the card's host makes every npz without JAX:
   the SEANet encoder with its weight norms folded, w = g v / ||v||);
 - HF Llama / Mixtral and Whisper state dicts;
 - the ByT5 embedding table, resized to 386 rows with mean-initialised
-  rows for [PAD] and EOS.
+  rows for [PAD] and EOS;
+- the Encodec LM (``codec/lm.py``) and the UTMOS scorer's Lightning
+  checkpoint (``codec/utmos.py``; fairseq's weight-normed positional
+  conv folded along its own norm axis).
 The trees keep the JAX layout (stacked layers, Linear weights
 ``(Cin, Cout)``, conv kernels ``(K, Cin, Cout)``) as float32 arrays;
 ``utils/params.py::to_torch`` moves them to a device.  ``torch.load``
@@ -421,3 +424,150 @@ def convert_byt5_from_hf(model_name_or_path: str,
     model = T5ForConditionalGeneration.from_pretrained(model_name_or_path)
     return convert_byt5_embeddings(
         model.encoder.embed_tokens.weight, target_rows)
+
+
+# ---------------------------------------------------------------------------
+# Encodec LM (encoder/model.py:27-66; pretrained encodec_lm_*.th)
+# ---------------------------------------------------------------------------
+
+def convert_lm_state_dict(sd: Mapping, n_q: int, num_layers: int = 5) -> Dict:
+    """torch ``LMModel`` state dict -> ``codec/lm.py`` params.
+
+    Layer weights are stacked on a leading depth axis (the JAX
+    layout); ``in_proj_weight`` (3D, D) becomes the (D, 3D) ``qkv.w`` so
+    q/k/v are column slices.
+    """
+    sd = strip_prefix(dict(sd))
+
+    def stack(fmt: str, f=_np):
+        return np.stack([f(sd[fmt.format(i)]) for i in range(num_layers)])
+
+    t = "transformer.layers.{}."
+    layers = {
+        "qkv": {"w": stack(t + "self_attn.in_proj_weight", _lin_w),
+                "b": stack(t + "self_attn.in_proj_bias")},
+        "out": {"w": stack(t + "self_attn.out_proj.weight", _lin_w),
+                "b": stack(t + "self_attn.out_proj.bias")},
+        "ff1": {"w": stack(t + "linear1.weight", _lin_w),
+                "b": stack(t + "linear1.bias")},
+        "ff2": {"w": stack(t + "linear2.weight", _lin_w),
+                "b": stack(t + "linear2.bias")},
+        "norm1": {"scale": stack(t + "norm1.weight"),
+                  "bias": stack(t + "norm1.bias")},
+        "norm2": {"scale": stack(t + "norm2.weight"),
+                  "bias": stack(t + "norm2.bias")},
+    }
+    transformer = {"layers": layers}
+    if "transformer.norm_in.weight" in sd:
+        transformer["norm_in"] = {
+            "scale": _np(sd["transformer.norm_in.weight"]),
+            "bias": _np(sd["transformer.norm_in.bias"]),
+        }
+    return {
+        "emb": np.stack([_np(sd[f"emb.{k}.weight"]) for k in range(n_q)]),
+        "heads": {
+            "w": np.stack([_lin_w(sd[f"linears.{k}.weight"])
+                           for k in range(n_q)]),
+            "b": np.stack([_np(sd[f"linears.{k}.bias"])
+                           for k in range(n_q)]),
+        },
+        "transformer": transformer,
+    }
+
+
+# ---------------------------------------------------------------------------
+# UTMOS MOS predictor (WavTokenizer/metrics/UTMOS.py, the Lightning
+# checkpoint "epoch=3-step=7459.ckpt": fairseq wav2vec2-base keys under
+# feature_extractors.0.ssl_model, head under output_layers)
+# ---------------------------------------------------------------------------
+
+def _fold_wn_anydim(g, v) -> np.ndarray:
+    """Weight-norm fold for arbitrary norm dim: g keeps size along the
+    kept dim(s) and is 1 elsewhere (fairseq's pos_conv uses dim=2, so the
+    generic dim-0 fold above would normalize the wrong axes)."""
+    g, v = _np(g), _np(v)
+    axes = tuple(i for i, s in enumerate(g.shape) if s == 1)
+    norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def convert_utmos_state_dict(sd: Mapping, n_layer: int = 0) -> Dict:
+    """Lightning UTMOS checkpoint state dict -> codec/utmos.py params.
+    ``n_layer=0`` infers the encoder depth from the keys."""
+    sd = {k[len("model."):] if k.startswith("model.") else k: v
+          for k, v in sd.items()}
+    ssl = "feature_extractors.0.ssl_model."
+    if not n_layer:
+        n_layer = 1 + max(
+            int(k.split("encoder.layers.")[1].split(".")[0])
+            for k in sd if "encoder.layers." in k)
+
+    convs = []
+    i = 0
+    while f"{ssl}feature_extractor.conv_layers.{i}.0.weight" in sd:
+        convs.append({"w": _conv_w(
+            sd[f"{ssl}feature_extractor.conv_layers.{i}.0.weight"])})
+        i += 1
+
+    def stack(tmpl, f=None):
+        f = f or _lin_w
+        return np.stack([f(sd[tmpl.format(i)]) for i in range(n_layer)])
+
+    pc = ssl + "encoder.pos_conv.0."
+    if pc + "weight_g" in sd:
+        pos_w = _fold_wn_anydim(sd[pc + "weight_g"], sd[pc + "weight_v"])
+    elif pc + "parametrizations.weight.original0" in sd:
+        pos_w = _fold_wn_anydim(
+            sd[pc + "parametrizations.weight.original0"],
+            sd[pc + "parametrizations.weight.original1"])
+    else:
+        pos_w = _np(sd[pc + "weight"])
+
+    t = ssl + "encoder.layers.{}."
+    params = {
+        "conv": convs,
+        "conv0_gn": {
+            "s": _np(sd[ssl + "feature_extractor.conv_layers.0.2.weight"]),
+            "b": _np(sd[ssl + "feature_extractor.conv_layers.0.2.bias"])},
+        "fp_ln": {"s": _np(sd[ssl + "layer_norm.weight"]),
+                  "b": _np(sd[ssl + "layer_norm.bias"])},
+        "fp_w": _lin_w(sd[ssl + "post_extract_proj.weight"]),
+        "fp_b": _np(sd[ssl + "post_extract_proj.bias"]),
+        "pos_conv": {"w": np.transpose(pos_w, (2, 1, 0)),
+                     "b": _np(sd[pc + "bias"])},
+        "enc_ln": {"s": _np(sd[ssl + "encoder.layer_norm.weight"]),
+                   "b": _np(sd[ssl + "encoder.layer_norm.bias"])},
+        "layers": {
+            "wq": stack(t + "self_attn.q_proj.weight"),
+            "bq": stack(t + "self_attn.q_proj.bias", _np),
+            "wk": stack(t + "self_attn.k_proj.weight"),
+            "bk": stack(t + "self_attn.k_proj.bias", _np),
+            "wv": stack(t + "self_attn.v_proj.weight"),
+            "bv": stack(t + "self_attn.v_proj.bias", _np),
+            "wo": stack(t + "self_attn.out_proj.weight"),
+            "bo": stack(t + "self_attn.out_proj.bias", _np),
+            "ln1_s": stack(t + "self_attn_layer_norm.weight", _np),
+            "ln1_b": stack(t + "self_attn_layer_norm.bias", _np),
+            "w1": stack(t + "fc1.weight"),
+            "b1": stack(t + "fc1.bias", _np),
+            "w2": stack(t + "fc2.weight"),
+            "b2": stack(t + "fc2.bias", _np),
+            "ln2_s": stack(t + "final_layer_norm.weight", _np),
+            "ln2_b": stack(t + "final_layer_norm.bias", _np),
+        },
+        "domain_emb": _np(sd["feature_extractors.1.embedding.weight"]),
+        "judge_emb": _np(sd["output_layers.0.judge_embedding.weight"]),
+        "proj1_w": _lin_w(sd["output_layers.1.net.0.weight"]),
+        "proj1_b": _np(sd["output_layers.1.net.0.bias"]),
+        "proj2_w": _lin_w(sd["output_layers.1.net.3.weight"]),
+        "proj2_b": _np(sd["output_layers.1.net.3.bias"]),
+    }
+    rnn = "output_layers.0.decoder_rnn."
+    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+        params[f"lstm_{direction}"] = {
+            "wi": _lin_w(sd[rnn + f"weight_ih_l0{sfx}"]),
+            "wh": _lin_w(sd[rnn + f"weight_hh_l0{sfx}"]),
+            "bi": _np(sd[rnn + f"bias_ih_l0{sfx}"]),
+            "bh": _np(sd[rnn + f"bias_hh_l0{sfx}"]),
+        }
+    return params

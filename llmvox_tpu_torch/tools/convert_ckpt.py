@@ -9,6 +9,7 @@ files it writes (``train/checkpoint.py::save_params_npz``, with the same
   python -m llmvox_tpu_torch.tools.convert_ckpt byt5 charsiu/g2p_multilingual_byT5_tiny_16_layers_100 out/byt5.npz
   python -m llmvox_tpu_torch.tools.convert_ckpt llama <HF Llama or Mixtral dir> out/llama.npz
   python -m llmvox_tpu_torch.tools.convert_ckpt whisper <HF Whisper dir> out/whisper.npz
+  python -m llmvox_tpu_torch.tools.convert_ckpt utmos epoch=3-step=7459.ckpt out/utmos.npz
 
 The ``llama``, ``whisper`` and ``byt5`` modes load the model with
 transformers (from the network unless given a local directory).
@@ -26,7 +27,7 @@ from llmvox_tpu_torch.train.checkpoint import save_params_npz
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("kind", choices=["decoder", "codec", "byt5",
-                                         "llama", "whisper"])
+                                         "llama", "utmos", "whisper"])
     parser.add_argument("src")
     parser.add_argument("dst")
     parser.add_argument("--no-encoder", action="store_true",
@@ -136,6 +137,19 @@ def main(argv=None) -> None:
         save_params_npz(args.dst, params,
                         meta={"model_args": margs, "generation": gen,
                               "tokenizer_src": args.src})
+    elif args.kind == "utmos":
+        # the reference's UTMOS Lightning checkpoint
+        # ("epoch=3-step=7459.ckpt", WavTokenizer/metrics/UTMOS.py:26-28)
+        # -> codec/utmos.py params; activate with codec.utmos.register()
+        import torch
+        ckpt = torch.load(args.src, map_location="cpu",
+                          weights_only=False)
+        sd = ckpt.get("state_dict", ckpt)
+        params = convert.convert_utmos_state_dict(sd)
+        save_params_npz(args.dst, params,
+                        meta={"model_args": {
+                            "encoder_layers":
+                                int(params["layers"]["wq"].shape[0])}})
     else:
         table = convert.convert_byt5_from_hf(args.src)
         np.savez(args.dst, table=table)

@@ -374,20 +374,34 @@ class CodecTrainer:
     @torch.no_grad()
     def validation_metrics(self, audio, full: bool = False
                            ) -> Dict[str, float]:
-        """The mel distance on held-out audio.  ``full`` (the reference's
-        periodicity, pitch, PESQ and UTMOS metrics) needs
-        ``codec/metrics.py``, which is not ported yet."""
-        if full:
-            raise NotImplementedError(
-                "validation_metrics(full=True) needs codec/metrics.py, not "
-                "ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 9")
+        """The mel loss on held-out audio (experiment.py:227-258).
+        ``full`` adds the reference's validation metric set
+        (experiment.py:227-309, metrics/periodicity.py) through
+        ``codec/metrics.py::evaluate_pair``, row by row: the mel distance
+        on the trainer's device, SI-SNR, periodicity, pitch, voicing F1,
+        PESQ and STOI on the host, UTMOS where a scorer is registered;
+        each key's mean over the rows (None scores dropped), ``val_``
+        prefixed."""
         y = self._audio(audio)
         y_hat = generator_forward(self.gen.tree(), self.vq, y, 0, self.cfg,
                                   self.tcfg, train=False)[0]
         tlen = min(y.shape[-1], y_hat.shape[-1])
         mel = losses.mel_loss(y_hat[:, :tlen], y[:, :tlen],
                               sample_rate=self.tcfg.sample_rate)
-        return {"val_mel_loss": float(mel)}
+        out = {"val_mel_loss": float(mel)}
+        if full:
+            from llmvox_tpu_torch.codec import metrics as cm
+            agg: Dict[str, list] = {}
+            for i in range(y.shape[0]):
+                for k, v in cm.evaluate_pair(
+                        y_hat[i, :tlen], y[i, :tlen],
+                        sample_rate=self.tcfg.sample_rate,
+                        device=self.device).items():
+                    if v is not None:
+                        agg.setdefault(k, []).append(float(v))
+            out.update({f"val_{k}": float(np.mean(v))
+                        for k, v in agg.items()})
+        return out
 
     def save_checkpoint(self, tag: str = "codec_ckpt") -> str:
         """The files JAX's trainer writes: ``<tag>.npz`` (the generator and

@@ -16,7 +16,10 @@ the same for ``llmvox_tpu/models/llama.py::init_llama_params`` from a
 torch generator on the target device (an 8B tree is drawn on the card in
 well under a second, where numpy would take minutes), and
 ``init_whisper_params`` for ``llmvox_tpu/models/whisper.py::
-init_whisper_params``.  They are not the
+init_whisper_params``; ``init_utmos_params``, ``init_lm_params``,
+``init_imdct_symexp_head``, ``init_imdct_cos_head`` and
+``init_resnet_backbone`` draw the codec scorer's, the Encodec LM's and
+the alternative heads' and backbone's trees with numpy.  They are not the
 JAX initialisers' values: ``jax.random``, numpy and torch draw different
 numbers.
 
@@ -348,6 +351,154 @@ def init_codec_params(seed: int, cfg: CodecConfig) -> Dict:
     head = {"w": _trunc_normal(rng, (dim, out_dim)),
             "b": np.zeros((out_dim,), np.float32)}
     return {"codebooks": codebooks, "backbone": backbone, "head": head}
+
+
+def _uniform(rng: np.random.Generator, shape, bound: float) -> np.ndarray:
+    return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+
+def _zeros(*shape) -> np.ndarray:
+    return np.zeros(shape, np.float32)
+
+
+def _ones(*shape) -> np.ndarray:
+    return np.ones(shape, np.float32)
+
+
+def init_utmos_params(seed: int, cfg) -> Dict:
+    """The UTMOS scorer's tree (``codec/utmos.py``, a ``UTMOSConfig``) as
+    ``llmvox_tpu/codec/utmos.py::init_utmos_params`` builds it: normal
+    0.02 kernels and embeddings, unit norms, zero biases, LSTM weights
+    uniform in +-1/sqrt(H)."""
+    rng = np.random.default_rng(seed)
+    convs, cin = [], 1
+    for dim, kernel, _ in cfg.conv_layers:
+        convs.append({"w": _normal(rng, (kernel, cin, dim), 0.02)})
+        cin = dim
+    d, e, nl = cfg.conv_layers[-1][0], cfg.encoder_dim, cfg.encoder_layers
+    f = cfg.encoder_ffn
+    d0 = cfg.conv_layers[0][0]
+    params = {
+        "conv": convs,
+        "conv0_gn": {"s": _ones(d0), "b": _zeros(d0)},
+        "fp_ln": {"s": _ones(d), "b": _zeros(d)},
+        "fp_w": _normal(rng, (d, e), 0.02), "fp_b": _zeros(e),
+        "pos_conv": {"w": _normal(rng, (cfg.pos_conv_kernel,
+                                        e // cfg.pos_conv_groups, e), 0.02),
+                     "b": _zeros(e)},
+        "enc_ln": {"s": _ones(e), "b": _zeros(e)},
+        "layers": {
+            "wq": _normal(rng, (nl, e, e), 0.02), "bq": _zeros(nl, e),
+            "wk": _normal(rng, (nl, e, e), 0.02), "bk": _zeros(nl, e),
+            "wv": _normal(rng, (nl, e, e), 0.02), "bv": _zeros(nl, e),
+            "wo": _normal(rng, (nl, e, e), 0.02), "bo": _zeros(nl, e),
+            "ln1_s": _ones(nl, e), "ln1_b": _zeros(nl, e),
+            "w1": _normal(rng, (nl, e, f), 0.02), "b1": _zeros(nl, f),
+            "w2": _normal(rng, (nl, f, e), 0.02), "b2": _zeros(nl, e),
+            "ln2_s": _ones(nl, e), "ln2_b": _zeros(nl, e),
+        },
+        "domain_emb": _normal(rng, (cfg.n_domains, cfg.domain_dim), 0.02),
+        "judge_emb": _normal(rng, (cfg.num_judges, cfg.judge_dim), 0.02),
+    }
+    lstm_in = e + cfg.domain_dim + cfg.judge_dim
+    h = cfg.lstm_hidden
+    bound = math.sqrt(1.0 / h)
+    for direction in ("fwd", "bwd"):
+        params[f"lstm_{direction}"] = {
+            "wi": _uniform(rng, (lstm_in, 4 * h), bound),
+            "wh": _uniform(rng, (h, 4 * h), bound),
+            "bi": _zeros(4 * h), "bh": _zeros(4 * h)}
+    params["proj1_w"] = _normal(rng, (2 * h, cfg.proj_hidden), 0.02)
+    params["proj1_b"] = _zeros(cfg.proj_hidden)
+    params["proj2_w"] = _normal(rng, (cfg.proj_hidden, 1), 0.02)
+    params["proj2_b"] = _zeros(1)
+    return params
+
+
+def _lm_linear(rng: np.random.Generator, fan_in: int, fan_out: int) -> Dict:
+    """torch.nn.Linear's default init: U(+-1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return {"w": _uniform(rng, (fan_in, fan_out), bound),
+            "b": _uniform(rng, (fan_out,), bound)}
+
+
+def init_lm_params(seed: int, cfg) -> Dict:
+    """The Encodec LM's tree (``codec/lm.py``, an ``LMConfig``) as
+    ``llmvox_tpu/codec/lm.py::init_lm`` builds it: N(0, 1) embeddings of
+    ``card + 1`` rows per codebook, Linear-default heads, and per layer a
+    Xavier-uniform ``qkv`` with zero bias, a Linear-default out projection
+    with zero bias, Linear-default feed-forward, unit norms; layers and
+    heads stacked on a leading axis."""
+    rng = np.random.default_rng(seed)
+    d, h, nl = cfg.dim, cfg.hidden_dim, cfg.num_layers
+    emb = rng.standard_normal((cfg.n_q, cfg.card + 1, d)).astype(np.float32)
+    heads = [_lm_linear(rng, d, cfg.card) for _ in range(cfg.n_q)]
+    layers = []
+    limit = math.sqrt(6.0 / (d + 3 * d))
+    for _ in range(nl):
+        layers.append({
+            "qkv": {"w": _uniform(rng, (d, 3 * d), limit),
+                    "b": _zeros(3 * d)},
+            "out": {"w": _lm_linear(rng, d, d)["w"], "b": _zeros(d)},
+            "ff1": _lm_linear(rng, d, h),
+            "ff2": _lm_linear(rng, h, d),
+            "norm1": {"scale": _ones(d), "bias": _zeros(d)},
+            "norm2": {"scale": _ones(d), "bias": _zeros(d)}})
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return np.stack(items)
+    transformer = {"layers": stack(layers)}
+    if cfg.norm_in:
+        transformer["norm_in"] = {"scale": _ones(d), "bias": _zeros(d)}
+    return {"emb": emb, "heads": stack(heads), "transformer": transformer}
+
+
+def init_imdct_symexp_head(seed: int, dim: int, mdct_frame_len: int,
+                           sample_rate: Optional[int] = None) -> Dict:
+    """IMDCTSymExpHead's Linear(dim -> N/2) (``codec/heads.py``):
+    truncated-normal 0.02, each output column scaled down along the mel
+    scale when ``sample_rate`` is given, as JAX's initialiser does."""
+    out_dim = mdct_frame_len // 2
+    w = _trunc_normal(np.random.default_rng(seed), (dim, out_dim))
+    if sample_rate is not None:
+        m_max = 2595.0 * np.log10(1.0 + (sample_rate // 2) / 700.0)
+        m_pts = np.linspace(0, m_max, out_dim)
+        f_pts = 700.0 * (10.0 ** (m_pts / 2595.0) - 1.0)
+        w = (w * (1.0 - f_pts / f_pts.max())[None, :]).astype(np.float32)
+    return {"w": w, "b": _zeros(out_dim)}
+
+
+def init_imdct_cos_head(seed: int, dim: int, mdct_frame_len: int) -> Dict:
+    """IMDCTCosHead's Linear(dim -> N), truncated-normal 0.02."""
+    return {"w": _trunc_normal(np.random.default_rng(seed),
+                               (dim, mdct_frame_len)),
+            "b": _zeros(mdct_frame_len)}
+
+
+def init_resnet_backbone(seed: int, input_channels: int, dim: int,
+                         num_blocks: int,
+                         layer_scale_init_value: Optional[float] = None
+                         ) -> Dict:
+    """VocosResNetBackbone's tree (``codec/backbone.py``): weight-norm
+    k3 convs ``{b, g, v}`` (truncated-normal 0.02 kernels), per block 3
+    + 3 convs and 3 layer scales of ``layer_scale_init_value`` (default
+    1 / num_blocks / 3)."""
+    rng = np.random.default_rng(seed)
+    gamma0 = layer_scale_init_value or 1.0 / num_blocks / 3.0
+
+    def wn_conv(cin, cout):
+        w = _trunc_normal(rng, (3, cin, cout))
+        return {"b": _zeros(cout),
+                "g": np.sqrt(np.sum(np.square(w), axis=(0, 1),
+                                    keepdims=True)).astype(np.float32),
+                "v": w}
+    blocks = [{"convs1": [wn_conv(dim, dim) for _ in range(3)],
+               "convs2": [wn_conv(dim, dim) for _ in range(3)],
+               "gamma": [np.full((dim,), gamma0, np.float32)
+                         for _ in range(3)]} for _ in range(num_blocks)]
+    return {"embed": wn_conv(input_channels, dim), "blocks": blocks}
 
 
 def random_text_table(seed: int, cfg: DecoderConfig) -> np.ndarray:

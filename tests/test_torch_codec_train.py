@@ -396,9 +396,13 @@ def test_refusals():
         tct.CodecTrainer(TCODEC, dataclasses.replace(TTRAIN, dp_size=2),
                          device="cpu")
     tr = tct.CodecTrainer(TCODEC, TTRAIN, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tr.validation_metrics(_audio(1), full=True)
+    full = tr.validation_metrics(_audio(1), full=True)
+    assert {"val_mel_loss", "val_mel_distance", "val_si_snr",
+            "val_periodicity", "val_pitch_rmse_cents", "val_voicing_f1",
+            "val_pesq", "val_stoi"} <= set(full)
     assert np.isfinite(tr.validation_metrics(_audio(1))["val_mel_loss"])
+    assert full["val_mel_loss"] == tr.validation_metrics(
+        _audio(1))["val_mel_loss"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tct.CodecTrainer(TCODEC, TTRAIN)

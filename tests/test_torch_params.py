@@ -120,7 +120,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "codec.seanet", "codec.discriminators", "codec.losses",
                   "train.vq_train", "train.codec_trainer", "train.codec_data",
                   "train.codec_main", "tools.prepare_data",
-                  "tools.copy_synthesis"):
+                  "tools.copy_synthesis", "utils.native", "codec.pesq",
+                  "codec.stoi", "codec.metrics", "codec.eval",
+                  "codec.utmos", "codec.entropy", "codec.lm",
+                  "codec.compress"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)
