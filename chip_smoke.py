@@ -99,7 +99,7 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      the head's non-printable columns zeroed, the byte tokenizer, KV
      capacity 8192): 2 layers at full width in f32, the card's 64-token
      greedy chain (CUDA graph replays) against the CPU plain path's logits
-     on it; 32 layers in bf16, the graph and eager chains equal, two
+     on it; BIG_DEPTH layers in bf16, the graph and eager chains equal, two
      replays of a sampled block from one state drawing different tokens,
      the prefill's times at buckets 16, 128 and 512 and a 32-token block's
      at attn_len 128, 1024 and 8192 (graph and eager) beside the byte
@@ -119,8 +119,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      encoder and the prefill logits to 2e-5, two 16-token graph blocks
      teacher-forced, ``near_tie`` where they part) at the 1200-frame
      bucket with the language forced and at the full window with it
-     detected; 32 + 32 layers in bf16 and in f32, the warmup's captures
-     (per bucket 600, 1200 and 3000: the prep, the prep that detects the
+     detected; BIG_DEPTH + BIG_DEPTH layers in bf16 and in f32, the
+     warmup's captures (per bucket 600, 1200 and 3000: the prep, the prep
+     that detects the
      language, the decode block), the graph and eager chains equal, the
      prep's and the block's device times per bucket beside their bounds;
      three ``/voicechat`` requests (3, 6.5 and 10 s of speech-like audio)
@@ -172,8 +173,8 @@ Phases, each of which raises on failure (exit code non-zero, no result):
  18. the mixture-of-experts Llama at mistralai/Mixtral-8x7B-Instruct-
      v0.1's published geometry (8 experts top-2 of 14336, random seeded
      weights, the head zeroed but for the printable ids, the byte
-     tokenizer; cuts: KV 1024 of 32768, pool prefill buckets 32..128, no
-     chunked prefill in the pool).  2
+     tokenizer; cuts: KV 1024 of 32768, pool prefill bucket 128 only, no
+     chunked prefill and no 16-token first block in the pool).  2
      layers at full width in f32: the card's chain against the CPU's
      plain path (``near_tie``), ``moe_ffn`` on the card against the CPU,
      w4 experts through K4 against JAX's group einsum on the card.  32
@@ -244,9 +245,31 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      eval CLI in both modes over 4 seeded wav files (2 at 16 kHz) and
      ``validation_metrics(full=True)`` on 2 x 3 s, the UTMOS of (a)
      registered; every kernel's launches on the path (0).
+ 22. data parallelism, run last (``phase_dp``): (a) the ranks, NCCL over
+     every card up to 4, or two gloo ranks sharing one card (``dp_layout``),
+     spawned by ``parallel/launch.py::spawn``: the decoder trainer at
+     ``DecoderConfig()`` with 4 draft heads, f32, a global batch of 2 x
+     world rows at T=512 (bucketed and packed, the ranks' valid targets
+     unequal), accumulation 2, two updates, and the codec trainer at
+     ``CodecConfig()`` with every discriminator, f32, 2 x world crops of
+     9600 samples, the k-means step and one more; every rank's params,
+     moments (and the VQ) bitwise equal to rank 0's after every update
+     (a broadcast and an exact compare); then rank 0, the group gone, runs
+     both one-process on the same batches and draws and holds the dp run
+     to them (decoder: losses 1e-5 relative, params 1e-5; codec: logs
+     1e-3 relative, the f64 run refereeing a log the f32 one-process run
+     is off, the codebook 1e-5, params rtol 2e-3 / atol 5e-5 with at most
+     1 in 1000 outside); ms an update and a step at world N and world 1;
+     (b) the dp-sharded ``DecodePool`` at ``DecoderConfig()``, 16 slots
+     over the ranks' devices (the same card twice on one card), EOA off,
+     a length cap of 96: three f32 ``/tts`` through ``build_server``, each
+     chain identical to the one-card pool's; a bf16 round with ``pool_mesh_dp``, each chain's
+     first 64 tokens held by ``check_chain`` against the bf16 B=1 engine,
+     K2's launches per shard (``graphs.launch_scope``), K1, K3 and K4 0,
+     no capture while serving.
 Then a JSON line with phase 19's numbers (printed after it), one with
 phase 20's, one with phase 21's, one with phase 14's, one with phase 16's, one with phase 15's, one with phase
-17's, one with phase 18's, one with the kernels' numbers (each kernel's
+17's, one with phase 18's, one with phase 22's, one with the kernels' numbers (each kernel's
 launches on every served path, the new phases' among them), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -281,6 +304,23 @@ REPLY = ("Hello there, this is the first sentence of the reply. "
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Laps:
+    """The script's clock: ``lap(name)`` logs the seconds since the last
+    lap beside those since the start; ``total()`` the whole run's."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - self.last:.1f} s "
+            f"({now - self.start:.1f} s since the start)")
+        self.last = now
+
+    def total(self) -> None:
+        log(f"[time] the script: {time.perf_counter() - self.start:.1f} s")
 
 
 def eager_ms(fn, iters: int = 50, reps: int = 5) -> float:
@@ -2195,12 +2235,15 @@ class _LoopLag:
 
 
 def _zero_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0 (and its counts per
+    shard of a dp-sharded pool, where it keeps them)."""
     from llmvox_tpu_torch.ops import (cuda_attn, cuda_batched_attn,
                                       cuda_int4_mm, cuda_verify_attn)
     for mod in (cuda_attn, cuda_batched_attn, cuda_verify_attn,
                 cuda_int4_mm):
         mod.LAUNCHES = 0
+        if hasattr(mod, "SHARD_LAUNCHES"):
+            mod.SHARD_LAUNCHES.clear()
 
 
 def _read_launches() -> dict:
@@ -3843,10 +3886,16 @@ def phase_graphs(engines, weights, device="cuda") -> dict:
 # phase 14: /tts from the in-framework Llama
 # ---------------------------------------------------------------------------
 
+# The depth of phases 14-18's models (Llama-3.1-8B, whisper-large-v3's
+# encoder and decoder, Mixtral-8x7B), cut from their published 32 layers
+# for the script's time: a graph's capture and a block's decode grow with
+# the layers, the widths and every shape a kernel sees do not.
+BIG_DEPTH = 4
+
 # meta-llama/Llama-3.1-8B-Instruct's published config.json (rope_scaling
 # llama3: factor 8, low 1, high 4, original 8192), with the KV capacity cut
-# from 131072 to 8192 rows
-LLAMA_8B = dict(vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
+# from 131072 to 8192 rows and the depth to BIG_DEPTH
+LLAMA_8B = dict(vocab_size=128256, n_layer=BIG_DEPTH, n_head=32, n_kv_head=8,
                 n_embd=4096, intermediate_size=14336, max_seq_len=8192,
                 rope_theta=500000.0, rope_scaling_factor=8.0,
                 rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
@@ -4080,7 +4129,7 @@ def phase_llm(engines, weights, card: str, device="cuda",
         + f"; text {text[:40]!r}...")
     out["f32_ties"] = len(ties)
 
-    # (2) full depth, bf16
+    # (2) BIG_DEPTH layers, bf16
     t0 = time.perf_counter()
     params = P.init_llama_params(11, cfg, device=device, dtype=torch.bfloat16)
     speakable_head(params)
@@ -4298,7 +4347,8 @@ def llm_pool_step_bound_ms(params, cfg, b: int, rows: int, es: int
 
 
 def make_llm_pool(params, cfg, tok, system: str, device, dtype,
-                  buckets=LLM_POOL_BUCKETS, graphs=None, **kw):
+                  buckets=LLM_POOL_BUCKETS, graphs=None,
+                  first_block=LLM_FIRST_BLOCK, **kw):
     """The pooled LLM stream as ``build_llama_stream`` makes it for
     ``--llm_pool_capacity 8 --llm_block 32 --llm_first_block 16``, the
     system prompt's prefix cached, greedy, replies capped at
@@ -4306,7 +4356,7 @@ def make_llm_pool(params, cfg, tok, system: str, device, dtype,
     from llmvox_tpu_torch.serve.llm_pool import LLMPool
     from llmvox_tpu_torch.streams.llm import PooledLlamaStreamModel
     pool = LLMPool(params, cfg, capacity=LLM_POOL_CAP, block=LLM_BLOCK,
-                   first_block=LLM_FIRST_BLOCK, dtype=dtype, device=device,
+                   first_block=first_block, dtype=dtype, device=device,
                    prefill_buckets=buckets, graphs=graphs, **kw)
     model = PooledLlamaStreamModel(pool, tok, max_tokens=LLM_TOKENS)
     model.enable_prefix_cache(system)
@@ -5127,14 +5177,18 @@ def phase_llm_spec(engines, weights, card: str, params, device="cuda",
 # ---------------------------------------------------------------------------
 
 # mistralai/Mixtral-8x7B-Instruct-v0.1's published geometry; KV cut to
-# 1024 of 32768 (each attention rung is a 32-layer MoE block graph of
-# ~10 s to capture; the requests fit); the capacity factor E / k that
-# JAX's converter writes
-MIXTRAL_8X7B = dict(vocab_size=32000, n_layer=32, n_head=32, n_kv_head=8,
+# 1024 of 32768 (each attention rung of 32 layers was an MoE block graph
+# of ~10 s to capture; the requests fit) and the depth to BIG_DEPTH; the
+# capacity factor E / k that JAX's converter writes
+MIXTRAL_8X7B = dict(vocab_size=32000, n_layer=BIG_DEPTH, n_head=32,
+                    n_kv_head=8,
                     n_embd=4096, intermediate_size=14336, max_seq_len=1024,
                     rope_theta=1e6, rms_eps=1e-5, tie_embeddings=False,
                     n_experts=8, moe_top_k=2, moe_capacity_factor=4.0)
-MOE_POOL_BUCKETS = (32, 64, 128)
+# one prefill bucket, the burst's longest suffix's (each bucket is two
+# ~5 s captures, n = 1 and 4; 32 and 64 were cut to give the script's time
+# to phase 22)
+MOE_POOL_BUCKETS = (128,)
 MOE_BURST = 4
 # K4 calls a layer per token step or prefill program: wq, wk, wv, wo and
 # three matmuls of each of the 8 experts (the head stays int8)
@@ -5281,13 +5335,13 @@ def phase_moe(engines, weights, card: str, device="cuda", cfg=None,
     """The mixture-of-experts Llama at mistralai/Mixtral-8x7B-Instruct-
     v0.1's published geometry (random seeded weights, the head zeroed but
     for the printable byte ids, the byte tokenizer; cut: KV 1024 of 32768,
-    pool buckets 32..128, no chunked prefill in the pool).  (1) 2 layers
-    at full width in f32
-    (``_moe_f32_check``).  (2) 32 layers quantized w4 (``draw_moe_w4``:
-    46.7 B parameters are 93 GB in bf16): the B=1 stream's 32-token block
-    and an 8-row pooled step as graph replays beside the byte bound (every
-    expert's packed bytes: drop-free routing runs every expert), and the
-    B=1 block beside the routed bound (the chosen experts' bytes); one
+    pool prefill bucket 128 only, no chunked prefill and no first block
+    in the pool; depth BIG_DEPTH of 32).  (1) 2 layers at full width in
+    f32 (``_moe_f32_check``).  (2) BIG_DEPTH layers quantized w4
+    (``draw_moe_w4``: at 32 layers 46.7 B parameters are 93 GB in
+    bf16): the B=1 stream's 32-token block and an 8-row pooled step as
+    graph replays beside the byte bound (every expert's packed bytes:
+    drop-free routing runs every expert), and the B=1 block beside the routed bound (the chosen experts' bytes); one
     ``/tts`` on the B=1 stream with the dedicated replicas and a burst of
     4 through an 8-slot pool with a 16-slot bf16 TTS pool, each answered,
     0 captures while serving; K4's launches on each (28 a layer per token
@@ -5308,7 +5362,7 @@ def phase_moe(engines, weights, card: str, device="cuda", cfg=None,
         torch.cuda.empty_cache()
     log(f"[moe] cuts: KV {cfg.max_seq_len} (of 32768), pool prefill "
         f"buckets {MOE_POOL_BUCKETS} (not {LLM_POOL_BUCKETS}), no chunked "
-        f"prefill in the pool")
+        f"prefill and no {LLM_FIRST_BLOCK}-token first block in the pool")
 
     t0 = time.perf_counter()
     tree = draw_moe_w4(32, cfg, device)
@@ -5355,10 +5409,13 @@ def phase_moe(engines, weights, card: str, device="cuda", cfg=None,
 
     # chunked prefill off: the burst's suffixes (the system prompt's
     # prefix cached) fit the top bucket, and each continuation graph of
-    # the MoE takes ~5 s to capture
+    # the MoE takes ~5 s to capture; no 16-token first block (phase 16
+    # serves it on the dense pool): its block graph at every attention
+    # rung is another ~7 s each
     pmodel = make_llm_pool(tree, cfg, tok, scfg.system_prompt, device,
                            torch.bfloat16, buckets=MOE_POOL_BUCKETS,
-                           graphs=graphs, chunked_prefill=False)
+                           graphs=graphs, chunked_prefill=False,
+                           first_block=0)
     del tree
     pool = pmodel.pool
     n_cap = captures()
@@ -5422,7 +5479,8 @@ def phase_moe(engines, weights, card: str, device="cuda", cfg=None,
 # ---------------------------------------------------------------------------
 
 WHISPER_LARGE_V3 = dict(vocab_size=51866, n_mels=128, d_model=1280,
-                        enc_layers=32, dec_layers=32, enc_heads=20,
+                        enc_layers=BIG_DEPTH, dec_layers=BIG_DEPTH,
+                        enc_heads=20,
                         dec_heads=20, enc_ffn=5120, dec_ffn=5120,
                         max_source_positions=1500, max_target_positions=448,
                         decoder_start_token_id=50258, eos_token_id=50257)
@@ -5655,10 +5713,10 @@ def _replay_ms(graph, reps: int = 3) -> float:
 
 
 def _asr_depth(cfg, scfg, device, card, dtype, seed, graphs) -> tuple:
-    """32 layers in ``dtype``: the warmup's captures, the graph and eager
-    chains equal (prep + 2 blocks, language detected and forced), and on a
-    card the prep's and the block's device times at every bucket beside
-    their bounds.  Returns (numbers, the graph ASR)."""
+    """BIG_DEPTH layers in ``dtype``: the warmup's captures, the graph and
+    eager chains equal (prep + 2 blocks, language detected and forced), and
+    on a card the prep's and the block's device times at every bucket
+    beside their bounds.  Returns (numbers, the graph ASR)."""
     from llmvox_tpu_torch.ops import quant
     from llmvox_tpu_torch.utils import graphs as G
     from llmvox_tpu_torch.utils import params as P
@@ -5913,12 +5971,12 @@ def phase_asr(engines, weights, card: str, llm_model, llm=None,
     openai/whisper-large-v3's geometry, random seeded weights, the
     smoke's printable-id tokenizer and generation config
     (``asr_generation``).  (1) 2 + 2 layers at full width in f32, card
-    against the CPU (``_asr_small_check``).  (2) 32 + 32 layers in f32 (as
-    served: JAX's ``build_asr`` keeps a checkpoint's f32) and in bf16: the
-    captures, graph and eager chains equal, the prep and block times per
-    bucket (``_asr_depth``).  (3) three ``/voicechat`` requests with the
-    f32 ASR, phase 14's bf16 LLM stream (its captures reused) and the
-    dedicated replicas (``_serve_voicechat``).  (4) ``--quantize w4`` with
+    against the CPU (``_asr_small_check``).  (2) BIG_DEPTH + BIG_DEPTH
+    layers in f32 (as served: JAX's ``build_asr`` keeps a checkpoint's f32)
+    and in bf16: the captures, graph and eager chains equal, the prep and
+    block times per bucket (``_asr_depth``).  (3) three ``/voicechat``
+    requests with the f32 ASR, phase 14's bf16 LLM stream (its captures
+    reused) and the dedicated replicas (``_serve_voicechat``).  (4) ``--quantize w4`` with
     the in-framework ASR is refused.  (5) With ``pooled`` (phase 16's bf16
     pooled LLM stream), three ``/voicechat`` overlapped and three serial
     through it (``_serve_voicechat_pooled``).  ``graphs`` goes to the
@@ -5958,6 +6016,443 @@ def phase_asr(engines, weights, card: str, llm_model, llm=None,
     log(f"[asr] phase 15 took {out['phase_s']:.1f} s"
         + (f", peak device memory {out['peak_gb']:.2f} GB" if on_card else "")
         + f" ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_MAX_WORLD = 4          # ranks and pool shards: every card, up to 4
+DP_TRAIN_T = 512          # the decoder check's sequence width (cut for time)
+DP_POOL_CAP = 16
+DP_POOL_TOKENS = 64       # each served bf16 chain held by check_chain
+DP_AUDIO_TOKENS = 96      # the pool rounds' length cap (cut for time)
+# the codec trainer's params after two steps, data-parallel against one
+# process on the card: Adam's first steps move an element by about lr
+# whatever its gradient's size, so where a gradient lies within rounding of
+# 0 (or a leaky ReLU's slope flips) two f32 runs part by up to ~2 lr; the
+# port's one-process bound against JAX (tests/test_torch_codec_train.py):
+# rtol 2e-3, atol 5e-5, at most 1 element in 1000 outside
+DP_CODEC_PARAM_TOL = (2e-3, 5e-5)
+# the codec trainer's logs, data-parallel against one process: the ranks'
+# gradients are summed in another order, and the generator's gradient
+# norm (commitment x 1000 over every code) moves by ~2e-4 relative between
+# two f32 runs (both f32 runs 1e-4 to 2e-4 off the f64 run's in a CPU
+# rehearsal at a small config), above phase 20's 1e-4 between two
+# devices' single runs of one batch; a log the one-process f32 run gets
+# farther from the f64 run than this (a leaky ReLU's slope flipped there)
+# is held to the f64 run instead
+DP_CODEC_LOG_RTOL = 1e-3
+
+
+def dp_layout(device="cuda") -> tuple:
+    """(world, backend, each rank's device): NCCL over every card up to
+    ``DP_MAX_WORLD`` when there are two or more; on one card two gloo
+    ranks share it (NCCL refuses two ranks on one GPU, gloo carries
+    all_reduce and broadcast of the card's tensors); two gloo ranks on
+    the CPU to rehearse."""
+    if device == "cpu":
+        return 2, "gloo", ["cpu", "cpu"]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        w = min(n, DP_MAX_WORLD)
+        return w, "nccl", [f"cuda:{i}" for i in range(w)]
+    return 2, "gloo", ["cuda:0", "cuda:0"]
+
+
+def _dp_decoder_inputs(world: int, cfg=None):
+    """Phase 19's f32 check at a global batch of 2 x world rows: the
+    deployed width with its draft heads, seeded params, 4 micro-batches
+    (bucketed and packed in turn; the ranks' rows hold different numbers
+    of valid targets) at T = ``DP_TRAIN_T``, accumulation 2."""
+    from llmvox_tpu_torch.train.data import collate, collate_packed
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.config import DecoderConfig, TrainConfig
+    cfg = dataclasses.replace(cfg or DecoderConfig(),
+                              n_draft_heads=TRAIN_HEADS)
+    rows, t = 2 * world, min(DP_TRAIN_T, cfg.block_size)
+    tcfg = TrainConfig(batch_size=rows, gradient_accumulation_steps=2,
+                       learning_rate=1e-3, warmup_iters=0, grad_clip=0.1,
+                       dp_size=-1)
+    rng = np.random.default_rng(22)
+    table = P.random_text_table(2, cfg)
+    codebook = rng.standard_normal(
+        (max(cfg.vocab_size, cfg.eoa_token_id + 1), cfg.speech_embed_dim)
+    ).astype(np.float32)
+    samples = synthetic_samples(12 * rows, 220, t - 1, cfg)
+    batches = []
+    for i in range(4):
+        part = samples[i * 3 * rows:(i + 1) * 3 * rows]
+        batches.append(collate(part[:rows], cfg, bucket=t) if i % 2 == 0
+                       else collate_packed(part, cfg, rows=rows,
+                                           seq_len=t)[:4])
+        assert batches[-1][0].shape == (rows, t)
+    return cfg, tcfg, P.init_decoder_params(22, cfg), table, codebook, batches
+
+
+def _dp_updates(tr, batches) -> tuple:
+    """Micro-steps over ``batches``: (losses, ms of each update: its
+    micro-steps between two syncs, lockstep after each update)."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    losses, ms, same = [], [], []
+    k = tr.tcfg.gradient_accumulation_steps
+    for i in range(0, len(batches), k):
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        for b in batches[i:i + k]:
+            losses.append(tr.step(*b))
+        _sync(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if pmesh.world() > 1:
+            same.append(_lockstep(list(tr.opt.params) + tr.opt.mu
+                                  + tr.opt.nu + tr.opt.acc))
+    return losses, ms, same
+
+
+def _lockstep(tensors) -> bool:
+    """Every rank's tensors bitwise equal to rank 0's: a broadcast from
+    rank 0 and an exact compare on each rank, agreed by an all-reduce."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    bad = 0
+    for t in tensors:
+        ref = t.detach().clone()
+        pmesh.broadcast_from_master(ref)
+        bad += int(not torch.equal(ref, t.detach()))
+    flag = torch.tensor([float(bad)], device=tensors[0].device)
+    pmesh.all_reduce_([flag])
+    return float(flag[0]) == 0.0
+
+
+def _dp_codec_inputs(world: int, cfg=None, samples: int = 0, **kw):
+    """Phase 20's check size at 2 x world crops: ``CodecConfig()`` and
+    every discriminator of ``CodecTrainConfig()``, its seeded state, two
+    steps' audio."""
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    from llmvox_tpu_torch.train.vq_train import init_vq_state
+    from llmvox_tpu_torch.utils.config import CodecConfig, CodecTrainConfig
+    cfg = cfg or CodecConfig()
+    samples = samples or CODEC_CHECK_SAMPLES
+    tcfg = CodecTrainConfig(batch_size=2 * world, num_samples=samples,
+                            dp_size=-1, **kw)
+    state = {"gen_params": ct.init_generator_params(40, cfg),
+             "disc_params": ct.init_discriminator_params(41, tcfg),
+             "vq_state": init_vq_state(42, cfg.vq_bins, cfg.vq_dim)}
+    audios = [codec_audio(2 * world, samples, 220 + i) for i in range(2)]
+    return cfg, tcfg, state, audios
+
+
+def _codec_steps(tr, audios) -> tuple:
+    """(each step's logs, ms and the codebook after it, lockstep)."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    logs, ms, embeds, same = [], [], [], []
+    for audio in audios:
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        logs.append(tr.step(audio))
+        _sync(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        embeds.append(tr.vq.embed.detach().cpu().numpy().copy())
+        if pmesh.world() > 1:
+            same.append(_lockstep(list(tr.gen.params) + list(tr.disc.params)
+                                  + list(tr.vq)[:3] + tr.opt_g.mu
+                                  + tr.opt_g.nu + tr.opt_d.mu + tr.opt_d.nu))
+    return logs, ms, embeds, same
+
+
+def _params_off(a_params, b_params) -> tuple:
+    """(elements off DP_CODEC_PARAM_TOL, elements) between two lists of
+    tensors (b the reference)."""
+    rtol, atol = DP_CODEC_PARAM_TOL
+    off = n = 0
+    for a, b in zip(a_params, b_params):
+        a, b = a.detach().double(), b.detach().double()
+        off += int(((a - b).abs() > atol + rtol * b.abs()).sum())
+        n += b.numel()
+    return off, n
+
+
+def _dp_rank(rank: int, world: int, small=None) -> dict:
+    """One rank of phase 22 (``parallel/launch.py::spawn``): the decoder
+    and codec trainers data-parallel on this rank's card, lockstep after
+    every update; then rank 0, with the group gone, runs both one-process
+    on the same inputs and holds the data-parallel run to them (the f64
+    trainer referees the codec's logs).  ``small`` (the CPU rehearsal):
+    (decoder config, codec config, crop samples, CodecTrainConfig
+    fields)."""
+    import torch.distributed as dist
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.train import codec_trainer as ct
+    from llmvox_tpu_torch.train.trainer import Trainer
+    small = small or (None, None, 0, {})
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() and small[0] is None
+           else torch.device("cpu"))
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": pmesh.world()}
+    cfg, tcfg, params, table, codebook, batches = _dp_decoder_inputs(
+        world, small[0])
+    tr = Trainer(tcfg, cfg, table, codebook, compute_dtype=torch.float32,
+                 device=dev, params=params)
+    assert tr.dp == world
+    start = [p.detach().clone() for p in tr.opt.params]
+    losses, ms, same = _dp_updates(tr, batches)
+    out["decoder"] = {"losses": losses, "update_ms": ms, "lockstep": same}
+    dec_params = [p.detach().clone() for p in tr.opt.params]
+    del tr
+    ccfg, ctcfg, state, audios = _dp_codec_inputs(world, small[1],
+                                                  small[2], **small[3])
+    ctr = ct.CodecTrainer(ccfg, ctcfg, device=dev, **state)
+    logs, cms, embeds, csame = _codec_steps(ctr, audios)
+    out["codec"] = {"logs": logs, "step_ms": cms, "lockstep": csame}
+    codec_params = [p.detach().clone() for p in
+                    list(ctr.gen.params) + list(ctr.disc.params)]
+    del ctr
+    assert all(same) and all(csame), (rank, same, csame)
+    dist.destroy_process_group()
+    if rank:
+        return out
+    # world 1 on this card, the same global batches and draws
+    one = Trainer(dataclasses.replace(tcfg, dp_size=1), cfg, table,
+                  codebook, compute_dtype=torch.float32, device=dev,
+                  params=params)
+    l1, ms1, _ = _dp_updates(one, batches)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, l1))
+    perr = max(float((a - b.detach()).abs().max())
+               for a, b in zip(dec_params, one.opt.params))
+    moved = max(float((b.detach() - a).abs().max())
+                for a, b in zip(start, one.opt.params))
+    out["decoder"].update(world1_update_ms=ms1, loss_rel_err=lerr,
+                          param_abs_err=perr, param_moved=moved)
+    assert lerr <= TRAIN_LOSS_RTOL, (losses, l1)
+    assert perr <= TRAIN_PARAM_ATOL, perr
+    assert moved > 10 * TRAIN_PARAM_ATOL, moved
+    del one
+    r32 = ct.CodecTrainer(ccfg, dataclasses.replace(ctcfg, dp_size=1),
+                          device=dev, **state)
+    logs1, cms1, embeds1, _ = _codec_steps(r32, audios)
+    logs64 = None
+    excused, worst = set(), 0.0
+    for s, (g, w) in enumerate(zip(logs, logs1)):
+        for k in w:
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+            if rel <= DP_CODEC_LOG_RTOL:
+                worst = max(worst, rel)
+                continue
+            # the one-process f32 run may be off the f64 (a leaky ReLU's
+            # slope flipped there): then the data-parallel run is held to
+            # the f64 trainer's, run only when a log needs it
+            if logs64 is None:
+                r64 = ct.CodecTrainer(ccfg, dataclasses.replace(
+                    ctcfg, dp_size=1), device=dev, dtype=torch.float64,
+                    **state)
+                logs64 = _codec_steps(r64, audios)[0]
+                del r64
+            f = logs64[s][k]
+            assert abs(w[k] - f) > DP_CODEC_LOG_RTOL * abs(f), (s, k, g[k],
+                                                            w[k], f)
+            assert abs(g[k] - f) <= DP_CODEC_LOG_RTOL * abs(f), (s, k, g[k],
+                                                             w[k], f)
+            excused.add(f"step {s} {k}")
+    vq_err = max(float(np.abs(a - b).max()) for a, b in zip(embeds, embeds1))
+    assert vq_err <= CODEC_VQ_ATOL, vq_err
+    off, n = _params_off(codec_params,
+                         list(r32.gen.params) + list(r32.disc.params))
+    assert off <= n / 1000, (off, n)
+    out["codec"].update(world1_step_ms=cms1, log_rel_err=worst,
+                        logs_excused=sorted(excused), vq_abs_err=vq_err,
+                        params_off=off, params=n)
+    return out
+
+
+def _spread_slots(pool, n: int) -> list:
+    """Hold every slot but ``n``, left free round-robin over the shards,
+    so that the next ``n`` slots acquired (the lowest free ones) lie on
+    every shard; returns the held slots (release them after)."""
+    shards = len(pool.shards or [pool])
+    per = pool.B // shards
+    free = [(k % shards) * per + k // shards for k in range(n)]
+    held = [pool.try_acquire() for _ in range(pool.B)]
+    for i in free:
+        pool.release(i)
+    return [i for i in held if i not in free]
+
+
+def _record_tokens(pool) -> dict:
+    """Wrap ``pool.submit``: every resolved block's tokens, by (slot, the
+    sentence's text length), in the order the slot's blocks resolve."""
+    rec = collections.defaultdict(list)
+    submit = pool.submit
+
+    def recording(idx, window, text_len, limit, fused_dump=0):
+        fut = submit(idx, window, text_len, limit, fused_dump)
+
+        def done(f):
+            if not f.cancelled() and f.exception() is None:
+                r = f.result()
+                rec[(idx, text_len)].extend(r[0] if isinstance(r, tuple)
+                                            else r)
+        fut.add_done_callback(done)
+        return fut
+    pool.submit = recording
+    return rec
+
+
+def _serve_mesh_round(pool, engines, weights, dtype_name: str) -> tuple:
+    """Three concurrent ``/tts`` (the reply ``TEXT``, EOA off) through
+    ``build_server`` on ``pool``, its free slots spread over the shards;
+    returns (the chains by (slot, text length), per-request results, host
+    ms a pool step)."""
+    from llmvox_tpu_torch.serve.server import build_server
+    _, _, _, dcfg, ccfg, scfg = weights
+    port = _free_port()
+    cfg = dataclasses.replace(
+        scfg, api_port=port, pool_capacity=pool.B, scripted_reply=TEXT,
+        pool_mesh_dp=len(pool.shards) if pool.shards else 1)
+    srv = build_server(cfg, engines, pool=pool)
+    held = _spread_slots(pool, 6)
+    rec = _record_tokens(pool)
+    steps0, disp0 = pool.steps, pool.dispatch_s
+    n_cap = captures()
+    with _Server(srv, port):
+        res = _requests(port, 3, ccfg.hop_length, ccfg.sample_rate)
+    assert captures() == n_cap, "a CUDA graph was captured while serving"
+    for i in held:
+        pool.release(i)
+    ms_step = 1e3 * (pool.dispatch_s - disp0) / max(pool.steps - steps0, 1)
+    return dict(rec), res, ms_step
+
+
+def _dp_pool(engines, weights, devices, graphs=None) -> dict:
+    """The dp-sharded pool at ``DecoderConfig()``, capacity 16, over
+    ``devices`` (one shard a device), against the one-card pool: f32
+    served chains identical; a bf16 served round held by ``check_chain``
+    against the bf16 B=1 engine, K2 launched on every shard."""
+    from llmvox_tpu_torch.ops import cuda_batched_attn
+    from llmvox_tpu_torch.parallel import create_mesh
+    from llmvox_tpu_torch.serve.pool import DecodePool
+    from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
+    dec_p, codec_p, table, dcfg, ccfg, scfg = weights
+    no_eoa = dataclasses.replace(dcfg, eoa_token_id=-1)
+    scfg = dataclasses.replace(scfg, max_audio_length=DP_AUDIO_TOKENS)
+    nw = (dec_p, codec_p, table, no_eoa, ccfg, scfg)
+    codec = engines[0].codec
+    text_len = len(ByT5Tokenizer().encode(TEXT.strip())) + 1
+    mesh = create_mesh(dp_size=len(devices), devices=devices)
+    out = {"mesh": str(mesh)}
+
+    def pool_of(dtype, m):
+        return DecodePool(dec_p, table, codec, capacity=DP_POOL_CAP,
+                          dcfg=no_eoa, scfg=scfg, device=codec.device,
+                          cache_dtype=dtype, mesh=m, graphs=graphs)
+
+    chains = {}
+    for name, m in (("one card", None), ("mesh", mesh)):
+        pool = pool_of(torch.float32, m)
+        rec, res, ms = _serve_mesh_round(pool, engines, nw, "f32")
+        got = {tuple(v[:scfg.max_audio_length]) for (_, tl), v in rec.items()
+               if tl == text_len}
+        assert len(got) == 1, (name, "the requests' chains differ")
+        slots = sorted(s for s, tl in rec if tl == text_len)
+        chains[name] = got.pop()
+        log(f"[dp] f32 {name} pool ({DP_POOL_CAP} slots"
+            + (f" over {mesh}" if m is not None else "")
+            + f"): 3 concurrent /tts, TEXT decoded on slots {slots}, "
+            f"{len(chains[name])} tokens each, {ms:.1f} ms of host time a "
+            f"pool step")
+        if m is not None:
+            per = DP_POOL_CAP // len(devices)
+            assert len({s // per for s in slots}) > 1, slots
+        del pool
+    assert chains["mesh"] == chains["one card"], "f32 chains differ"
+    out["f32_tokens_identical"] = len(chains["mesh"])
+
+    ref = make_engine(nw, codec.device, torch.bfloat16, graphs=False)
+    want = ref.tts(TEXT, max_tokens=DP_POOL_TOKENS)[1]
+    pool = pool_of(torch.bfloat16, mesh)
+    pool.warmup()
+    _zero_launches()
+    tok0 = pool.decode_steps
+    rec, res, ms = _serve_mesh_round(pool, engines, nw, "bf16")
+    launches = _read_launches()
+    shard = dict(cuda_batched_attn.SHARD_LAUNCHES)
+    assert launches["k1"] == launches["k3"] == launches["k4"] == 0, launches
+    toks = pool.decode_steps - tok0
+    held = []
+    for (slot, tl), chain in sorted(rec.items()):
+        if tl != text_len:
+            continue
+        assert len(chain) >= DP_POOL_TOKENS, (slot, len(chain))
+        held.append(f"slot {slot}: " + check_chain(
+            chain[:DP_POOL_TOKENS], want, ref, f"bf16 mesh pool slot {slot}"))
+    if torch.device(codec.device).type == "cuda":
+        # the plain versions the CPU runs count nothing
+        assert sorted(shard) == sorted(pool._tags), shard
+        assert all(v == dcfg.n_layer * toks > 0 for v in shard.values()), (
+            shard, toks)
+        assert cuda_batched_attn.LAUNCHES == sum(shard.values())
+    audio = sum(r[4] for r in res)
+    log(f"[dp] bf16 mesh pool: 3 concurrent /tts through build_server "
+        f"(pool_mesh_dp {len(devices)}), {audio:.2f} s of audio, first audio "
+        f"{', '.join(f'{r[2] * 1e3:.0f}' for r in res)} ms; each chain's "
+        f"first {DP_POOL_TOKENS} tokens against the bf16 B=1 engine: "
+        f"{'; '.join(held)}; K2 launches per shard {shard} = {dcfg.n_layer} "
+        f"layers x {toks} token steps; {ms:.1f} ms of host time a pool "
+        f"step; no capture while serving")
+    out.update(bf16_chains=held, k2_shard_launches=shard,
+               launches=launches, bf16_host_ms_step=ms, token_steps=toks)
+    del pool, ref
+    return out
+
+
+def phase_dp(engines, weights, card: str, device="cuda", small=None,
+             graphs=None) -> dict:
+    """Phase 22: data parallelism on the card(s).  The trainers' ranks
+    (``dp_layout``) run first, spawned while this process holds no large
+    tree; then the dp-sharded pool.  ``device="cpu"`` with ``small``
+    (``_dp_rank``'s) and small weights rehearses the control flow."""
+    from llmvox_tpu_torch.parallel.launch import spawn
+    t0 = time.perf_counter()
+    world, backend, devices = dp_layout(device)
+    log(f"[dp] {world} ranks over {backend} on {devices} ({card})")
+    # the host's cores split over the ranks: OpenMP threads that
+    # outnumber the cores spin against each other
+    ranks = spawn(_dp_rank, world, world, small, backend=backend,
+                  devices=devices, threads=max(1, os.cpu_count() // world),
+                  timeout_s=600)
+    r0 = ranks[0]
+    for r in ranks:
+        assert (r["world"], r["backend"]) == (world, backend), r
+        log(f"[dp] rank {r['rank']} on {r['device']}: decoder updates "
+            f"{[f'{m:.1f}' for m in r['decoder']['update_ms']]} ms, codec "
+            f"steps {[f'{m:.1f}' for m in r['codec']['step_ms']]} ms, "
+            f"lockstep after every update {r['decoder']['lockstep']} / "
+            f"{r['codec']['lockstep']}")
+    d, c = r0["decoder"], r0["codec"]
+    log(f"[dp] decoder, DecoderConfig() with {TRAIN_HEADS} draft heads, f32, "
+        f"{2 * world} x {DP_TRAIN_T} rows a micro-step, k=2, 2 updates: "
+        f"losses' rel err {d['loss_rel_err']:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL:.0e}), params' max|err| {d['param_abs_err']:.2e} "
+        f"(tol {TRAIN_PARAM_ATOL:.0e}; moved up to {d['param_moved']:.2e}) "
+        f"against one process on the same card; ms an update (the second) "
+        f"world {world} {d['update_ms'][1]:.1f}, world 1 "
+        f"{d['world1_update_ms'][1]:.1f} ({backend}; {card})")
+    log(f"[dp] codec, CodecConfig() and every discriminator, f32, "
+        f"{2 * world} x {CODEC_CHECK_SAMPLES}, the k-means step and one more: "
+        f"logs' worst rel err {c['log_rel_err']:.2e} (tol "
+        f"{DP_CODEC_LOG_RTOL:.0e}; held to the f64 run instead: "
+        f"{c['logs_excused'] or 'none'}), codebook max|err| "
+        f"{c['vq_abs_err']:.2e} (tol {CODEC_VQ_ATOL:.0e}), params off "
+        f"{DP_CODEC_PARAM_TOL} {c['params_off']} of {c['params']}; ms a step "
+        f"(the second) world {world} {c['step_ms'][1]:.1f}, world 1 "
+        f"{c['world1_step_ms'][1]:.1f} ({backend}; {card})")
+    train_s = time.perf_counter() - t0
+    pool = _dp_pool(engines, weights, devices[:world], graphs)
+    out = {"world": world, "backend": backend, "devices": devices,
+           "decoder": d, "codec": c, "pool": pool, "train_s": train_s,
+           "ranks": [{k: r[k] for k in ("rank", "device")} for r in ranks]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[dp] phase 22 took {out['phase_s']:.1f} s (ranks {train_s:.1f})")
     return out
 
 
@@ -6141,12 +6636,15 @@ def main(argv) -> int:
     if "--dispatch-ab" in argv:
         return dispatch_ab(argv)
     kernels_only = "--kernels" in argv
+    lap = Laps()
     card = phase_card_and_build()
+    lap("build")
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
     k4 = phase_k4()
     phase_other_cards()
+    lap("kernels K1-K4")
     launches = pool_launches = spec_launches = quant_launches = None
     llm_k4_launches = voicechat_launches = train_launches = None
     codec_launches = {"k1": None, "k2": None, "k3": None, "k4": None}
@@ -6154,34 +6652,46 @@ def main(argv) -> int:
     pool_llm = {"k1": None, "k2": None, "k3": None, "k4": None}
     spec_llm = dict(pool_llm)
     moe_llm = dict(pool_llm)
+    mesh_pool = dict(pool_llm)
     if not kernels_only:
         engines, weights = phase_offline()
+        lap("offline")
         train = phase_train(weights)
         train_launches = train["k1_train_launches"]
         log(json.dumps({"train": train}))
+        lap("phase 19")
         codec_train = phase_codec_train(card)
         codec_launches = codec_train["launches"]
         log(json.dumps({"codec_train": codec_train}))
+        lap("phase 20")
         codec_eval = phase_codec_eval(card)
         eval_launches = codec_eval["launches"]
         log(json.dumps({"codec_eval": codec_eval}))
+        lap("phase 21")
         phase_block_graph(weights)
         launches = phase_server(engines, weights)
+        lap("graph block, server")
         phase_batch(weights)
         phase_block_graph(weights, batch=K2_B)
         pool_launches, _ = phase_pool_server(engines, weights)
+        lap("batch, pool")
         phase_spec_offline(weights)
         spec_launches = phase_spec_server(engines, weights)["k3_launches"]
+        lap("speculation")
         quant_launches = phase_quant(engines, weights)["k4_launches"]
+        lap("quantized")
         phase_graphs(engines, weights)
+        lap("graphs and eager")
         llm, llm_model, qtree = phase_llm(engines, weights, card)
         llm_k4_launches = llm["k4_llm_launches"]
         log(json.dumps({"llm": llm}))
+        lap("phase 14")
         # phase 16 before phase 15: phase 15 serves through its pool
         llm_pool, pooled = phase_llm_pool(engines, weights, card,
                                           llm_model, qtree)
         del qtree
         log(json.dumps({"llm_pool": llm_pool}))
+        lap("phase 16")
         asr = phase_asr(engines, weights, card, llm_model, llm=llm,
                         pooled=pooled)
         voicechat_launches = asr["served"]["k1_launches"]
@@ -6193,6 +6703,7 @@ def main(argv) -> int:
                     "k3": llm_pool["k3_llm_pool_launches"],
                     "k4": llm_pool["k4_llm_pool_launches"]}
         log(json.dumps({"asr": asr}))
+        lap("phase 15")
         # phase 17 speculates on phase 14's bf16 tree; the streams and
         # pools of phases 14-16 are freed first
         params = llm_model.params
@@ -6202,6 +6713,7 @@ def main(argv) -> int:
         llm_spec = phase_llm_spec(engines, weights, card, params)
         del params
         log(json.dumps({"llm_spec": llm_spec}))
+        lap("phase 17")
         # its two bursts, each counted from 0 to its end
         spec_llm = {k: llm_spec[f"{k}_launches"]
                     for k in ("k1", "k2", "k3", "k4")}
@@ -6209,8 +6721,20 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         moe = phase_moe(engines, weights, card)
         log(json.dumps({"moe": moe}))
+        lap("phase 18")
         # its B=1 request and its burst, each counted from 0 to its end
         moe_llm = {k: moe[f"{k}_launches"] for k in ("k1", "k2", "k3", "k4")}
+        # phase 22 spawns its ranks once phase 18's trees are freed
+        del moe
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp = phase_dp(engines, weights, card)
+        log(json.dumps({"dp": dp}))
+        lap("phase 22")
+        # the bf16 mesh pool round, counted from 0 to its end: K2's per
+        # shard, the others' totals (0)
+        mesh_pool = dict(dp["pool"]["launches"],
+                         k2=dp["pool"]["k2_shard_launches"])
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -6222,6 +6746,7 @@ def main(argv) -> int:
              "llm_pool_launches": pool_llm["k1"],
              "llm_spec_launches": spec_llm["k1"],
              "moe_launches": moe_llm["k1"],
+             "mesh_pool_launches": mesh_pool["k1"],
              "codec_train_launches": codec_launches["k1"],
              "codec_eval_launches": eval_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
@@ -6239,6 +6764,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k2"],
               "llm_spec_launches": spec_llm["k2"],
               "moe_launches": moe_llm["k2"],
+              "mesh_pool_launches": mesh_pool["k2"],
               "codec_train_launches": codec_launches["k2"],
               "codec_eval_launches": eval_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
@@ -6255,6 +6781,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k3"],
               "llm_spec_launches": spec_llm["k3"],
               "moe_launches": moe_llm["k3"],
+              "mesh_pool_launches": mesh_pool["k3"],
               "codec_train_launches": codec_launches["k3"],
               "codec_eval_launches": eval_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
@@ -6273,6 +6800,7 @@ def main(argv) -> int:
               "llm_pool_launches": pool_llm["k4"],
               "llm_spec_launches": spec_llm["k4"],
               "moe_launches": moe_llm["k4"],
+              "mesh_pool_launches": mesh_pool["k4"],
               "codec_train_launches": codec_launches["k4"],
               "codec_eval_launches": eval_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",
@@ -6282,6 +6810,7 @@ def main(argv) -> int:
                                            "library_ms", "int4pack_ms")}
                         for (name, m), t in k4["timings"].items()
                         if (name, m) != k4_main}}
+    lap.total()
     log(json.dumps({"kernels": [entry, entry2, entry3, entry4]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,13 @@ class WavCodec:
         # codec: a bucket's fill, replay and fetch go together
         self._lock = threading.Lock()
 
+    def copy_to(self, device) -> "WavCodec":
+        """The same codec on ``device`` (its params copied there, its
+        graphs its own), serving through graphs as this one does."""
+        return WavCodec(self.params, self.cfg, self.buckets, device=device,
+                        graphs=self._graphs.enabled,
+                        dtype=self.params["codebooks"].dtype)
+
     @classmethod
     def from_random(cls, seed: int = 0, cfg: Optional[CodecConfig] = None,
                     **kw) -> "WavCodec":

@@ -712,35 +712,24 @@ def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
 
 
 def _masked_ce(logits: torch.Tensor, targets: torch.Tensor,
-               ignore_index: int) -> torch.Tensor:
+               ignore_index: int,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy over the targets that are not ``ignore_index``
-    (0 when there are none)."""
-    n = (targets != ignore_index).sum().clamp_min(1)
+    (0 when there are none); ``count`` replaces their number as the
+    divisor (the whole batch's, when these targets are one rank's
+    rows)."""
+    n = (targets != ignore_index).sum() if count is None else count
     total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                             targets.reshape(-1).long(),
                             ignore_index=ignore_index, reduction="sum")
-    return total / n
+    return total / n.clamp_min(1)
 
 
-def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
-                 cfg: DecoderConfig, *,
-                 generator: Optional[torch.Generator] = None,
-                 train: bool = True,
-                 positions: Optional[torch.Tensor] = None,
-                 segments: Optional[torch.Tensor] = None,
-                 perm=None) -> torch.Tensor:
-    """Cross-entropy with ``ignore_index``; with draft heads
-    (``params["draft_heads"]``) plus ``MTP_WEIGHT`` times their mean loss,
-    head j predicting the target j+1 further ahead from the same hidden
-    state.  In packed batches a shifted target in another sentence is
-    ignored.  ``perm`` (the zigzag layout of sequence parallelism) is the
-    JAX package's multi-device path: ROADMAP item 10."""
-    if perm is not None:
-        raise NotImplementedError(
-            "decoder_loss(perm=...) is the zigzag sequence-parallel layout, "
-            "not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
-    n_heads = (params["draft_heads"].shape[0]
-               if "draft_heads" in params else 0)
+def _shifted_targets(targets: torch.Tensor, cfg: DecoderConfig,
+                     n_heads: int, segments: Optional[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """Draft head j's targets: j+1 further ahead, ignored past the row's
+    end and, in packed batches, in another sentence."""
     shifted = []
     for j in range(n_heads):
         shift = j + 1
@@ -749,18 +738,55 @@ def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
             seg = F.pad(segments[:, shift:], (0, shift), value=0)
             tgt = torch.where(seg == segments, tgt, cfg.ignore_index)
         shifted.append(tgt)
+    return shifted
+
+
+def loss_counts(targets: torch.Tensor, cfg: DecoderConfig, n_heads: int,
+                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(1 + n_heads,) int64: the valid targets of the loss and of each
+    draft head's term.  Data-parallel ranks sum theirs and pass the sums
+    to ``decoder_loss(counts=...)``, so each term is the whole batch's
+    masked mean, as JAX's is over the global batch."""
+    ts = [targets] + _shifted_targets(targets, cfg, n_heads, segments)
+    return torch.stack([(t != cfg.ignore_index).sum() for t in ts])
+
+
+def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
+                 cfg: DecoderConfig, *,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = True,
+                 positions: Optional[torch.Tensor] = None,
+                 segments: Optional[torch.Tensor] = None,
+                 counts: Optional[torch.Tensor] = None,
+                 perm=None) -> torch.Tensor:
+    """Cross-entropy with ``ignore_index``; with draft heads
+    (``params["draft_heads"]``) plus ``MTP_WEIGHT`` times their mean loss,
+    head j predicting the target j+1 further ahead from the same hidden
+    state.  In packed batches a shifted target in another sentence is
+    ignored.  ``counts`` (``loss_counts`` summed over data-parallel ranks)
+    divides each term in place of this batch's own counts.  ``perm`` (the
+    zigzag layout of sequence parallelism) is the JAX package's
+    multi-device path: ROADMAP item 10."""
+    if perm is not None:
+        raise NotImplementedError(
+            "decoder_loss(perm=...) is the zigzag sequence-parallel layout, "
+            "not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
+    n_heads = (params["draft_heads"].shape[0]
+               if "draft_heads" in params else 0)
+    shifted = _shifted_targets(targets, cfg, n_heads, segments)
+    cnt = [None] * (1 + n_heads) if counts is None else list(counts)
     kw = dict(generator=generator, train=train, positions=positions,
               segments=segments)
     if n_heads == 0:
         logits = apply_decoder(params, emb, cfg, **kw)
-        return _masked_ce(logits, targets, cfg.ignore_index)
+        return _masked_ce(logits, targets, cfg.ignore_index, cnt[0])
     logits, hidden = apply_decoder(params, emb, cfg, return_hidden=True,
                                    **kw)
-    loss = _masked_ce(logits, targets, cfg.ignore_index)
+    loss = _masked_ce(logits, targets, cfg.ignore_index, cnt[0])
     aux = 0.0
     for j in range(n_heads):
         lj = nn.linear(hidden, params["draft_heads"][j]).float()
-        aux = aux + _masked_ce(lj, shifted[j], cfg.ignore_index)
+        aux = aux + _masked_ce(lj, shifted[j], cfg.ignore_index, cnt[1 + j])
     return loss + MTP_WEIGHT * aux / n_heads
 
 

@@ -23,13 +23,17 @@ import threading
 import torch
 
 from llmvox_tpu_torch.ops import build
-from llmvox_tpu_torch.utils.graphs import register_counter
+from llmvox_tpu_torch.utils.graphs import count_in_scope, register_counter
 
 # Kernel launches since the last reset (one per call that launched the
 # CUDA kernel; the CPU path does not count).
 LAUNCHES = 0
 _count_lock = threading.Lock()
 register_counter(__name__, "LAUNCHES", _count_lock)
+# the same launches per shard of a dp-sharded pool (the shard's
+# ``graphs.launch_scope`` tag -> count)
+SHARD_LAUNCHES = {}
+register_counter(__name__, "SHARD_LAUNCHES", _count_lock)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -118,4 +122,5 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor,
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1
+        count_in_scope(SHARD_LAUNCHES)
     return out.reshape(*lead, cout)

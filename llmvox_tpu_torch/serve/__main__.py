@@ -25,7 +25,11 @@ adaptive rungs of ``--llm_spec_ladder "[0,2,4]"``.  ``--llm_backend hf``
 a transformers model on ``--llm_device``.
 ``--pool_capacity N`` serves concurrent requests through a
 continuous-batching pool of N slots, ``--pool_ladder "[8,16]"`` through a
-ladder of pools; either lies on ``--tts_device_1``.  ``--spec_decode``
+ladder of pools; either lies on ``--tts_device_1``.  ``--pool_mesh_dp D``
+shards the pool's slots over the first D cards (D CPU shards under
+``--device cpu``), N / D slots a card, each card decoding its own from
+replicated weights (refused when D exceeds the cards, does not divide N,
+or meets a ladder, which stays on one device as in JAX).  ``--spec_decode``
 speculates with the checkpoint's draft heads (``--spec_k_draft`` drafts,
 or the adaptive rungs of ``--spec_k_ladder "[0,2,4]"`` in the pool); with
 ``--random_seed`` the random decoder then carries random draft heads.
@@ -82,6 +86,15 @@ def replica_devices(device: str, cfg: ServeConfig) -> list:
             for i in (cfg.tts_device_1, cfg.tts_device_2)]
 
 
+def pool_mesh(dp: int, device: str):
+    """The ``--pool_mesh_dp`` mesh: the first ``dp`` cards, or ``dp`` CPU
+    shards (``llmvox_tpu/serve/__main__.py`` builds
+    ``create_mesh(dp_size=dp)`` over every device)."""
+    from llmvox_tpu_torch.parallel.mesh import create_mesh, visible_devices
+    devices = ["cpu"] * dp if device == "cpu" else visible_devices()
+    return create_mesh(dp_size=dp, devices=devices)
+
+
 def main(argv=None) -> None:
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.ops import quant
@@ -106,9 +119,19 @@ def main(argv=None) -> None:
             quant._mode_cls(cfg.quantize)
         except ValueError as e:
             parser.error(str(e))
+    mesh = None
     if cfg.pool_mesh_dp > 1:
-        parser.error("--pool_mesh_dp > 1 is not ported to llmvox_tpu_torch "
-                     "yet: the multi-device pool is ROADMAP queue 1 item 10")
+        if cfg.pool_ladder or cfg.pool_capacity <= 0:
+            parser.error("--pool_mesh_dp shards the one pool of "
+                         "--pool_capacity; a --pool_ladder stays on one "
+                         "device, as in JAX")
+        try:
+            mesh = pool_mesh(cfg.pool_mesh_dp, args.device)
+        except (RuntimeError, ValueError) as e:
+            parser.error(f"--pool_mesh_dp {cfg.pool_mesh_dp}: {e}")
+        if cfg.pool_capacity % cfg.pool_mesh_dp:
+            parser.error(f"--pool_capacity {cfg.pool_capacity} must divide "
+                         f"over --pool_mesh_dp {cfg.pool_mesh_dp}")
 
     if args.random_seed is not None:
         dcfg = DecoderConfig()
@@ -158,9 +181,10 @@ def main(argv=None) -> None:
     elif cfg.pool_capacity > 0:
         pool = DecodePool(dec_params, table, engines[0].codec,
                           capacity=cfg.pool_capacity, dcfg=dcfg, scfg=cfg,
-                          device=devices[0], cache_dtype=dtype)
-        print(f"continuous-batching pool: {cfg.pool_capacity} slots",
-              flush=True)
+                          device=devices[0], cache_dtype=dtype, mesh=mesh)
+        print(f"continuous-batching pool: {cfg.pool_capacity} slots"
+              + (f" sharded over dp={cfg.pool_mesh_dp} ({mesh})"
+                 if mesh is not None else ""), flush=True)
     # build_server warms the pool (step widths and rungs, synthesis
     # buckets); every capture happens before the port listens
     server = build_server(cfg, engines, pool=pool)

@@ -51,14 +51,25 @@ Every rung gives the greedy step's tokens.  A speculative step waits on
 the card for its stop flags while it is issued (one iteration behind),
 so its launch holds the dispatch thread for that time too.
 
-Not ported here: the multi-device mesh pool (ROADMAP queue 1 item 10; a
-``mesh`` argument raises).
+A mesh (``parallel/mesh.py``) shards the slots over its dp axis, as
+JAX's mesh pool does (``llmvox_tpu/serve/pool.py:196-234``): shard i is a
+one-device pool of ``capacity / dp`` slots on the i-th device, with its
+own static state, replicated params, codec copy and graphs, captured on
+that device at warmup.  The slots, queues, gather and resolve stay here;
+a step's gather splits its inputs by shard, each shard's launch runs on
+its device's dispatch thread (its kernels counted under the shard's
+``graphs.launch_scope``), and the tokens come back in slot order.  A
+shard's fused first chunks vocode on its own device.  Speculation is off
+under a mesh, as in JAX (``_spec`` requires ``mesh is None``); no
+collective is needed.
 """
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import dataclasses
 import statistics
+import threading
 import time
 import traceback
 from collections import deque
@@ -71,12 +82,14 @@ import torch.nn.functional as F
 from llmvox_tpu_torch.codec.codec import WavCodec
 from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.models import spec
-from llmvox_tpu_torch.serve.batch import MESH_NOT_PORTED
+from llmvox_tpu_torch.parallel.mesh import Mesh
+from llmvox_tpu_torch.serve.batch import dp_devices, shard_tag
 from llmvox_tpu_torch.serve.spec_control import SpecController
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
 from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
                                            resolve_device)
-from llmvox_tpu_torch.utils.graphs import GraphSet, fill, settle, use_graphs
+from llmvox_tpu_torch.utils.graphs import (GraphSet, fill, launch_scope,
+                                           settle, use_graphs)
 from llmvox_tpu_torch.utils.params import to_torch
 
 
@@ -124,11 +137,13 @@ class _Request:
 
 
 class _Plan:
-    """A gathered step: what the dispatch thread launches."""
+    """A gathered step: what the dispatch thread launches (under a mesh,
+    ``shards`` holds each shard's plan over its own slots)."""
     __slots__ = ("gather_s", "width", "rung", "heads", "fused", "groups",
-                 "host")
+                 "host", "shards")
 
-    def __init__(self, gather_s, width, rung, heads, fused, groups, host):
+    def __init__(self, gather_s, width, rung, heads, fused, groups, host,
+                 shards=None):
         self.gather_s = gather_s  # host seconds the gather took
         self.width = width
         self.rung = rung
@@ -136,6 +151,7 @@ class _Plan:
         self.fused = fused        # (slot, request) of the fused heads
         self.groups = groups      # (fused slot idx, fused dumps, bucket)
         self.host = host          # every input of the step, one int32 array
+        self.shards = shards
 
 
 class _Slot:
@@ -166,10 +182,9 @@ class DecodePool:
                  dcfg: Optional[DecoderConfig] = None,
                  scfg: Optional[ServeConfig] = None, *, device="cuda",
                  cache_dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: Optional[torch.dtype] = None, mesh=None,
+                 param_dtype: Optional[torch.dtype] = None,
+                 mesh: Optional[Mesh] = None,
                  graphs: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.dcfg = dcfg or DecoderConfig()
         self.scfg = scfg or ServeConfig()
         self.device = resolve_device(device)
@@ -180,10 +195,28 @@ class DecodePool:
         self.B = capacity
         self.block = self.scfg.pool_decode_block or self.scfg.decode_block
         self.cache_dtype = cache_dtype
-        self.params = to_torch(decoder_params, self.device,
-                               param_dtype or cache_dtype)
-        self.text_table = to_torch(text_table, self.device)
-        self.codebook = codec.params["codebooks"][0]
+        self.shards: Optional[List[DecodePool]] = None
+        if mesh is not None:
+            devices = dp_devices(mesh)
+            dp = len(devices)
+            if capacity % dp:
+                raise ValueError(f"pool capacity {capacity} must divide "
+                                 f"over dp={dp}")
+            # JAX's mesh pool never speculates (its _spec needs no mesh)
+            self.scfg = dataclasses.replace(self.scfg, spec_decode=False)
+            self.shards = [DecodePool(
+                decoder_params, text_table,
+                codec if d == codec.device else codec.copy_to(d),
+                capacity // dp, self.dcfg, self.scfg, device=d,
+                cache_dtype=cache_dtype, param_dtype=param_dtype,
+                graphs=graphs) for d in devices]
+            self._tags = [shard_tag(i, d) for i, d in enumerate(devices)]
+            self._lock = threading.Lock()
+        else:
+            self.params = to_torch(decoder_params, self.device,
+                                   param_dtype or cache_dtype)
+            self.text_table = to_torch(text_table, self.device)
+            self.codebook = codec.params["codebooks"][0]
 
         # Block merging: consumers submit ``block``-token requests (a
         # sentence's first chunk waits for one small step) and the pool
@@ -195,10 +228,36 @@ class DecodePool:
         # outstanding requests each consumer should keep in flight so
         # every in-flight step can take a merged pair from its slot
         self.issue_ahead = self.depth * (2 if self.merge else 1)
-        self.states = dec.init_decode_state_batch(self.dcfg, self.B,
-                                                  cache_dtype, self.device)
         self._widths = ((self.block, self.big_block) if self.merge
                         else (self.block,))
+        # fused first chunks vocode at the bucket of the step's largest
+        # fused dump, capped here (dumps never exceed the block)
+        self._fuse_bucket = codec.bucket_for(min(self.block,
+                                                 max(codec.buckets)))
+        self._spec, self._spec_ctl, self._fixed_k = False, None, 0
+        if self.shards is None:
+            self._init_device(graphs)
+        self.slots = [_Slot() for _ in range(self.B)]
+        self._task: Optional[asyncio.Task] = None
+        self._wake: Optional[asyncio.Event] = None
+        self._inflight = None
+        self._last_launch = None   # the newest launch(es) handed over
+        self.steps = 0
+        self.merged_steps = 0
+        # decode steps launched (each step counts its width) and the host
+        # seconds spent issuing them, gather and launch (counted by the
+        # dispatch thread)
+        self.decode_steps = 0
+        self.dispatch_s = 0.0
+        self._synth_q: Deque = deque()
+        self._synth_task: Optional[asyncio.Task] = None
+        self._synth_wake: Optional[asyncio.Event] = None
+        self.synth_calls = 0
+
+    def _init_device(self, graphs: Optional[bool]) -> None:
+        """The one-device pool's state, static buffers, graphs and rungs."""
+        self.states = dec.init_decode_state_batch(
+            self.dcfg, self.B, self.cache_dtype, self.device)
         # speculation engages, as in JAX, only when the checkpoint carries
         # draft heads.  A ladder holds rung 0 (the greedy step) and the
         # controller moves between rungs; every rung gives greedy's tokens.
@@ -216,10 +275,6 @@ class DecodePool:
         if self._spec:
             spec.check_draft_heads(self.params, self.dcfg, max(rungs))
             self._heads = self.params["draft_heads"][:max(rungs)].float()
-        # fused first chunks vocode at the bucket of the step's largest
-        # fused dump, capped here (dumps never exceed the block)
-        self._fuse_bucket = codec.bucket_for(min(self.block,
-                                                 max(codec.buckets)))
         # static buffers: the step's inputs (reset mask, text lengths,
         # limits, windows, then each fused group's slots and dumps), one
         # fused group's rows for its vocode, each width's tokens
@@ -241,22 +296,6 @@ class DecodePool:
                                 self._make_vocode)
         self._decode_fns = {(w, k): self._decode_fn(w, k)
                             for w in self._widths for k in rungs}
-        self.slots = [_Slot() for _ in range(self.B)]
-        self._task: Optional[asyncio.Task] = None
-        self._wake: Optional[asyncio.Event] = None
-        self._inflight = None
-        self._last_launch = None   # the newest launch handed over
-        self.steps = 0
-        self.merged_steps = 0
-        # decode steps launched (each step counts its width) and the host
-        # seconds spent issuing them, gather and launch (counted by the
-        # dispatch thread)
-        self.decode_steps = 0
-        self.dispatch_s = 0.0
-        self._synth_q: Deque = deque()
-        self._synth_task: Optional[asyncio.Task] = None
-        self._synth_wake: Optional[asyncio.Event] = None
-        self.synth_calls = 0
 
     # -- slot lifecycle -------------------------------------------------
     def try_acquire(self) -> Optional[int]:
@@ -423,6 +462,30 @@ class DecodePool:
         heads: List[Tuple[int, _Request, int]] = [
             (i, req, k * self.block)
             for i, rs in picks for k, req in enumerate(rs)]
+        if self.shards is not None:
+            # each shard's plan over its own slots (numbered from 0)
+            n = self.B // len(self.shards)
+            try:
+                shards = [sh._plan(
+                    [(i - s * n, req, off) for i, req, off in heads
+                     if s * n <= i < (s + 1) * n],
+                    reset[s * n:(s + 1) * n], width, 0.0)
+                    for s, sh in enumerate(self.shards)]
+            except BaseException as exc:
+                _fail(heads, exc)
+                raise
+            self.synth_calls += sum(len(p.groups) for p in shards)
+            return _Plan(time.perf_counter() - t0, width, 0, heads,
+                         [p.fused for p in shards], None, None, shards)
+        plan = self._plan(heads, reset, width, t0)
+        self.synth_calls += len(plan.groups)
+        return plan
+
+    def _plan(self, heads, reset: np.ndarray, width: int,
+              t0: float) -> _Plan:
+        """The step's host inputs for ``heads`` (slot, request, offset) and
+        the (B,) reset mask: windows, text lengths, limits, the fused
+        groups, the rung."""
         try:
             windows = np.full((self.B, width), self.dcfg.pad_token_id,
                               np.int32)
@@ -458,9 +521,8 @@ class DecodePool:
         except BaseException as exc:
             _fail(heads, exc)
             raise
-        self.synth_calls += len(groups)
-        return _Plan(time.perf_counter() - t0, width, rung, heads, fused,
-                     groups, host)
+        return _Plan(time.perf_counter() - t0 if t0 else 0.0, width, rung,
+                     heads, fused, groups, host)
 
     def _launch(self, plan: _Plan) -> Tuple:
         """On the dispatch thread: ONE batched decode step (its resets
@@ -500,19 +562,41 @@ class DecodePool:
         self.dispatch_s += plan.gather_s + time.perf_counter() - t0
         return fetch, shapes, feedback
 
+    def _launch_shard(self, s: int, plan: _Plan) -> Tuple:
+        """On shard ``s``'s dispatch thread: its launch, its kernels
+        counted under its tag."""
+        t0 = time.perf_counter()
+        with launch_scope(self._tags[s]):
+            out = self.shards[s]._launch(plan)
+        with self._lock:
+            self.dispatch_s += time.perf_counter() - t0
+        return out
+
     def _dispatch_step(self) -> Optional[Tuple]:
-        """Gather on the loop and hand the launch to the dispatch thread,
-        without waiting for it.  Returns the in-flight record (the step's
-        popped requests, its fused heads, and its fetch task), or None when
-        no work is queued."""
+        """Gather on the loop and hand the launch to the dispatch thread
+        (each shard's to its device's), without waiting for it.  Returns
+        the in-flight record (the step's popped requests, its fused heads,
+        and its fetch task), or None when no work is queued."""
         plan = self._gather()
         if plan is None:
             return None
-        self._last_launch = dispatch_executor(self.device).submit(
-            self._launch, plan)
         rec = (plan.heads, plan.fused)
-        return rec, asyncio.create_task(self._resolve_task(
-            rec, asyncio.wrap_future(self._last_launch)))
+        if self.shards is None:
+            self._last_launch = dispatch_executor(self.device).submit(
+                self._launch, plan)
+            launch = asyncio.wrap_future(self._last_launch)
+        else:
+            self._last_launch = [
+                dispatch_executor(sh.device).submit(self._launch_shard, s,
+                                                    sp)
+                for s, (sh, sp) in enumerate(zip(self.shards, plan.shards))]
+            launch = [asyncio.wrap_future(f) for f in self._last_launch]
+            self.steps += 1
+            self.merged_steps += int(plan.width == 2 * self.block)
+            self.decode_steps += plan.width
+            with self._lock:
+                self.dispatch_s += plan.gather_s
+        return rec, asyncio.create_task(self._resolve_task(rec, launch))
 
     def _unpack(self, arr: np.ndarray, shapes) -> Tuple[np.ndarray, List]:
         width, wav_shapes = shapes
@@ -525,35 +609,53 @@ class DecodePool:
             off += size
         return toks, wavs
 
+    def _fused_rows(self, fused, wavs_h) -> Dict[int, Tuple]:
+        """slot -> (its fused first chunk's audio row, dump): rows follow
+        the FUSED list order, not the heads order."""
+        sb = self.SYNTH_BATCH
+        return {i: (wavs_h[j // sb][j % sb], req.fused_dump)
+                for j, (i, req) in enumerate(fused)}
+
     async def _resolve_step(self, rec: Tuple, launch) -> None:
         """Wait for one step's launch and fetch, then resolve its
-        futures."""
+        futures (under a mesh, each shard's tokens and fused audio, put
+        back in slot order)."""
         heads, fused = rec
-        fetch, shapes, feedback = await launch
-        toks, wavs_h = self._unpack(await asyncio.to_thread(fetch.get),
-                                    shapes)
-        if feedback is not None:
-            (rung, act), (nprod, iters) = feedback, wavs_h[:2]
-            wavs_h = wavs_h[2:]
-            self._spec_ctl.observe(rung, float(sum(nprod[i] for i in act)),
-                                   float(sum(iters[i] for i in act)))
-        # slot -> (flat synth row, dump): rows follow the FUSED list
-        # order, not the heads order
-        fused_slots = {i: (j, req.fused_dump)
-                       for j, (i, req) in enumerate(fused)}
+        if self.shards is None:
+            fetch, shapes, feedback = await launch
+            toks, wavs_h = self._unpack(await asyncio.to_thread(fetch.get),
+                                        shapes)
+            if feedback is not None:
+                (rung, act), (nprod, iters) = feedback, wavs_h[:2]
+                wavs_h = wavs_h[2:]
+                self._spec_ctl.observe(rung,
+                                       float(sum(nprod[i] for i in act)),
+                                       float(sum(iters[i] for i in act)))
+            audio = self._fused_rows(fused, wavs_h)
+        else:
+            launches = [await f for f in launch]
+            arrs = await asyncio.to_thread(
+                lambda: [f.get() for f, _, _ in launches])
+            parts, audio = [], {}
+            for s, (sh, arr, (_, shapes, _)) in enumerate(
+                    zip(self.shards, arrs, launches)):
+                t, wavs_h = sh._unpack(arr, shapes)
+                parts.append(t)
+                audio.update({i + s * sh.B: row for i, row in
+                              sh._fused_rows(fused[s], wavs_h).items()})
+            toks = np.concatenate(parts)
         hop = self.codec.cfg.hop_length
         for i, req, off in heads:
             if req.future.done():
                 continue
             out = [int(t) for t in toks[i][off: off + self.block] if t >= 0]
             if req.fused_dump > 0:
-                audio = None
-                if i in fused_slots and len(out) >= req.fused_dump:
-                    j, dump = fused_slots[i]
-                    row = wavs_h[j // self.SYNTH_BATCH][j % self.SYNTH_BATCH]
-                    audio = np.asarray(row[: dump * hop],
+                chunk = None
+                if i in audio and len(out) >= req.fused_dump:
+                    row, dump = audio[i]
+                    chunk = np.asarray(row[: dump * hop],
                                        dtype="<f4").tobytes()
-                req.future.set_result((out, audio))
+                req.future.set_result((out, chunk))
             else:
                 req.future.set_result(out)
 
@@ -682,7 +784,15 @@ class DecodePool:
         on the captured steps, leave every slot reset, and ``settle``.
         The reset
         mask is an input of every step, so the JAX pool's reset->step
-        cycle needs no program of its own here."""
+        cycle needs no program of its own here.  Under a mesh each shard
+        warms on its device, under its tag."""
+        if self.shards is not None:
+            for tag, sh in zip(self._tags, self.shards):
+                with launch_scope(tag):
+                    sh.warmup()
+            self.codec.warmup(self.SYNTH_BATCH)
+            settle()
+            return
         self._fill_idle(self.big_block, 1, 1)
         for w, k in sorted(self._decode_fns):
             for part in (("step",) if k == 0 else ("start", "iter")):
@@ -744,6 +854,8 @@ class DecodePool:
             "synth_calls": self.synth_calls,
             "block": self.block,
         }
+        if self.shards is not None:
+            out["dp"] = len(self.shards)
         spec = self.spec_stats()
         if spec is not None:
             out["spec"] = spec
@@ -796,7 +908,9 @@ class DecodePool:
         # the launches handed over run in order: once the newest is done,
         # no step of the stopped loop touches the state after stop()
         if self._last_launch is not None:
-            concurrent.futures.wait([self._last_launch])
+            concurrent.futures.wait(self._last_launch
+                                    if isinstance(self._last_launch, list)
+                                    else [self._last_launch])
             self._last_launch = None
 
 

@@ -18,8 +18,9 @@ only.  Two parts:
   fused first-chunk variant, the speculative start and iteration under
   ``--spec_decode``, each codec bucket) and, with ``--pool_capacity > 0``
   or ``--pool_ladder``, each pool's (each width and rung, the fused
-  vocodes, the ragged synthesis buckets) are captured at the given shapes
-  and reported: counts, seconds and the graph pool's bytes (None where
+  vocodes, the ragged synthesis buckets; with ``--pool_mesh_dp D`` each
+  of the pool's D shards on its card, as the server shards it) are
+  captured at the given shapes and reported: counts, seconds and the graph pool's bytes (None where
   the allocator does not name a segment's pool); with
   ``--llm_pool_capacity > 0``, the pooled LLM's (``serve/llm_pool.py``:
   each prefill bucket, arrival size and prefix variant, each
@@ -49,6 +50,7 @@ def main(argv=None) -> None:
 
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.ops import build, quant
+    from llmvox_tpu_torch.serve.__main__ import pool_mesh
     from llmvox_tpu_torch.serve.engine import TTSEngine
     from llmvox_tpu_torch.serve.pool import DecodePool
     from llmvox_tpu_torch.utils import graphs
@@ -66,6 +68,12 @@ def main(argv=None) -> None:
     scfg = apply_cli_overrides(ServeConfig(), args)
     dcfg = apply_cli_overrides(DecoderConfig(), args)
     ccfg = apply_cli_overrides(CodecConfig(), args)
+    mesh = None
+    if scfg.pool_mesh_dp > 1:
+        if scfg.pool_ladder or scfg.pool_capacity % scfg.pool_mesh_dp:
+            parser.error(f"--pool_mesh_dp {scfg.pool_mesh_dp} shards one "
+                         "pool of a --pool_capacity it divides")
+        mesh = pool_mesh(scfg.pool_mesh_dp, args.device)
 
     if torch.device(args.device).type == "cuda":
         t0 = time.perf_counter()
@@ -104,10 +112,14 @@ def main(argv=None) -> None:
     for cap in caps:
         before, t0 = graphs.stats(), time.perf_counter()
         pool = DecodePool(params, table, codec, capacity=cap, dcfg=dcfg,
-                          scfg=scfg, device=args.device, cache_dtype=dtype)
+                          scfg=scfg, device=args.device, cache_dtype=dtype,
+                          mesh=mesh)
         pool.warmup()
-        report(f"pool of {cap} (steps {sorted(pool._decode_fns)})", before,
-               t0)
+        shards = pool.shards or [pool]
+        report(f"pool of {cap} (steps {sorted(shards[0]._decode_fns)}"
+               + (f", {len(shards)} shards of {shards[0].B} on "
+                  f"{[str(p.device) for p in shards]}" if pool.shards
+                  else "") + ")", before, t0)
         del pool
     if scfg.llm_pool_capacity > 0:
         from llmvox_tpu_torch.streams.llm import (build_llama_stream,

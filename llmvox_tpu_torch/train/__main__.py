@@ -16,6 +16,15 @@ two from reference checkpoints):
 
     python -m llmvox_tpu_torch.train --data_path data.npz --out_dir out \\
         --max_iters 1000 [--pack --pack_len 8192] [--init_from resume]
+
+Data-parallel over N cards, one rank a card (``--dp_size`` -1, the
+default, takes the world; ``--batch_size`` is the global batch, which N
+must divide):
+
+    torchrun --nproc_per_node N -m llmvox_tpu_torch.train --data_path ...
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo
+ranks on the CPU); rank 0 prints, logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from llmvox_tpu_torch.parallel import mesh as pmesh
 from llmvox_tpu_torch.train.data import (BatchIterator, PackedBatchIterator,
                                          SpeechDataset)
 from llmvox_tpu_torch.train.trainer import Trainer
@@ -55,39 +66,52 @@ def main(argv=None) -> None:
     mcfg = apply_cli_overrides(DecoderConfig(), args)
     if tcfg.dtype not in _DTYPES:
         parser.error(f"--dtype must be one of {sorted(_DTYPES)}")
+    # torchrun's ranks form their group here; without torchrun, one rank
+    device = pmesh.initialize_distributed(device=args.device)
+    try:
+        _train(args, tcfg, mcfg, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, tcfg: TrainConfig, mcfg: DecoderConfig, device) -> None:
+    say = print if pmesh.is_master() else (lambda *a, **k: None)
 
     if args.byt5_table:
         table = np.load(args.byt5_table)["table"]
     else:
-        print("WARNING: no --byt5_table; using random table (smoke mode)")
+        say("WARNING: no --byt5_table; using random table (smoke mode)")
         table = 0.02 * np.random.default_rng(0).standard_normal(
             (mcfg.text_vocab_size, mcfg.text_embed_dim)).astype(np.float32)
     if args.codec_params:
         codebook = np.asarray(load_params_npz(args.codec_params)["codebooks"])[0]
     else:
-        print("WARNING: no --codec_params; using random codebook (smoke mode)")
+        say("WARNING: no --codec_params; using random codebook (smoke mode)")
         codebook = np.random.default_rng(1).standard_normal(
             (max(mcfg.vocab_size, mcfg.eoa_token_id + 1),
              mcfg.speech_embed_dim)).astype(np.float32)
 
-    kw = dict(compute_dtype=_DTYPES[tcfg.dtype], device=args.device)
+    kw = dict(compute_dtype=_DTYPES[tcfg.dtype], device=device)
     if tcfg.init_from.startswith("gpt2"):
         # HF gpt2* weights (downloads); forces the gpt2 architecture
         from llmvox_tpu_torch.models.gpt2_import import init_from_gpt2
         gpt2_params, mcfg = init_from_gpt2(tcfg.init_from, mcfg.vocab_size)
         trainer = Trainer(tcfg, mcfg, table, codebook, params=gpt2_params,
                           **kw)
-        print(f"initialized from {tcfg.init_from}")
+        say(f"initialized from {tcfg.init_from}")
     else:
         trainer = Trainer(tcfg, mcfg, table, codebook, **kw)
     if tcfg.init_from == "resume":
         trainer.load_checkpoint(
             os.path.join(tcfg.out_dir, tcfg.checkpoint_filename + ".npz"))
-        print(f"resumed at iter {trainer.iter_num}")
+        say(f"resumed at iter {trainer.iter_num}")
 
     dataset = SpeechDataset(tcfg.data_path)
-    print(f"dataset: {len(dataset)} samples; model: "
-          f"{trainer.n_params / 1e6:.2f}M params; device {trainer.device}")
+    say(f"dataset: {len(dataset)} samples; model: "
+        f"{trainer.n_params / 1e6:.2f}M params; device {trainer.device}"
+        + (f", rank {trainer.rank} of {trainer.dp}" if trainer.dp > 1
+           else ""))
     if args.pack:
         batches = iter(PackedBatchIterator(dataset, mcfg, tcfg.batch_size,
                                            args.pack_len, seed=tcfg.seed))
@@ -95,7 +119,10 @@ def main(argv=None) -> None:
         batches = iter(BatchIterator(dataset, mcfg, tcfg.batch_size,
                                      bucket=args.bucket, seed=tcfg.seed))
     if tcfg.eval_only:
-        print(f"eval loss: {trainer.estimate_loss(batches, tcfg.eval_iters):.4f}")
+        say(f"eval loss: {trainer.estimate_loss(batches, tcfg.eval_iters):.4f}")
+        return
+    if not pmesh.is_master():
+        trainer.train(batches, log=say)
         return
     from llmvox_tpu_torch.utils.logging import MetricsLogger
     logger = MetricsLogger(tcfg.out_dir, tcfg.wandb_run_name,

@@ -11,6 +11,14 @@ either package reads); at the end, the checkpoint.
 
     python -m llmvox_tpu_torch.train.codec_main --filelist_train files.txt \\
         --out_dir out --max_steps 1000
+
+Data-parallel over N cards (``--dp_size`` -1, the default, takes the
+world; ``--batch_size`` is the global batch, which N must divide):
+
+    torchrun --nproc_per_node N -m llmvox_tpu_torch.train.codec_main ...
+
+Every rank reads the same seeded batches and keeps its rows; rank 0
+prints, logs, validates and writes.
 """
 from __future__ import annotations
 
@@ -18,6 +26,9 @@ import argparse
 import os
 import time
 
+import torch.distributed as dist
+
+from llmvox_tpu_torch.parallel import mesh as pmesh
 from llmvox_tpu_torch.train.checkpoint import save_params_npz
 from llmvox_tpu_torch.train.codec_data import CodecDataset
 from llmvox_tpu_torch.train.codec_trainer import CodecTrainer
@@ -35,19 +46,38 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     tcfg = apply_cli_overrides(CodecTrainConfig(), args)
     cfg = apply_cli_overrides(CodecConfig(), args)
+    # torchrun's ranks form their group here; without torchrun, one rank
+    device = pmesh.initialize_distributed(device=args.device)
+    try:
+        _train(cfg, tcfg, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
-    trainer = CodecTrainer(cfg, tcfg, device=args.device)
-    logger = MetricsLogger(tcfg.out_dir, "codec", use_wandb=tcfg.use_wandb,
-                           use_tensorboard=tcfg.use_tensorboard)
+
+def _train(cfg: CodecConfig, tcfg: CodecTrainConfig, device) -> None:
+    master = pmesh.is_master()
+    trainer = CodecTrainer(cfg, tcfg, device=device)
+    logger = (MetricsLogger(tcfg.out_dir, "codec", use_wandb=tcfg.use_wandb,
+                            use_tensorboard=tcfg.use_tensorboard)
+              if master else None)
     train_ds = CodecDataset(tcfg.filelist_train, tcfg, train=True,
                             seed=tcfg.seed)
     val_ds = (CodecDataset(tcfg.filelist_val, tcfg, train=False)
-              if tcfg.filelist_val else None)
-    print(f"train files: {len(train_ds)}")
+              if tcfg.filelist_val and master else None)
+    if master:
+        print(f"train files: {len(train_ds)}"
+              + (f"; {trainer.dp} ranks" if trainer.dp > 1 else ""))
 
     t0 = time.time()
     for audio in train_ds.batches():
         logs = trainer.step(audio)
+        if not master:
+            if trainer.iter_num % tcfg.val_interval == 0:
+                trainer.save_checkpoint()
+            if trainer.iter_num >= tcfg.max_steps:
+                break
+            continue
         logger.log(trainer.iter_num, logs)
         if trainer.iter_num % tcfg.log_interval == 0:
             dt = time.time() - t0
@@ -71,7 +101,8 @@ def main(argv=None) -> None:
         if trainer.iter_num >= tcfg.max_steps:
             break
     trainer.save_checkpoint()
-    logger.close()
+    if logger is not None:
+        logger.close()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""WavTokenizer codec GAN training on one device.
+"""WavTokenizer codec GAN training, on one device or data-parallel.
 
 Counterpart of ``llmvox_tpu/train/codec_trainer.py``:
 
@@ -23,8 +23,17 @@ programs; the port runs this one step for each, with the recompute
 under "micro" as JAX's.  The bandwidth id and the
 VQ's row draws of a step come from the trainer's CPU ``torch.Generator``
 (the same draws on every device) or are passed in (``StepDraws``), so a
-test can feed JAX's.  The multi-device data parallelism of the JAX
-trainer is refused (ROADMAP queue 1 item 10).
+test can feed JAX's.
+
+Data parallelism runs one process a card under ``torchrun``, where JAX's
+trainer runs one GSPMD program over a dp mesh (``dp_size`` -1 is the
+launch's world size).  ``step`` takes the global batch and each rank keeps
+its block of rows; the draws come from generators seeded alike on every
+rank and index the global rows; the VQ gathers its k-means input and sums
+its EMA statistics over the ranks (``vq_train.py``); the discriminator
+and generator gradients and the logs are averaged over the ranks (every
+loss is a mean over equal blocks, so the mean of the ranks' is the
+batch's); rank 0 writes checkpoints.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from llmvox_tpu_torch.codec import discriminators as disc
 from llmvox_tpu_torch.codec import heads, losses, seanet
 from llmvox_tpu_torch.ops.istft import np_dtype
 from llmvox_tpu_torch.ops.nn import effective_weight
+from llmvox_tpu_torch.parallel import mesh as pmesh
+from llmvox_tpu_torch.parallel.sharding import dp_rows
 from llmvox_tpu_torch.train import checkpoint as ckpt
 from llmvox_tpu_torch.train.optim import AdamW
 from llmvox_tpu_torch.train.vq_train import (VQState, draw_indices,
@@ -139,11 +150,11 @@ def generator_forward(gen: Dict, vq_state: VQState, audio: torch.Tensor,
                       bandwidth_id: int, cfg: CodecConfig,
                       tcfg: CodecTrainConfig, *, train: bool = True,
                       draws: Optional[StepDraws] = None,
-                      remat: bool = False):
+                      remat: bool = False, sync: bool = False):
     """audio (B, T) -> (audio_hat (B, T'), commit loss, new VQ state, the
     (B * L,) codes).  ``train`` runs the VQ's training pass (``draws``
-    gives its rows); otherwise the inference assignment, commit 0 and the
-    state as it was."""
+    gives its rows; ``sync`` over the data-parallel ranks); otherwise the
+    inference assignment, commit 0 and the state as it was."""
     if remat:
         emb = checkpoint(seanet.apply_seanet_encoder, gen["encoder"], audio,
                          cfg, use_reentrant=False)
@@ -155,7 +166,7 @@ def generator_forward(gen: Dict, vq_state: VQState, audio: torch.Tensor,
         quant, codes, commit, vq_state = vq_train_step(
             vq_state, flat, draws.init_idx, draws.dead_idx,
             decay=tcfg.vq_decay, threshold_dead=tcfg.vq_threshold_dead,
-            kmeans_iters=tcfg.vq_kmeans_iters)
+            kmeans_iters=tcfg.vq_kmeans_iters, sync=sync)
     else:
         quant, codes = vq_infer(vq_state, flat)
         commit = audio.new_zeros(())
@@ -232,28 +243,25 @@ def gen_loss(dp: Dict, y: torch.Tensor, y_hat: torch.Tensor,
 # the trainer
 # ---------------------------------------------------------------------------
 
-def _check_one_device(tcfg: CodecTrainConfig) -> None:
-    if tcfg.dp_size not in (-1, 1):
-        raise ValueError(
-            f"dp_size={tcfg.dp_size}: the multi-device codec trainer (data "
-            "parallelism, the VQ statistics summed over replicas) is not "
-            "ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
-
-
 class CodecTrainer:
     """End-to-end codec GAN training.  ``gen_params``, ``disc_params`` and
     ``vq_state`` (trees in the JAX layout, numpy or tensors) replace the
     seeded initialisation, as assigning ``trainer.state`` does in JAX;
     ``keep_grads`` keeps each step's gradients in ``grads`` and the VQ's
     codes in ``codes``; ``dtype`` float64 runs every tensor in f64, a
-    reference for the f32 run's rounding."""
+    reference for the f32 run's rounding.  Under a process group of N
+    ranks it trains data-parallel (the module's docstring)."""
 
     def __init__(self, cfg: CodecConfig, tcfg: CodecTrainConfig, *,
                  device="cuda", gen_params: Optional[Dict] = None,
                  disc_params: Optional[Dict] = None, vq_state=None,
                  keep_grads: bool = False,
                  dtype=torch.float32):
-        _check_one_device(tcfg)
+        self.dp = pmesh.data_parallel_size(tcfg.dp_size)
+        if tcfg.batch_size % self.dp:
+            raise ValueError(f"batch_size {tcfg.batch_size} must divide "
+                             f"over dp={self.dp}")
+        self.rank = pmesh.rank()
         self.device = resolve_device(device)
         self.dtype = dtype
         self.cfg, self.tcfg = cfg, tcfg
@@ -276,6 +284,11 @@ class CodecTrainer:
                            [True] * len(self.gen.params))
         self.opt_d = AdamW(tcfg, list(self.disc.params),
                            [True] * len(self.disc.params))
+        if self.dp > 1:
+            with torch.no_grad():
+                pmesh.broadcast_from_master(list(self.gen.params)
+                                            + list(self.disc.params))
+                pmesh.broadcast_from_master(list(self.vq)[:3])
         self.grads: Dict[str, List[torch.Tensor]] = {}
         self.codes: Optional[torch.Tensor] = None
         self.iter_num = 0
@@ -286,8 +299,9 @@ class CodecTrainer:
                                self.opt_g, self.opt_d, self.iter_num)
 
     def draw(self, batch: int, samples: Optional[int] = None) -> StepDraws:
-        """A step's draws from the trainer's generator, for a batch of
-        ``batch`` crops of ``samples`` (``num_samples`` by default)."""
+        """A step's draws from the trainer's generator, for a (global)
+        batch of ``batch`` crops of ``samples`` (``num_samples`` by
+        default)."""
         bw = int(torch.randint(0, self.cfg.adanorm_num_embeddings, (),
                                generator=self.generator))
         n = batch * encoded_length(samples or self.tcfg.num_samples,
@@ -314,6 +328,7 @@ class CodecTrainer:
                                   y_hat[:, :tlen], self.tcfg)
         d_grads = [g * self._train_disc() for g in torch.autograd.grad(
             d_total, list(self.disc.params))]
+        pmesh.all_reduce_(d_grads, "mean")
         self.opt_d.step(d_grads)
         if self.keep_grads:
             self.grads["disc"] = d_grads
@@ -330,7 +345,7 @@ class CodecTrainer:
             y_hat, commit, new_vq, codes = generator_forward(
                 self.gen.tree(), self.vq, y, draws.bandwidth_id, self.cfg,
                 self.tcfg, train=True, draws=draws,
-                remat=self.tcfg.step_impl == "micro")
+                remat=self.tcfg.step_impl == "micro", sync=self.dp > 1)
             tlen = min(y.shape[-1], y_hat.shape[-1])
             g_total, logs = gen_loss(self.disc.tree(), y[:, :tlen],
                                      y_hat[:, :tlen], commit,
@@ -339,6 +354,7 @@ class CodecTrainer:
         finally:
             for p in disc_p:
                 p.requires_grad_(True)
+        pmesh.all_reduce_(g_grads, "mean")
         logs["grad_norm_gen"] = torch.sqrt(sum(g.square().sum()
                                                for g in g_grads))
         self.opt_g.step(g_grads)
@@ -351,16 +367,21 @@ class CodecTrainer:
 
     def step(self, audio, draws: Optional[StepDraws] = None
              ) -> Dict[str, float]:
-        """One alternating step on a (B, num_samples) batch: the disc half,
-        then the gen half; the logs of both as floats."""
-        y = self._audio(audio)
+        """One alternating step on a global (B, num_samples) batch (each
+        rank keeps its rows): the disc half, then the gen half; the logs
+        of both as floats, averaged over the ranks."""
+        audio = np.asarray(audio)
         if draws is None:
-            draws = self.draw(*y.shape)
+            draws = self.draw(*audio.shape)
+        if self.dp > 1:
+            audio = audio[dp_rows(audio.shape[0], self.rank, self.dp)]
+        y = self._audio(audio)
         logs = self.disc_half(y, draws)
         logs.update(self.gen_half(y, draws))
         values = torch.stack([torch.as_tensor(logs[k]).detach().double()
-                              for k in LOG_KEYS]).tolist()
-        return dict(zip(LOG_KEYS, values))
+                              for k in LOG_KEYS])
+        pmesh.all_reduce_([values], "mean")
+        return dict(zip(LOG_KEYS, values.tolist()))
 
     @torch.no_grad()
     def reconstruct(self, audio) -> np.ndarray:
@@ -407,9 +428,13 @@ class CodecTrainer:
         """The files JAX's trainer writes: ``<tag>.npz`` (the generator and
         the VQ state, JAX's keys), ``<tag>.disc.npz`` (the discriminators'
         leaves by position); the optimizers' states go to
-        ``<tag>.{gen,disc}.adamw.npz`` in the port's layout."""
+        ``<tag>.{gen,disc}.adamw.npz`` in the port's layout.  Rank 0
+        writes; every rank returns once the files are there."""
         out = self.tcfg.out_dir
         path = os.path.join(out, f"{tag}.npz")
+        if not pmesh.is_master():
+            pmesh.barrier()
+            return path
         ckpt.save_params_npz(path, {"gen": self.gen.tree(),
                                     "vq": vq_to_numpy(self.vq)},
                              meta={"iter_num": self.iter_num})
@@ -419,6 +444,7 @@ class CodecTrainer:
                                ("disc", self.disc, self.opt_d)):
             ckpt.save_opt_state(os.path.join(out, f"{tag}.{name}.adamw.npz"),
                                 mod.names, opt.state_dict())
+        pmesh.barrier()
         return path
 
     @torch.no_grad()

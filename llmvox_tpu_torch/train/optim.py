@@ -150,6 +150,9 @@ class AdamW:
         # scalars of each update
         self.count = 0        # updates applied (optax's adam count)
         self.mini_step = 0    # micro-steps accumulated since the last one
+        # data parallelism: reduces the accumulated gradients over the
+        # ranks in place, once an update, before clipping
+        self.reduce: Optional[Callable[[List[torch.Tensor]], None]] = None
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -161,6 +164,8 @@ class AdamW:
         if n < self.k - 1:
             self.mini_step += 1
             return False
+        if self.reduce is not None:
+            self.reduce(self.acc)
         self._update(self.acc)
         for a in self.acc:
             a.zero_()

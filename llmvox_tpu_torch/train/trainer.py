@@ -1,4 +1,4 @@
-"""Decoder training on one device.
+"""Decoder training, on one device or data-parallel over several.
 
 Counterpart of ``llmvox_tpu/train/trainer.py``.  A step builds the fused
 inputs from the int32 ids on the device, runs the loss forward and
@@ -6,9 +6,19 @@ backward in ``compute_dtype`` (bf16 on the card; f32 for the checks)
 against f32 parameters, and hands the gradients to
 ``train/optim.py::AdamW``, which updates as the JAX package's optax chain
 does (accumulating ``gradient_accumulation_steps`` micro-steps an update).
-``iter_num`` counts micro-steps, as JAX's does.  The multi-device paths
-of the JAX trainer (data, tensor and sequence parallelism, FSDP) are
-refused: ROADMAP queue 1 item 10.
+``iter_num`` counts micro-steps, as JAX's does.
+
+Data parallelism runs one process a card under ``torchrun`` (the default
+process group, ``parallel/mesh.py::initialize_distributed``), where JAX
+runs one process over a dp mesh: ``dp_size`` -1 is the launch's world
+size.  Every rank draws the same global batch from the one seeded
+iterator and keeps its block of rows (JAX's ``P("dp")``); each loss term
+is divided by the whole batch's count of valid targets (summed over the
+ranks first), so the rank gradients sum to JAX's global one; the
+accumulated gradients are summed over the ranks once an update, before
+clipping and AdamW, so every rank applies the same update to the same
+bits.  Rank 0 writes checkpoints.  Tensor and sequence parallelism and
+FSDP are refused: ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.models import decoder as dec
+from llmvox_tpu_torch.parallel import mesh as pmesh
+from llmvox_tpu_torch.parallel.sharding import dp_rows
 from llmvox_tpu_torch.train import checkpoint as ckpt
 from llmvox_tpu_torch.train.data import build_decoder_inputs
 from llmvox_tpu_torch.train.optim import (AdamW, decay_mask, lr_schedule,
@@ -46,33 +58,42 @@ def estimate_mfu(cfg: DecoderConfig, n_params: int, tokens_per_iter: int,
     return flops_per_token * tokens_per_iter / dt / peak
 
 
-def _check_one_device(tcfg: TrainConfig) -> None:
+def _check_supported(tcfg: TrainConfig) -> int:
     multi = [name for name, on in (
-        ("dp_size", tcfg.dp_size not in (-1, 1)), ("tp_size", tcfg.tp_size != 1),
-        ("sp_size", tcfg.sp_size != 1), ("fsdp", tcfg.fsdp)) if on]
+        ("tp_size", tcfg.tp_size != 1), ("sp_size", tcfg.sp_size != 1),
+        ("fsdp", tcfg.fsdp)) if on]
     if multi:
         raise ValueError(
-            f"{', '.join(multi)}: the multi-device trainer (data, tensor and "
-            "sequence parallelism, FSDP) is not ported to llmvox_tpu_torch "
-            "yet: ROADMAP queue 1 item 10")
+            f"{', '.join(multi)}: tensor and sequence parallelism and FSDP "
+            "are not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item "
+            "10")
+    dp = pmesh.data_parallel_size(tcfg.dp_size)
+    if tcfg.batch_size % dp:
+        raise ValueError(f"batch_size {tcfg.batch_size} must divide over "
+                         f"dp={dp}")
+    return dp
 
 
 class Trainer:
     """End-to-end decoder training.  ``params`` (a tree in the JAX layout)
     replaces the seeded initialisation, as assigning ``state.params`` does
-    for the JAX trainer."""
+    for the JAX trainer.  Under a process group of N ranks it trains
+    data-parallel (the module's docstring); the batches it is given are
+    the global ones."""
 
     def __init__(self, tcfg: TrainConfig, mcfg: DecoderConfig,
                  text_table: np.ndarray, codebook: np.ndarray, *,
                  compute_dtype=torch.bfloat16, device="cuda",
                  params: Optional[Dict] = None):
-        _check_one_device(tcfg)
+        self.dp = _check_supported(tcfg)
+        self.rank = pmesh.rank()
         self.device = resolve_device(device)
         self.tcfg, self.mcfg = tcfg, mcfg
         self.compute_dtype = compute_dtype
-        # dropout masks; the data order is numpy's, seeded by the iterators
+        # dropout masks, seed + rank as JAX's seed + process_index; the
+        # data order is numpy's, seeded by the iterators
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(tcfg.seed)
+        self.generator.manual_seed(tcfg.seed + self.rank)
         if params is None:
             params = init_decoder_params(tcfg.seed, mcfg)
         self.model = dec.DecoderModel(params, mcfg, self.device)
@@ -81,6 +102,12 @@ class Trainer:
         self.names = [n for n, _ in leaves]
         self.opt = AdamW(tcfg, [p for _, p in leaves],
                          [d for _, d in named_leaves(decay_mask(tree))])
+        if self.dp > 1:
+            with torch.no_grad():
+                pmesh.broadcast_from_master(self.opt.params)
+            self.opt.reduce = pmesh.all_reduce_
+        self._n_heads = (tree["draft_heads"].shape[0]
+                         if "draft_heads" in tree else 0)
         self.text_table = torch.as_tensor(
             np.asarray(text_table, np.float32)).to(self.device)
         self.codebook = torch.as_tensor(
@@ -94,15 +121,19 @@ class Trainer:
 
     # -- checkpointing ---------------------------------------------------
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """Rank 0 writes (the ranks hold the same bits); every rank
+        returns once the files are there."""
         name = tag or self.tcfg.checkpoint_filename
         path = os.path.join(self.tcfg.out_dir, f"{name}.npz")
-        ckpt.save_params_npz(path, self.params,
-                             meta={"iter_num": self.iter_num,
-                                   "model_args": self.mcfg.__dict__,
-                                   "config": self.tcfg.__dict__})
-        ckpt.save_opt_state(os.path.join(self.tcfg.out_dir,
-                                         f"{name}.adamw.npz"),
-                            self.names, self.opt.state_dict())
+        if pmesh.is_master():
+            ckpt.save_params_npz(path, self.params,
+                                 meta={"iter_num": self.iter_num,
+                                       "model_args": self.mcfg.__dict__,
+                                       "config": self.tcfg.__dict__})
+            ckpt.save_opt_state(os.path.join(self.tcfg.out_dir,
+                                             f"{name}.adamw.npz"),
+                                self.names, self.opt.state_dict())
+        pmesh.barrier()
         return path
 
     @torch.no_grad()
@@ -118,30 +149,56 @@ class Trainer:
             p.copy_(torch.as_tensor(saved[name]))
         self.iter_num = int(ckpt.load_meta(path).get("iter_num", 0))
         opt_path = path[:-len(".npz")] + ".adamw.npz"
+        reduce = self.opt.reduce
         self.opt = AdamW(self.tcfg, self.opt.params, self.opt.decay)
+        self.opt.reduce = reduce
         if os.path.exists(opt_path):
             self.opt.load_state_dict(ckpt.load_opt_state(opt_path,
                                                          self.names))
 
     # -- steps -----------------------------------------------------------
+    def rows(self, batch) -> Tuple:
+        """This rank's block of a global batch's rows (all of it on one
+        rank)."""
+        if self.dp == 1:
+            return tuple(batch)
+        rows = dp_rows(np.asarray(batch[0]).shape[0], self.rank, self.dp)
+        return tuple(np.asarray(a)[rows] for a in batch)
+
     def loss(self, batch, train: bool) -> torch.Tensor:
-        """The loss of one batch (text, targets[, segments, positions]):
-        with dropout when ``train``, without it otherwise."""
-        dev = [torch.as_tensor(np.asarray(a)).to(self.device) for a in batch]
+        """The loss of one global batch (text, targets[, segments,
+        positions]): with dropout when ``train``, without it otherwise.
+        Data-parallel, this rank's share of it: its rows' terms over the
+        whole batch's valid counts, so the ranks' shares sum to the
+        loss."""
+        dev = [torch.as_tensor(np.asarray(a)).to(self.device)
+               for a in self.rows(batch)]
         text_ids, targets = dev[:2]
         segments, positions = dev[2:] if len(dev) == 4 else (None, None)
+        counts = None
+        if self.dp > 1:
+            counts = dec.loss_counts(targets, self.mcfg, self._n_heads,
+                                     segments)
+            pmesh.all_reduce_([counts])
         emb = build_decoder_inputs(self.text_table, self.codebook, text_ids,
                                    targets, self.mcfg, pos_ids=positions)
         return self.model(emb.to(self.compute_dtype), targets,
                           generator=self.generator if train else None,
                           train=train, positions=positions,
-                          segments=segments)
+                          segments=segments, counts=counts)
+
+    def _global(self, loss: torch.Tensor) -> float:
+        """The whole batch's loss from this rank's share."""
+        loss = loss.detach().reshape(1).clone()
+        pmesh.all_reduce_([loss])
+        return float(loss[0])
 
     def step(self, text_ids: np.ndarray, targets: np.ndarray,
              segments: Optional[np.ndarray] = None,
              positions: Optional[np.ndarray] = None) -> float:
-        """One micro-step: forward, backward, and the optimizer's
-        accumulation (an update on every k-th).  Returns the loss."""
+        """One micro-step on a global batch: forward, backward, and the
+        optimizer's accumulation (an update on every k-th).  Returns the
+        loss."""
         batch = ((text_ids, targets) if segments is None
                  else (text_ids, targets, segments, positions))
         loss = self.loss(batch, train=True)
@@ -150,13 +207,14 @@ class Trainer:
         for p in self.opt.params:
             p.grad = None
         self.iter_num += 1
-        return float(loss.detach())
+        return self._global(loss)
 
     @torch.no_grad()
     def estimate_loss(self, batches: Iterator[Tuple[np.ndarray, ...]],
                       eval_iters: int) -> float:
         """Mean loss over ``eval_iters`` batches, without dropout."""
-        return float(np.mean([float(self.loss(next(batches), train=False))
+        return float(np.mean([self._global(self.loss(next(batches),
+                                                     train=False))
                               for _ in range(eval_iters)]))
 
     # -- loop ------------------------------------------------------------
@@ -165,20 +223,24 @@ class Trainer:
               logger=None) -> None:
         """Train to ``max_iters`` micro-steps: every ``eval_interval`` an
         eval loss and a checkpoint, every ``log_interval`` the loss, the
-        time and the MFU against the card's peak (``logger``: a
-        ``utils/logging.py::MetricsLogger``)."""
+        time and the MFU against the cards' peak (``logger``: a
+        ``utils/logging.py::MetricsLogger``).  Data-parallel, the losses
+        logged go through ``average_metrics`` and rank 0 logs."""
         lr_fn = lr_schedule(self.tcfg)
         tcfg = self.tcfg
         max_iters = max_iters or tcfg.max_iters
         t0 = time.time()
         last_log_iter = self.iter_num
         while self.iter_num < max_iters:
+            master = pmesh.is_master()
             if (self.iter_num % tcfg.eval_interval == 0 and
                     self.iter_num > 0):
-                val = self.estimate_loss(batches, tcfg.eval_iters)
-                log(f"iter {self.iter_num}: eval loss {val:.4f}")
-                if logger is not None:
-                    logger.log(self.iter_num, {"val/loss": float(val)})
+                val = pmesh.average_metrics({"val/loss": self.estimate_loss(
+                    batches, tcfg.eval_iters)})["val/loss"]
+                if master:
+                    log(f"iter {self.iter_num}: eval loss {val:.4f}")
+                    if logger is not None:
+                        logger.log(self.iter_num, {"val/loss": float(val)})
                 self.save_checkpoint()
                 if tcfg.always_save_checkpoint:
                     self.save_checkpoint(
@@ -187,6 +249,7 @@ class Trainer:
             text_ids = batch[0]
             loss = self.step(*batch)
             if self.iter_num % tcfg.log_interval == 0:
+                loss = pmesh.average_metrics({"loss": loss})["loss"]
                 dt = time.time() - t0
                 t0 = time.time()
                 # dt spans every iteration since the last log
@@ -195,7 +258,10 @@ class Trainer:
                 tokens = text_ids.shape[0] * text_ids.shape[1] * n_iters
                 mfu = estimate_mfu(self.mcfg, self.n_params, tokens,
                                    max(dt, 1e-9),
+                                   peak=H100_PEAK_FLOPS * self.dp,
                                    seq_len=text_ids.shape[1])
+                if not master:
+                    continue
                 log(f"iter {self.iter_num}: loss {loss:.4f}, "
                     f"time {dt * 1000:.1f}ms, mfu {mfu * 100:.2f}%")
                 if logger is not None:

@@ -16,6 +16,14 @@ The draws are arguments (``draw_indices`` makes them from a
 ``torch.Generator``) so a test can pass JAX's.  Sums are f32 matmuls, as
 JAX's HIGHEST-precision dots; argmax ties go to the first index on both
 sides.
+
+Data-parallel (``sync=True`` under a process group, each rank holding
+its block of the global rows): the draws index the global rows, so
+k-means runs on the rows of every rank gathered in rank order (JAX's
+``lax.all_gather`` over its axis, or its GSPMD program over the global
+array), the EMA counts and sums are summed over the ranks (``psum``), and
+a dead code's replacement is the global row its draw names, taken from
+the rank that holds it.  Every rank ends with the same state.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from llmvox_tpu_torch.parallel import mesh as pmesh
 
 
 class VQState(NamedTuple):
@@ -87,17 +97,33 @@ def draw_indices(generator: torch.Generator, n: int,
     return init_idx, dead_idx
 
 
+def _global_rows(xd: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows of the ranks' concatenated (world * n, dim) data that
+    ``idx`` names: each rank fills the ones it holds and the ranks sum
+    (every other entry is 0, so each row keeps its bits)."""
+    n = xd.shape[0]
+    idx = idx.to(xd.device)
+    mine = (idx // n) == pmesh.rank()
+    out = torch.where(mine[:, None], xd[(idx % n)], torch.zeros_like(
+        xd[:1]))
+    pmesh.all_reduce_([out])
+    return out
+
+
 def vq_train_step(state: VQState, x: torch.Tensor, init_idx: torch.Tensor,
                   dead_idx: torch.Tensor, *, decay: float = 0.99,
                   epsilon: float = 1e-5, threshold_dead: float = 2.0,
-                  kmeans_iters: int = 50):
+                  kmeans_iters: int = 50, sync: bool = False):
     """One training pass of the codebook over (N, dim) encoder outputs:
     (quantized (N, dim) with the straight-through gradient, codes (N,),
-    commitment loss, new state).  The state's tensors carry no gradient."""
+    commitment loss, new state).  The state's tensors carry no gradient.
+    ``sync``: data-parallel over the process group (the module's
+    docstring); the draws then index the global rows."""
     bins = state.embed.shape[0]
     xd = x.detach()
     if not bool(state.inited):
-        means, counts = kmeans(xd, bins, kmeans_iters,
+        data = pmesh.gather_rows(xd) if sync else xd
+        means, counts = kmeans(data, bins, kmeans_iters,
                                init_idx.to(x.device))
         state = VQState(means, means, counts, state.inited)
     embed = state.embed
@@ -107,11 +133,14 @@ def vq_train_step(state: VQState, x: torch.Tensor, init_idx: torch.Tensor,
     quant_ste = x + (quant - xd)
 
     batch_size, batch_sum = _counts_and_sums(codes, xd, bins)
+    if sync:
+        pmesh.all_reduce_([batch_size, batch_sum])
     cluster_size = state.cluster_size * decay + batch_size * (1 - decay)
     embed_avg = state.embed_avg * decay + batch_sum * (1 - decay)
 
     expired = cluster_size < threshold_dead
-    replacements = xd[dead_idx.to(x.device)]
+    replacements = (_global_rows(xd, dead_idx) if sync
+                    else xd[dead_idx.to(x.device)])
     embed_avg = torch.where(expired[:, None], replacements * threshold_dead,
                             embed_avg)
     cluster_size = torch.where(expired, torch.full_like(

@@ -241,9 +241,12 @@ class ServeConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Decoder-training knobs, the same fields and defaults as the JAX
-    package's TrainConfig.  The port's ``train/trainer.py::Trainer`` runs
-    on one device: it refuses any ``dp_size``, ``tp_size``, ``sp_size`` or
-    ``fsdp`` that needs more (ROADMAP item 10)."""
+    package's TrainConfig.  The port's ``train/trainer.py::Trainer`` trains
+    data-parallel over the ranks of a ``torchrun`` launch: ``dp_size`` -1
+    (the default) is the launch's world size, one rank without
+    ``torchrun``, and any other value must equal it.  It refuses a
+    ``tp_size``, ``sp_size`` or ``fsdp`` that needs more (ROADMAP item
+    10)."""
 
     # System
     dtype: str = "bfloat16"
@@ -307,7 +310,8 @@ class CodecTrainConfig:
     JAX package's CodecTrainConfig.  The port's
     ``train/codec_trainer.py::CodecTrainer`` runs one eager step for every
     ``step_impl`` (JAX's three values only size its compiled programs) and
-    refuses a ``dp_size`` above 1 (ROADMAP item 10)."""
+    trains data-parallel over the ranks of a ``torchrun`` launch
+    (``dp_size`` -1 is the world size, as for ``TrainConfig``)."""
 
     sample_rate: int = 24000
     initial_learning_rate: float = 2e-4

@@ -27,6 +27,11 @@ Rules:
   registered count moved, takes that back out, and every replay adds it
   again, so the counts read as if the body had run eagerly.
 
+A counter may also be a dict (a count per shard of a dp-sharded pool):
+a wrapper adds to the entry named by ``scope()``, which the pool's shard
+sets around its launches with ``launch_scope``, and a capture records and
+replays each entry as it does an int.
+
 ``CAPTURES`` and ``CAPTURE_S`` add up the captures of this process, and
 ``pool_bytes()`` reads what the graph pools hold.  A capture ends with
 one replay: a graph's first launch uploads it to the device, which takes
@@ -35,11 +40,12 @@ request.  Graphs, unlike XLA executables, do not outlive the process.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import sys
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,24 +61,69 @@ _stats_lock = threading.Lock()
 _pools: Dict[torch.device, tuple] = {}
 
 
+_scope = threading.local()
+
+
 def register_counter(module: str, name: str, lock: threading.Lock) -> None:
-    """Have every replay add to the int ``module.name`` (changed under
-    ``lock``) what the body's capture added to it.  A kernel wrapper that
-    counts its launches calls this at import, beside its counter."""
+    """Have every replay add to the int (or the dict of ints)
+    ``module.name`` (changed under ``lock``) what the body's capture added
+    to it.  A kernel wrapper that counts its launches calls this at
+    import, beside its counter."""
     _COUNTERS[f"{module}.{name}"] = (sys.modules[module], name, lock)
 
 
-def counts() -> Dict[str, int]:
-    """The current value of every registered counter."""
-    return {k: getattr(m, a) for k, (m, a, _) in _COUNTERS.items()}
+@contextlib.contextmanager
+def launch_scope(tag: str):
+    """Name, on this thread, the shard whose launches the wrappers'
+    per-shard counters take (``scope()``)."""
+    old = getattr(_scope, "tag", None)
+    _scope.tag = tag
+    try:
+        yield
+    finally:
+        _scope.tag = old
 
 
-def _add(delta: Dict[str, int]) -> None:
+def scope() -> Optional[str]:
+    """The shard named by the innermost ``launch_scope`` of this thread."""
+    return getattr(_scope, "tag", None)
+
+
+def count_in_scope(counter: Dict[str, int]) -> None:
+    """Add one to ``counter``'s entry for ``scope()``, if one is set (the
+    caller holds the counter's lock)."""
+    tag = scope()
+    if tag is not None:
+        counter[tag] = counter.get(tag, 0) + 1
+
+
+Key = Union[str, Tuple[str, str]]
+
+
+def counts() -> Dict[Key, int]:
+    """The current value of every registered counter: a dict counter's
+    entries under ``(name, entry)``."""
+    out: Dict[Key, int] = {}
+    for k, (m, a, _) in _COUNTERS.items():
+        v = getattr(m, a)
+        if isinstance(v, dict):
+            out.update({(k, e): n for e, n in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def _add(delta: Dict[Key, int]) -> None:
     for k, d in delta.items():
         if d:
-            mod, a, lock = _COUNTERS[k]
+            name, entry = k if isinstance(k, tuple) else (k, None)
+            mod, a, lock = _COUNTERS[name]
             with lock:
-                setattr(mod, a, getattr(mod, a) + d)
+                if entry is None:
+                    setattr(mod, a, getattr(mod, a) + d)
+                else:
+                    c = getattr(mod, a)
+                    c[entry] = c.get(entry, 0) + d
 
 
 def pool_bytes() -> Optional[int]:

@@ -352,9 +352,17 @@ def test_tts_batch_matches_jax_batch_and_single_stream(stack):
 
 
 def test_batch_refuses_a_mesh(stack):
+    """The meshes BatchTTS refuses: one its streams do not divide over
+    (JAX's assertion), and one with a tensor-parallel axis (only the dp
+    axis is ported)."""
+    from llmvox_tpu_torch.parallel import create_mesh
     params, table, _, codec = stack
     tcodec = TWavCodec(codec, T_CODEC, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 10"):
-        TBatchTTS(params, table, tcodec, dcfg=T_DEC, device="cpu",
-                  mesh=object())
+    with pytest.raises(ValueError, match="4 streams not divisible over "
+                                         "3-way dp mesh"):
+        TBatchTTS(params, table, tcodec, max_streams=4, dcfg=T_DEC,
+                  device="cpu", mesh=create_mesh(3, devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="a dp mesh only"):
+        TBatchTTS(params, table, tcodec, max_streams=4, dcfg=T_DEC,
+                  device="cpu",
+                  mesh=create_mesh(2, tp_size=2, devices=["cpu"] * 4))

@@ -123,7 +123,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "tools.copy_synthesis", "utils.native", "codec.pesq",
                   "codec.stoi", "codec.metrics", "codec.eval",
                   "codec.utmos", "codec.entropy", "codec.lm",
-                  "codec.compress"):
+                  "codec.compress", "parallel", "parallel.mesh",
+                  "parallel.sharding", "parallel.launch"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)

@@ -394,9 +394,12 @@ def test_spec_decode_with_draft_heads_raises(jeng):
 
 
 def test_pool_refuses_a_mesh_and_a_foreign_codec(jeng):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 10"):
-        _port_pool(jeng, 2, mesh=object())
+    """A mesh the capacity does not divide over is refused (JAX's
+    assertion), as is a codec on another device than the pool's."""
+    from llmvox_tpu_torch.parallel import create_mesh
+    with pytest.raises(ValueError, match="pool capacity 2 must divide "
+                                         "over dp=3"):
+        _port_pool(jeng, 2, mesh=create_mesh(3, devices=["cpu"] * 3))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             params, table, codec = _weights(jeng)
@@ -446,16 +449,17 @@ def test_cli_builds_the_pool_on_the_first_replica(flags, caps, monkeypatch):
     (["--quantize", "w3"], "unknown quantization mode 'w3'"),
     (["--spec_decode", "true", "--pool_capacity", "4", "--spec_k_ladder",
       "[0,2]"], None),
-    (["--pool_mesh_dp", "2", "--pool_capacity", "8"],
-     "ROADMAP queue 1 item 10")])
+    (["--pool_mesh_dp", "3", "--pool_capacity", "8"],
+     "--pool_capacity 8 must divide over --pool_mesh_dp 3")])
 def test_cli_refuses_unported_flags(flags, slice_, capsys, monkeypatch):
-    """``--pool_mesh_dp > 1`` is refused, naming the ROADMAP item that
-    brings it, and an unknown ``--quantize`` mode with the quantizer's
-    message.  ``--quantize w4`` is served: the random decoder's matmul
-    weights are int4 in the engines and the pool, scales in the compute
-    dtype, the head int8.  ``--spec_decode`` is served: with
-    ``--random_seed`` the random decoder carries draft heads for the
-    deepest rung, and the engines and the pool speculate."""
+    """A ``--pool_mesh_dp`` that does not divide ``--pool_capacity`` is
+    refused (``--pool_mesh_dp 2`` is served: test_torch_parallel.py), and
+    an unknown ``--quantize`` mode with the quantizer's message.
+    ``--quantize w4`` is served: the random decoder's matmul weights are
+    int4 in the engines and the pool, scales in the compute dtype, the
+    head int8.  ``--spec_decode`` is served: with ``--random_seed`` the
+    random decoder carries draft heads for the deepest rung, and the
+    engines and the pool speculate."""
     if slice_ is not None:
         with pytest.raises(SystemExit):
             serve_main(["--device", "cpu", "--random_seed", "0"] + flags)

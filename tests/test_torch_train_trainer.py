@@ -222,8 +222,9 @@ def test_average_and_partial_checkpoints_match_jax(tmp_path):
 
 
 def test_estimate_mfu_and_refusals():
-    """JAX's formula against the H100's dense bf16 peak (989e12); the
-    multi-device configurations and a card that is not there refused."""
+    """JAX's formula against the H100's dense bf16 peak (989e12); tensor
+    and sequence parallelism and FSDP (ROADMAP item 10), a dp_size that is
+    not the launch's world size, and a card that is not there refused."""
     cfg = _port(TINY, tconfig.DecoderConfig)
     assert ttrainer.H100_PEAK_FLOPS == 989e12
     for t in (16, 0):
@@ -232,9 +233,11 @@ def test_estimate_mfu_and_refusals():
             j_estimate_mfu(TINY, 1234, 64, 0.5, peak=989e12, seq_len=t),
             rtol=1e-12)
     table, codebook = _tables()
-    for bad in (dict(dp_size=2), dict(tp_size=2), dict(sp_size=2),
-                dict(fsdp=True)):
-        with pytest.raises(ValueError, match="item 10"):
+    for bad, match in ((dict(dp_size=2), "world of 1"),
+                       (dict(tp_size=2), "item 10"),
+                       (dict(sp_size=2), "item 10"),
+                       (dict(fsdp=True), "item 10")):
+        with pytest.raises(ValueError, match=match):
             ttrainer.Trainer(tconfig.TrainConfig(**bad), cfg, table,
                              codebook, device="cpu")
     if not torch.cuda.is_available():
