@@ -13,6 +13,9 @@
         # a measurement aid, checked by nothing: phase 4's requests with the
         # blocks launched on the loop, a thread per replica or the card's
         # dispatch thread, in turns, with and without the lag ticker
+    python3 chip_smoke.py --phase22
+        # the build and phase 22 alone (data and tensor parallelism over
+        # every card up to 4: NCCL on a host with four cards)
 
 Phases, each of which raises on failure (exit code non-zero, no result):
   1. the card's name and power limit; build every kernel from the sources
@@ -260,6 +263,21 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      1e-3 relative, the f64 run refereeing a log the f32 one-process run
      is off, the codebook 1e-5, params rtol 2e-3 / atol 5e-5 with at most
      1 in 1000 outside); ms an update and a step at world N and world 1;
+     then in the same ranks Megatron tensor parallelism (``_tp_rank``,
+     ``_tp_one``): the decoder trainer at tp 2 (dp = world / 2) held to
+     one process as above; Llama-3.1-8B's geometry at tp = world,
+     ``BIG_DEPTH`` layers bf16 (a B=1 prefill and 16-token block, timed
+     against one process; a pooled prefill of 4 rows and a block; tokens
+     equal to one process's or within ``TP_TIE_ULPS`` bf16 ulps a tp rank
+     of its picks teacher-forced on the tp chain) and 2 layers f32 (tokens
+     identical); Mixtral-8x7B's at 2 layers in bf16 (reported where it
+     parts, and held to one process forced onto the tp run's expert
+     routes and teacher-forced on its chain: tokens its picks or within
+     ``TP_TIE_ULPS``, every route it would have taken otherwise within
+     ``TP_ROUTE_TIE_ULPS`` a tp rank of a router tie) and f32 (identical, and
+     held so too); each rank's weight and KV bytes against
+     one process's, the prefill logits' gap, every kernel's launches on
+     the tp path (0);
      (b) the dp-sharded ``DecodePool`` at ``DecoderConfig()``, 16 slots
      over the ranks' devices (the same card twice on one card), EOA off,
      a length cap of 96: three f32 ``/tts`` through ``build_server``, each
@@ -6091,9 +6109,10 @@ def _dp_decoder_inputs(world: int, cfg=None):
     return cfg, tcfg, P.init_decoder_params(22, cfg), table, codebook, batches
 
 
-def _dp_updates(tr, batches) -> tuple:
+def _dp_updates(tr, batches, lockstep: bool = True) -> tuple:
     """Micro-steps over ``batches``: (losses, ms of each update: its
-    micro-steps between two syncs, lockstep after each update)."""
+    micro-steps between two syncs, lockstep after each update unless
+    ``lockstep`` is off)."""
     from llmvox_tpu_torch.parallel import mesh as pmesh
     losses, ms, same = [], [], []
     k = tr.tcfg.gradient_accumulation_steps
@@ -6104,7 +6123,7 @@ def _dp_updates(tr, batches) -> tuple:
             losses.append(tr.step(*b))
         _sync(tr.device)
         ms.append((time.perf_counter() - t0) * 1e3)
-        if pmesh.world() > 1:
+        if lockstep and pmesh.world() > 1:
             same.append(_lockstep(list(tr.opt.params) + tr.opt.mu
                                   + tr.opt.nu + tr.opt.acc))
     return losses, ms, same
@@ -6172,14 +6191,364 @@ def _params_off(a_params, b_params) -> tuple:
     return off, n
 
 
+# phase 22's tensor-parallel checks, in the same ranks: the decoder trainer
+# at tp 2 (dp = world / 2), the Llama at tp = world
+TP_PROMPT = 16            # the Llama checks' prompt tokens
+TP_TOKENS = 16            # the B=1 block
+TP_POOL_ROWS = 4          # the pooled step's rows
+TP_POOL_BLOCK = 8
+TP_F32_DEPTH = 2          # the f32 check's depth (identical tokens)
+TP_MOE_DEPTH = 2          # Mixtral-8x7B's depth at tp
+TP_MOE_BLOCK = 8
+# (name, which geometry, depth, dtype): the bf16 8B run is timed; the f32
+# runs' tokens must be identical to one process's; the bf16 8B chains
+# equal or at ties (``_held_to``).  A bf16 difference in the residual
+# stream can flip an MoE token's top-2 routing at a near tie of the
+# router's logits, and its output then differs by a whole expert, so the
+# MoE chains are held to one process forced onto the tp run's routes
+# (``_routes``), each route it would have taken otherwise at a router tie
+TP_RUNS = (("bf16", "llama", BIG_DEPTH, torch.bfloat16),
+           ("f32", "llama", TP_F32_DEPTH, torch.float32),
+           ("moe", "moe", TP_MOE_DEPTH, torch.bfloat16),
+           ("moe f32", "moe", TP_MOE_DEPTH, torch.float32))
+# a bf16 chain at tp may part from one process's where the one process's
+# own logits (teacher-forced on the tp chain) hold the two tokens within
+# this many bf16 ulps of the larger for each rank of the tp group: a
+# row-parallel product is the sum of tp partial products, each rounded to
+# bf16, added in bf16 in the all-reduce's order, so its rounding grows
+# with tp (2 ulps at tp 2; an 8B pooled row parted at 3.0 ulps at tp 4
+# over NCCL)
+TP_TIE_ULPS = 1
+# a token's experts at tp may differ from the ones the one process's own
+# router picks (forced onto the tp run's routes, teacher-forced on its
+# chain) only where its logits hold the two sets within this many ulps of
+# the row's largest |logit| (the logits' dtype) for each rank of the tp
+# group: the residual streams differ by the rounding of the row-parallel
+# sums (the router logits 4.25 bf16 ulps apart at tp 2)
+TP_ROUTE_TIE_ULPS = 2
+
+
+def tp_sizes(world: int) -> tuple:
+    """(the decoder trainer's tp, the Llama's tp) for a world of ranks:
+    2 and 2 on two ranks (one card shared over gloo), 2 (dp 2) and 4 on
+    four cards over NCCL."""
+    return 2, world
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _llama_tree(cfg, seed: int, device, dtype):
+    """The seeded tree, its head's non-printable columns zeroed
+    (``speakable_head``), drawn alike on every rank of a card."""
+    from llmvox_tpu_torch.utils import params as P
+    full = P.init_llama_params(seed, cfg, device=device, dtype=dtype)
+    speakable_head(full)
+    return full
+
+
+def _tp_prompts(cfg, rows: int) -> tuple:
+    """(rows, TP_PROMPT) right-padded printable-id prompts and their
+    lengths (the first row full)."""
+    rng = np.random.default_rng(16)
+    lens = [TP_PROMPT] + [int(x) for x in
+                          rng.integers(5, TP_PROMPT, rows - 1)]
+    ids = np.zeros((rows, TP_PROMPT), np.int64)
+    for r, n in enumerate(lens):
+        ids[r, :n] = rng.integers(0x21, 0x7f, n)
+    return ids, np.asarray(lens, np.int32)
+
+
+def _llama_chains(params, cfg, device, dtype, tp=None, pooled=True,
+                  block=TP_TOKENS, timed=True) -> dict:
+    """A B=1 prefill of the first prompt and a greedy block after it
+    (then, ``timed``, a second block timed: ms a token), and a pooled
+    prefill of ``TP_POOL_ROWS`` prompts with one ``TP_POOL_BLOCK`` block;
+    each chain is its first token and the block's.  Under ``tp`` the
+    params are this rank's shard and the caches its KV heads."""
+    from llmvox_tpu_torch.models import llama as L
+    ids, lens = _tp_prompts(cfg, TP_POOL_ROWS)
+    out = {}
+    with torch.no_grad():
+        st = L.init_llama_decode_state(cfg, 1, dtype, device, tp=tp)
+        out["cache_bytes"] = _tree_bytes({"k": st.k, "v": st.v})
+        lg, st = L.prefill(params, torch.as_tensor(ids[:1], device=device),
+                           st, cfg, tp=tp)
+        out["logits"] = lg[0].float().cpu()
+        first = torch.argmax(lg, dim=-1).to(torch.int32)
+        toks, st = L.decode_block(params, first, st, cfg, block=block, tp=tp)
+        out["b1"] = [int(first[0])] + toks[0].tolist()
+        if timed:
+            _sync(device)
+            t0 = time.perf_counter()
+            L.decode_block(params, toks[:, -1], st, cfg, block=block, tp=tp)
+            _sync(device)
+            out["token_ms"] = (time.perf_counter() - t0) * 1e3 / block
+        del st
+        if pooled:
+            pst = L.init_llama_pool_state(cfg, TP_POOL_ROWS, dtype, device,
+                                          tp=tp)
+            n = TP_POOL_ROWS
+            pf, pst = L.prefill_slots(
+                params, torch.as_tensor(ids, device=device),
+                torch.as_tensor(lens, device=device), pst,
+                torch.arange(n, device=device),
+                torch.ones(n, dtype=torch.bool, device=device), cfg, tp=tp)
+            pt, _ = L.decode_block_pooled(
+                params, pst, torch.ones(n, dtype=torch.bool, device=device),
+                cfg, block=TP_POOL_BLOCK, tp=tp)
+            out["pooled"] = [[int(pf[r])] + pt[r].tolist() for r in range(n)]
+            del pst
+    return out
+
+
+class _routes:
+    """Wraps ``ops/moe.py``'s top-k for the block: ``calls`` gets each
+    call's f32 router logits and the experts they pick, on the host.
+    With ``forced`` (an earlier run's ``calls``, one per call in order)
+    each call is routed to the forced run's experts instead, weighted by
+    this run's own logits at them; ``calls`` still holds this run's own
+    picks."""
+
+    def __init__(self, forced=None):
+        self.forced, self.calls = forced, []
+
+    def __enter__(self):
+        from llmvox_tpu_torch.ops import moe
+        self.orig = moe.top_k_lower_index
+
+        def top_k(logits, k):
+            vals, idx = self.orig(logits, k)
+            self.calls.append((logits.detach().float().cpu(), idx.cpu()))
+            if self.forced is None:
+                return vals, idx
+            want = self.forced[len(self.calls) - 1][1].to(idx.device)
+            assert want.shape == idx.shape, (want.shape, idx.shape)
+            return logits.gather(-1, want), want
+        moe.top_k_lower_index = top_k
+        return self.calls
+
+    def __exit__(self, *exc):
+        from llmvox_tpu_torch.ops import moe
+        moe.top_k_lower_index = self.orig
+
+
+def _ulp(x: float, dtype) -> float:
+    """One unit in the last place of ``|x|`` in ``dtype`` (bf16 or f32)."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - bits)
+
+
+def _route_flips(tp_calls, own_calls, dtype, tp: int, what) -> dict:
+    """The tokens whose experts at tp differ from the ones the one
+    process's own router picks (``own_calls``, recorded while it was
+    forced onto ``tp_calls``), each at a gap of its own logits between
+    the two sets within ``TP_ROUTE_TIE_ULPS`` x ``tp`` ulps of the row's
+    largest |logit|; and the router logits' largest gap between the runs
+    in such ulps."""
+    assert len(tp_calls) == len(own_calls), (what, len(tp_calls),
+                                             len(own_calls))
+    flips, gaps, worst, rows = 0, [], 0.0, 0
+    for (tl_, ti), (ol, oi) in zip(tp_calls, own_calls):
+        for r in range(ti.shape[0]):
+            ulp = _ulp(float(ol[r].abs().max()), dtype)
+            worst = max(worst, float((tl_[r] - ol[r]).abs().max() / ulp))
+            rows += 1
+            mine, theirs = set(oi[r].tolist()), set(ti[r].tolist())
+            if mine == theirs:
+                continue
+            gap = (min(float(ol[r, e]) for e in mine - theirs)
+                   - max(float(ol[r, e]) for e in theirs - mine))
+            flips += 1
+            gaps.append(float(gap / ulp))
+            assert 0 <= gap <= TP_ROUTE_TIE_ULPS * tp * ulp, (
+                what, r, sorted(mine), sorted(theirs), gap, ulp)
+    return {"flips": flips, "rows": rows, "flip_gap_ulps": gaps,
+            "router_logits_ulps": worst}
+
+
+def _forced_logits(full, cfg, prompt, chain) -> torch.Tensor:
+    """One process's f32 logits before each token of ``chain``, teacher-
+    forced on it through the decode path the chain took (the prompt's
+    prefill, then one cached token a step)."""
+    from llmvox_tpu_torch.models import llama as L
+    dev = full["tok_emb"].device
+    dtype = full["tok_emb"].dtype
+    with torch.no_grad():
+        st = L.init_llama_decode_state(cfg, 1, dtype, dev)
+        lg, st = L.prefill(full, torch.as_tensor([list(prompt)], device=dev),
+                           st, cfg)
+        rows = [lg[0].float()]
+        for tok in chain[:-1]:
+            lg, st = L.prefill(full, torch.tensor([[tok]], device=dev), st,
+                               cfg)
+            rows.append(lg[0].float())
+    return torch.stack(rows)
+
+
+def _held_to(full, cfg, chain, prompt, tp: int, what, rows=None) -> str:
+    """A tp chain against one process's greedy picks teacher-forced on it
+    (``rows``, or ``_forced_logits``'): every token equal, or within
+    ``TP_TIE_ULPS`` x ``tp`` bf16 ulps of the one process's pick; returns
+    the ties as (step, ulps, % of the std of the printable ids'
+    logits)."""
+    ties = []
+    if rows is None:
+        rows = _forced_logits(full, cfg, prompt, chain)
+    for d, row in enumerate(rows):
+        want, got = int(row.argmax()), chain[d]
+        if want == got:
+            continue
+        top = row[want].abs().item()
+        ulp = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+        gap = (row[want] - row[got]).item()
+        std = row[0x20 + 1:0x7e + 2].std().item()
+        ties.append((d, gap / ulp, 100 * gap / std))
+        assert 0 <= gap <= TP_TIE_ULPS * tp * ulp, (what, d, want, got, gap,
+                                                     ulp,
+                                               std)
+    return ", ".join(f"({d}, {u:.1f} ulps, {p:.3f}%)" for d, u, p in ties)
+
+
+def _tp_rank(rank: int, world: int, dev, small) -> dict:
+    """The tensor-parallel checks on one rank (the group still formed):
+    the decoder trainer at tp 2 on phase 22's inputs, then the Llama at
+    tp = world: Llama-3.1-8B's geometry at ``BIG_DEPTH`` layers in bf16
+    and ``TP_F32_DEPTH`` in f32, Mixtral-8x7B's at ``TP_MOE_DEPTH`` in
+    bf16.  Rank 0 keeps what it compares with one process once the
+    group is gone (``_tp_one``)."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.parallel import sharding as psh
+    from llmvox_tpu_torch.models.llama import LlamaConfig
+    from llmvox_tpu_torch.train.trainer import Trainer
+    dec_tp, llm_tp = tp_sizes(world)
+    _zero_launches()
+    cfg, tcfg, params, table, codebook, batches = _dp_decoder_inputs(
+        world, small[0])
+    tr = Trainer(dataclasses.replace(tcfg, tp_size=dec_tp), cfg, table,
+                 codebook, compute_dtype=torch.float32, device=dev,
+                 params=params)
+    assert (tr.dp, tr.tp) == (world // dec_tp, dec_tp)
+    losses, ms, _ = _dp_updates(tr, batches, lockstep=False)
+    out = {"decoder": {"losses": losses, "update_ms": ms, "dp": tr.dp,
+                       "tp": tr.tp},
+           "keep": {"decoder": [t.clone() for t in
+                                tr._gather(tr.opt.params)]}}
+    del tr
+    mp = pmesh.initialize_model_parallel(llm_tp)
+    g = mp.tp_group
+    geometry = dict(zip(("llama", "moe"), small[4] if len(small) > 4
+                        else (LLAMA_8B, MIXTRAL_8X7B)))
+    for name, which, depth, dtype in TP_RUNS:
+        lcfg = LlamaConfig(**dict(geometry[which], n_layer=depth))
+        full = _llama_tree(lcfg, 160, dev, dtype)
+        shard = psh.shard_llama(full, lcfg, llm_tp, mp.tp_rank)
+        del full
+        with _routes() as calls:
+            res = _llama_chains(shard, lcfg, dev, dtype, tp=g,
+                                pooled=which == "llama",
+                                block=TP_TOKENS if which == "llama"
+                                else TP_MOE_BLOCK, timed=name == "bf16")
+        if which == "moe":
+            # the router is replicated: every rank's routes are the same
+            res["routes"] = calls
+        res["weight_bytes"] = _tree_bytes(shard)
+        out[name] = res
+        del shard
+    out["launches"] = _read_launches()
+    out["llm_tp"] = llm_tp
+    return out
+
+
+def _tp_one(tp: dict, dev, small, one_params) -> dict:
+    """Rank 0, the group gone: one process on this card runs what the tp
+    ranks ran and holds them to it (the decoder's params to the trainer
+    bounds; the Llama's f32 tokens identical, bf16 tokens equal or at
+    ties, ``_held_to``)."""
+    from llmvox_tpu_torch.models.llama import LlamaConfig
+    perr = max(float((a - b.detach()).abs().max())
+               for a, b in zip(tp["keep"]["decoder"], one_params))
+    assert perr <= TRAIN_PARAM_ATOL, perr
+    out = {"decoder": dict(tp["decoder"], param_abs_err=perr)}
+    geometry = dict(zip(("llama", "moe"), small[4] if len(small) > 4
+                        else (LLAMA_8B, MIXTRAL_8X7B)))
+    ids, lens = _tp_prompts(LlamaConfig(**geometry["llama"]), TP_POOL_ROWS)
+    for name, which, depth, dtype in TP_RUNS:
+        lcfg = LlamaConfig(**dict(geometry[which], n_layer=depth))
+        full = _llama_tree(lcfg, 160, dev, dtype)
+        one = _llama_chains(full, lcfg, dev, dtype, pooled=which == "llama",
+                            block=TP_TOKENS if which == "llama"
+                            else TP_MOE_BLOCK, timed=name == "bf16")
+        one["weight_bytes"] = _tree_bytes(full)
+        got = tp[name]
+        chains = [("b1", got["b1"], one["b1"], ids[0])]
+        chains += [(f"row {r}", c, o, ids[r, :lens[r]]) for r, (c, o) in
+                   enumerate(zip(got.get("pooled", []),
+                                 one.get("pooled", [])))]
+        held = {}
+        for what, c, o, prompt in chains:
+            if dtype == torch.float32:
+                assert c == o, (name, what, c, o)
+            if c == o:
+                held[what] = "identical"
+                continue
+            part = next(d for d, (a, b) in enumerate(zip(c, o)) if a != b)
+            held[what] = f"parts at step {part}"
+            if which == "llama":
+                held[what] += "; ties: " + (
+                    _held_to(full, lcfg, c, prompt, tp["llm_tp"],
+                             (name, what))
+                    or "none (every token the one process's pick "
+                       "teacher-forced on the tp chain)")
+        keep = slice(0x20 + 1, 0x7e + 2)
+        dlog = float((got["logits"] - one["logits"])[keep].abs().max()
+                     / one["logits"][keep].std())
+        if which == "moe":
+            # one process forced onto the tp run's routes, teacher-forced
+            # on its chain: the route flips at router ties, the chain's
+            # tokens its picks or at ties, the prefill logits' gap
+            with _routes(forced=got["routes"]) as own:
+                rows = _forced_logits(full, lcfg, ids[0], got["b1"])
+            routes = _route_flips(got["routes"], own, dtype, tp["llm_tp"],
+                                  name)
+            ties = _held_to(full, lcfg, got["b1"], ids[0], tp["llm_tp"],
+                            (name, "forced"), rows=rows)
+            routes.update(
+                held=ties or "every token the one process's pick",
+                prefill_logits_err=float(
+                    (got["logits"] - rows[0].cpu())[keep].abs().max()
+                    / rows[0][keep].std().cpu()))
+        out[name] = {"held": held, "tokens": len(got["b1"]),
+                     "prefill_logits_err": dlog,
+                     "chains": {"tp": got["b1"], "one": one["b1"]},
+                     "tp": {k: got[k] for k in ("weight_bytes",
+                                                "cache_bytes")},
+                     "one": {k: one[k] for k in ("weight_bytes",
+                                                 "cache_bytes")}}
+        if "token_ms" in got:
+            out[name].update(tp_token_ms=got["token_ms"],
+                             one_token_ms=one["token_ms"])
+        if which == "moe":
+            out[name]["routes"] = routes
+        del full
+    out["launches"] = tp["launches"]
+    out["llm_tp"] = tp["llm_tp"]
+    return out
+
+
 def _dp_rank(rank: int, world: int, small=None) -> dict:
     """One rank of phase 22 (``parallel/launch.py::spawn``): the decoder
     and codec trainers data-parallel on this rank's card, lockstep after
     every update; then rank 0, with the group gone, runs both one-process
     on the same inputs and holds the data-parallel run to them (the f64
-    trainer referees the codec's logs).  ``small`` (the CPU rehearsal):
-    (decoder config, codec config, crop samples, CodecTrainConfig
-    fields)."""
+    trainer referees the codec's logs).  Between the two, with the group
+    still formed, the tensor-parallel checks (``_tp_rank``, ``_tp_one``).
+    ``small`` (the CPU rehearsal): (decoder config, codec config, crop
+    samples, CodecTrainConfig fields[, (the Llama's and the MoE's config
+    fields)])."""
     import torch.distributed as dist
     from llmvox_tpu_torch.parallel import mesh as pmesh
     from llmvox_tpu_torch.train import codec_trainer as ct
@@ -6209,6 +6578,9 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
                     list(ctr.gen.params) + list(ctr.disc.params)]
     del ctr
     assert all(same) and all(csame), (rank, same, csame)
+    t0 = time.perf_counter()
+    tp = _tp_rank(rank, world, dev, small)
+    out["tp_s"] = time.perf_counter() - t0
     dist.destroy_process_group()
     if rank:
         return out
@@ -6227,7 +6599,14 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
     assert lerr <= TRAIN_LOSS_RTOL, (losses, l1)
     assert perr <= TRAIN_PARAM_ATOL, perr
     assert moved > 10 * TRAIN_PARAM_ATOL, moved
-    del one
+    tlerr = max(abs(a - b) / abs(b) for a, b in zip(tp["decoder"]["losses"],
+                                                    l1))
+    assert tlerr <= TRAIN_LOSS_RTOL, (tp["decoder"]["losses"], l1)
+    t0 = time.perf_counter()
+    out["tp"] = _tp_one(tp, dev, small, one.opt.params)
+    out["tp"]["decoder"]["loss_rel_err"] = tlerr
+    out["tp_s"] += time.perf_counter() - t0
+    del one, tp
     r32 = ct.CodecTrainer(ccfg, dataclasses.replace(ctcfg, dp_size=1),
                           device=dev, **state)
     logs1, cms1, embeds1, _ = _codec_steps(r32, audios)
@@ -6405,11 +6784,58 @@ def _dp_pool(engines, weights, devices, graphs=None) -> dict:
     return out
 
 
+def _log_tp(t: dict, ranks, backend: str, card: str) -> None:
+    """Phase 22's tensor-parallel figures, each beside the card."""
+    d, gb = t["decoder"], 1e9
+    log(f"[tp] decoder, DecoderConfig() with {TRAIN_HEADS} draft heads, f32, "
+        f"dp {d['dp']} x tp {d['tp']}, the dp check's batches, 2 updates: "
+        f"losses' rel err {d['loss_rel_err']:.2e} (tol {TRAIN_LOSS_RTOL:.0e}), "
+        f"params' max|err| {d['param_abs_err']:.2e} (tol "
+        f"{TRAIN_PARAM_ATOL:.0e}) against one process on the same card; ms "
+        f"an update (the second) {d['update_ms'][1]:.1f} at tp ({backend}; "
+        f"{card})")
+    for name, which, depth, dtype in TP_RUNS:
+        r = t[name]
+        held = "; ".join(f"{k}: {v}" for k, v in r["held"].items())
+        what = ("Llama-3.1-8B" if which == "llama" else "Mixtral-8x7B")
+        msg = (f"[tp] {what} geometry, {depth} layers, "
+               f"{str(dtype).split('.')[-1]}, tp {t['llm_tp']}: "
+               f"{r['tokens']}-token chains against one process (ties as "
+               f"(step, bf16 ulps, % of the printable ids' logits' std), "
+               f"tol {TP_TIE_ULPS * t['llm_tp']} ulps): "
+               f"{held}; prefill logits' max|err| "
+               f"{100 * r['prefill_logits_err']:.4f}% of their std; each "
+               f"rank's weights "
+               f"{r['tp']['weight_bytes'] / gb:.3f} GB + KV cache "
+               f"{r['tp']['cache_bytes'] / gb:.3f} GB, one process's "
+               f"{r['one']['weight_bytes'] / gb:.3f} + "
+               f"{r['one']['cache_bytes'] / gb:.3f} GB")
+        if "tp_token_ms" in r:
+            msg += (f"; ms a B=1 token {r['tp_token_ms']:.2f} at tp, "
+                    f"{r['one_token_ms']:.2f} one process")
+        if "routes" in r:
+            f = r["routes"]
+            msg += (f"; against one process forced onto the tp routes: "
+                    f"route flips {f['flips']} of {f['rows']} token-layers "
+                    f"(gaps {[round(g, 2) for g in f['flip_gap_ulps']]} "
+                    f"ulps of the row's largest logit, tol "
+                    f"{TP_ROUTE_TIE_ULPS * t['llm_tp']}), router logits' "
+                    f"max|err| "
+                    f"{f['router_logits_ulps']:.2f} such ulps, chain: "
+                    f"{f['held']}, prefill logits' max|err| "
+                    f"{100 * f['prefill_logits_err']:.4f}% of their std")
+        log(msg + f" ({backend}; {card})")
+    log(f"[tp] kernel launches on the tp path (rank 0, counted): "
+        f"{t['launches']}; the ranks' tp checks took "
+        f"{[round(r['tp_s'], 1) for r in ranks]} s")
+
+
 def phase_dp(engines, weights, card: str, device="cuda", small=None,
              graphs=None) -> dict:
-    """Phase 22: data parallelism on the card(s).  The trainers' ranks
-    (``dp_layout``) run first, spawned while this process holds no large
-    tree; then the dp-sharded pool.  ``device="cpu"`` with ``small``
+    """Phase 22: data and tensor parallelism on the card(s).  The trainers'
+    ranks (``dp_layout``; the tp checks in the same ranks) run first,
+    spawned while this process holds no large tree; then the dp-sharded
+    pool.  ``device="cpu"`` with ``small``
     (``_dp_rank``'s) and small weights rehearses the control flow."""
     from llmvox_tpu_torch.parallel.launch import spawn
     t0 = time.perf_counter()
@@ -6446,10 +6872,12 @@ def phase_dp(engines, weights, card: str, device="cuda", small=None,
         f"{DP_CODEC_PARAM_TOL} {c['params_off']} of {c['params']}; ms a step "
         f"(the second) world {world} {c['step_ms'][1]:.1f}, world 1 "
         f"{c['world1_step_ms'][1]:.1f} ({backend}; {card})")
+    _log_tp(r0["tp"], ranks, backend, card)
     train_s = time.perf_counter() - t0
     pool = _dp_pool(engines, weights, devices[:world], graphs)
     out = {"world": world, "backend": backend, "devices": devices,
-           "decoder": d, "codec": c, "pool": pool, "train_s": train_s,
+           "decoder": d, "codec": c, "tp": r0["tp"], "pool": pool,
+           "train_s": train_s,
            "ranks": [{k: r[k] for k in ("rank", "device")} for r in ranks]}
     out["phase_s"] = time.perf_counter() - t0
     log(f"[dp] phase 22 took {out['phase_s']:.1f} s (ranks {train_s:.1f})")
@@ -6625,10 +7053,38 @@ def dispatch_ab(argv) -> int:
     return 0
 
 
+def phase22_alone(argv) -> int:
+    """``--phase22``: the kernels built, two bf16 engines at
+    ``DecoderConfig()`` for the pool's reference, then phase 22 alone over
+    every card up to ``DP_MAX_WORLD`` (two gloo ranks on one card, NCCL
+    over four): the data- and tensor-parallel checks without the other
+    phases.  It fails where phase 22 fails."""
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.config import CodecConfig, DecoderConfig
+    lap = Laps()
+    card = phase_card_and_build()
+    lap("build")
+    d, cc = DecoderConfig(), CodecConfig()
+    weights = (P.init_decoder_params(0, d), P.init_codec_params(1, cc),
+               P.random_text_table(2, d), d, cc, smoke_serve_config())
+    engines = [make_engine(weights, "cuda", torch.bfloat16, warm=True)
+               for _ in range(2)]
+    lap("engines")
+    dp = phase_dp(engines, weights, card)
+    log(json.dumps({"dp": dp}))
+    lap("phase 22")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--phase22" in argv:
+        return phase22_alone(argv)
     if "--block-graphs" in argv:
         return block_graphs(argv)
     if "--k23-times" in argv:
@@ -6653,6 +7109,7 @@ def main(argv) -> int:
     spec_llm = dict(pool_llm)
     moe_llm = dict(pool_llm)
     mesh_pool = dict(pool_llm)
+    tp_path = dict(pool_llm)
     if not kernels_only:
         engines, weights = phase_offline()
         lap("offline")
@@ -6735,6 +7192,8 @@ def main(argv) -> int:
         # shard, the others' totals (0)
         mesh_pool = dict(dp["pool"]["launches"],
                          k2=dp["pool"]["k2_shard_launches"])
+        # phase 22's tensor-parallel checks on rank 0, counted from 0
+        tp_path = dp["tp"]["launches"]
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -6747,6 +7206,7 @@ def main(argv) -> int:
              "llm_spec_launches": spec_llm["k1"],
              "moe_launches": moe_llm["k1"],
              "mesh_pool_launches": mesh_pool["k1"],
+             "tp_launches": tp_path["k1"],
              "codec_train_launches": codec_launches["k1"],
              "codec_eval_launches": eval_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
@@ -6765,6 +7225,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k2"],
               "moe_launches": moe_llm["k2"],
               "mesh_pool_launches": mesh_pool["k2"],
+              "tp_launches": tp_path["k2"],
               "codec_train_launches": codec_launches["k2"],
               "codec_eval_launches": eval_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
@@ -6782,6 +7243,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k3"],
               "moe_launches": moe_llm["k3"],
               "mesh_pool_launches": mesh_pool["k3"],
+              "tp_launches": tp_path["k3"],
               "codec_train_launches": codec_launches["k3"],
               "codec_eval_launches": eval_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
@@ -6801,6 +7263,7 @@ def main(argv) -> int:
               "llm_spec_launches": spec_llm["k4"],
               "moe_launches": moe_llm["k4"],
               "mesh_pool_launches": mesh_pool["k4"],
+              "tp_launches": tp_path["k4"],
               "codec_train_launches": codec_launches["k4"],
               "codec_eval_launches": eval_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",

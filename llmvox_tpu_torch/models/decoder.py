@@ -56,6 +56,7 @@ from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
 from llmvox_tpu_torch.ops.attention import causal_attention_auto, \
     segment_mask
 from llmvox_tpu_torch.models.spec import run_spec_loop
+from llmvox_tpu_torch.parallel import tensor_parallel as tpar
 from llmvox_tpu_torch.utils.config import DecoderConfig
 from llmvox_tpu_torch.utils.graphs import register_counter
 
@@ -637,35 +638,53 @@ def _drop(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
 def _block(x: torch.Tensor, p: Dict, cfg: DecoderConfig,
            keep: Optional[Tuple[torch.Tensor, torch.Tensor]],
            segments: Optional[torch.Tensor],
-           mask: Optional[torch.Tensor]) -> torch.Tensor:
+           mask: Optional[torch.Tensor], tp=None) -> torch.Tensor:
     """One pre-LN transformer block over (B, T, C); ``keep`` holds the
     block's two residual dropout masks, drawn by the caller, and ``mask``
     the packed batch's attention mask on the card, built once by the
-    caller."""
-    b, t, c = x.shape
-    hnorm = nn.layer_norm(x, p["ln1_s"], p.get("ln1_b"), cfg.ln_eps)
+    caller.  ``tp``: a tensor-parallel group over which ``p`` is this
+    rank's shard (``parallel/sharding.py::shard_decoder``): its heads of
+    the fused QKV (column-parallel, cut by heads) and of ``wo``
+    (row-parallel), its columns of ``wfc`` and rows of ``wproj``; the
+    row-parallel products are summed over the group before their biases,
+    which are added once."""
+    b, t, _ = x.shape
+    hnorm = tpar.copy_to_tp(nn.layer_norm(x, p["ln1_s"], p.get("ln1_b"),
+                                          cfg.ln_eps), tp)
     qkv = nn.linear(hnorm, p["wqkv"], p.get("bqkv"))
-    shape = (b, t, cfg.n_head, cfg.head_dim)
-    q, k, v = (z.reshape(shape) for z in qkv.split(c, dim=-1))
+    shape = (b, t, -1, cfg.head_dim)
+    q, k, v = (z.reshape(shape) for z in qkv.split(qkv.shape[-1] // 3,
+                                                      dim=-1))
     a = causal_attention_auto(q, k, v, segments=segments,
-                              mask=mask).reshape(b, t, c)
-    a = nn.linear(a, p["wo"], p.get("bo"))
+                              mask=mask).reshape(b, t, -1)
+    a = _row_parallel(a, p["wo"], p.get("bo"), tp)
     if keep is not None:
         a = _drop(a, keep[0], cfg.dropout)
     x = x + a
-    hnorm = nn.layer_norm(x, p["ln2_s"], p.get("ln2_b"), cfg.ln_eps)
+    hnorm = tpar.copy_to_tp(nn.layer_norm(x, p["ln2_s"], p.get("ln2_b"),
+                                          cfg.ln_eps), tp)
     m = nn.gelu_tanh(nn.linear(hnorm, p["wfc"], p.get("bfc")))
-    m = nn.linear(m, p["wproj"], p.get("bproj"))
+    m = _row_parallel(m, p["wproj"], p.get("bproj"), tp)
     if keep is not None:
         m = _drop(m, keep[1], cfg.dropout)
     return x + m
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor], tp) -> torch.Tensor:
+    """``nn.linear(x, w, b)`` with ``w``'s rows split over ``tp``: the
+    partial products summed over the group, then the bias once."""
+    if not tpar.active(tp):
+        return nn.linear(x, w, b)
+    y = tpar.reduce_from_tp(nn.linear(x, w), tp)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
                   generator: Optional[torch.Generator] = None,
                   train: bool = False, return_hidden: bool = False,
                   positions: Optional[torch.Tensor] = None,
-                  segments: Optional[torch.Tensor] = None):
+                  segments: Optional[torch.Tensor] = None, tp=None):
     """(B, T, C) fused input embeddings -> (B, T, vocab) f32 logits, causal.
 
     The compute dtype is ``emb``'s: f32 params are cast into each product.
@@ -679,7 +698,13 @@ def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
     branches; none on the attention matrix.  Every mask is drawn here,
     before the layers, so that ``cfg.remat_layers`` (each block recomputed
     in the backward pass by ``torch.utils.checkpoint``) replays the
-    forward's masks, as JAX passes each layer its key."""
+    forward's masks, as JAX passes each layer its key.
+
+    ``tp``: a tensor-parallel group over which ``params`` is this rank's
+    shard (``_block``); the embeddings, norms, head and draft heads are
+    whole on every rank, and so are the activations between blocks, so
+    the ranks of a group draw the same dropout masks from generators
+    seeded alike."""
     b, t, c = emb.shape
     use_dropout = train and cfg.dropout > 0.0 and generator is not None
     wpe = (params["wpe"][:t] if positions is None
@@ -701,9 +726,9 @@ def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
         p = {k: v[layer] for k, v in h.items()}
         if cfg.remat_layers and torch.is_grad_enabled():
             x = checkpoint(_block, x, p, cfg, keeps[layer], segments, mask,
-                           use_reentrant=False)
+                           tp, use_reentrant=False)
         else:
-            x = _block(x, p, cfg, keeps[layer], segments, mask)
+            x = _block(x, p, cfg, keeps[layer], segments, mask, tp)
     x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
     logits = nn.linear(x, params["head"]).float()
     if return_hidden:
@@ -758,15 +783,17 @@ def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  segments: Optional[torch.Tensor] = None,
                  counts: Optional[torch.Tensor] = None,
-                 perm=None) -> torch.Tensor:
+                 perm=None, tp=None) -> torch.Tensor:
     """Cross-entropy with ``ignore_index``; with draft heads
     (``params["draft_heads"]``) plus ``MTP_WEIGHT`` times their mean loss,
     head j predicting the target j+1 further ahead from the same hidden
     state.  In packed batches a shifted target in another sentence is
     ignored.  ``counts`` (``loss_counts`` summed over data-parallel ranks)
-    divides each term in place of this batch's own counts.  ``perm`` (the
-    zigzag layout of sequence parallelism) is the JAX package's
-    multi-device path: ROADMAP item 10."""
+    divides each term in place of this batch's own counts.  ``tp``: a
+    tensor-parallel group over which ``params`` is this rank's shard
+    (``apply_decoder``).  ``perm`` (the zigzag layout of sequence
+    parallelism) is the JAX package's multi-device path: ROADMAP item
+    10."""
     if perm is not None:
         raise NotImplementedError(
             "decoder_loss(perm=...) is the zigzag sequence-parallel layout, "
@@ -776,7 +803,7 @@ def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
     shifted = _shifted_targets(targets, cfg, n_heads, segments)
     cnt = [None] * (1 + n_heads) if counts is None else list(counts)
     kw = dict(generator=generator, train=train, positions=positions,
-              segments=segments)
+              segments=segments, tp=tp)
     if n_heads == 0:
         logits = apply_decoder(params, emb, cfg, **kw)
         return _masked_ce(logits, targets, cfg.ignore_index, cnt[0])
@@ -812,11 +839,14 @@ class DecoderModel(torch.nn.Module):
     params tree in the JAX layout (stacked ``h``, Linear ``(Cin, Cout)``);
     ``tree()`` returns that tree of parameters, which ``decoder_loss`` and
     the serving functions (``decode_block``, ``sample_block``) take as
-    they take any params tree."""
+    they take any params tree.  ``tp``: a tensor-parallel group over which
+    ``params`` is this rank's shard (``decoder_loss``)."""
 
-    def __init__(self, params: Dict, cfg: DecoderConfig, device="cpu"):
+    def __init__(self, params: Dict, cfg: DecoderConfig, device="cpu",
+                 tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.top = torch.nn.ParameterDict(
             {k: _parameter(v, device) for k, v in params.items()
              if k != "h"})
@@ -828,4 +858,5 @@ class DecoderModel(torch.nn.Module):
 
     def forward(self, emb: torch.Tensor, targets: torch.Tensor, **kw
                 ) -> torch.Tensor:
-        return decoder_loss(self.tree(), emb, targets, self.cfg, **kw)
+        return decoder_loss(self.tree(), emb, targets, self.cfg, tp=self.tp,
+                            **kw)

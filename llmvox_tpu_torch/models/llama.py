@@ -49,6 +49,24 @@ The pooled programs differ from JAX's in work, not in results:
   (``_draft_logits``), so bf16 heads are not copied whole to f32.
 - The speculative block issues one iteration more than JAX's loop runs
   (``run_spec_loop``); it is masked and commits nothing.
+
+Tensor parallelism: ``apply_llama``, the B=1 ``prefill`` /
+``prefill_padded`` / ``decode_block`` and the pooled ``prefix_kv`` /
+``prefill_slots`` / ``decode_block_pooled`` take ``tp``, a process group
+over which ``params`` is this rank's Megatron shard
+(``parallel/sharding.py::shard_llama``, JAX's ``llama_param_shardings``):
+its contiguous blocks of n_head/tp query heads and n_kv_head/tp KV heads
+(so each query head's KV head is on its rank), of the MLP's or each
+expert's hidden columns, and the matching rows of ``wo`` and ``wdown``,
+whose products are summed over the group (``parallel/
+tensor_parallel.py``); norms, embeddings and the head are whole on every
+rank.  The caches (``init_llama_decode_state`` / ``init_llama_pool_state``
+with ``tp``) hold the local KV heads, which is how tp cuts a card's KV
+bytes.  Every rank of a group holds the same logits, so greedy tokens
+agree, and sampled ones do where the ranks' generators are seeded alike.
+The head counts a function uses are read from the weights' and caches'
+shapes.  ``prefill_slots_continue`` and the speculative pooled block
+refuse a tensor-parallel state (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -60,6 +78,7 @@ import torch
 
 from llmvox_tpu_torch.models.spec import run_spec_loop
 from llmvox_tpu_torch.ops import moe, nn
+from llmvox_tpu_torch.parallel import tensor_parallel as tpar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,13 +203,15 @@ def _gqa_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     KV heads: query head h uses KV head h // q_per_kv (HF repeat_kv's
     layout), so the group axis folds into the product.
 
-    q: (B, T, H, hd); k_cache/v_cache: (B, S, KV, hd); valid: (T, S) or
-    (B, T, S) bool.  The scores are exact f32 products of the inputs
+    q: (B, T, H, hd); k_cache/v_cache: (B, S, KV, hd), H a multiple of KV
+    (a tensor-parallel rank's heads are a block of each); valid: (T, S)
+    or (B, T, S) bool.  The scores are exact f32 products of the inputs
     (JAX: ``preferred_element_type=f32``), the softmax is f32, and the
     probabilities take q's dtype for the value product.  Returns
     (B, T, H, hd)."""
     b, t, h, hd = q.shape
-    kv, g = cfg.n_kv_head, cfg.q_per_kv
+    kv = k_cache.shape[2]
+    g = h // kv
     s = k_cache.shape[1]
     scale = 1.0 / math.sqrt(hd)
     # the group folds into the query rows, (B, KV, g*T, hd), so the KV
@@ -218,7 +239,7 @@ def _gqa_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _mlp(lp: Dict, h: torch.Tensor, cfg: LlamaConfig,
          token_mask: Optional[torch.Tensor] = None,
-         drop_free: bool = False
+         drop_free: bool = False, tp=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN half of a layer: the dense SwiGLU wdown(silu(wgate h) *
     wup h), the silu in f32, or top-k routed experts when
@@ -227,17 +248,56 @@ def _mlp(lp: Dict, h: torch.Tensor, cfg: LlamaConfig,
     dense FFN).  ``token_mask`` (bool, h's shape without the channel
     axis) marks the real tokens: padding and inactive rows are kept out
     of routing.  ``drop_free`` (every inference path) gives the experts
-    room for every token, so no token drops."""
+    room for every token, so no token drops.  ``tp``: the group over which
+    the hidden columns are split (the products summed over it)."""
+    h = tpar.copy_to_tp(h, tp)
     if cfg.n_experts:
         return moe.moe_ffn(h, lp["router"], lp["moe_wgate"], lp["moe_wup"],
                            lp["moe_wdown"], cfg.moe_top_k,
                            cfg.moe_capacity_factor, token_mask=token_mask,
                            group_size=cfg.moe_group_size,
-                           drop_free=drop_free)
+                           drop_free=drop_free, tp_group=tp)
     gate = nn.linear(h, lp["wgate"])
     up = nn.linear(h, lp["wup"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    return nn.linear(act, lp["wdown"]), None
+    return tpar.reduce_from_tp(nn.linear(act, lp["wdown"]), tp), None
+
+
+def _attention_in(lp: Dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
+                  tp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The normed x's rotated q (B, T, H, hd) and k and v (B, T, KV, hd),
+    H and KV this rank's heads under ``tp``."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = tpar.copy_to_tp(rms_norm(x, lp["ln1_s"], cfg.rms_eps), tp)
+    q = nn.linear(h, lp["wq"]).reshape(b, t, -1, hd)
+    k = nn.linear(h, lp["wk"]).reshape(b, t, -1, hd)
+    v = nn.linear(h, lp["wv"]).reshape(b, t, -1, hd)
+    return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+
+def _attention_out(lp: Dict, att: torch.Tensor, tp) -> torch.Tensor:
+    """``wo`` over the (B, T, H, hd) attention, summed over ``tp``."""
+    b, t = att.shape[:2]
+    return tpar.reduce_from_tp(nn.linear(att.reshape(b, t, -1), lp["wo"]),
+                               tp)
+
+
+def local_kv_heads(cfg: LlamaConfig, tp=None) -> int:
+    """The KV heads a rank of ``tp`` holds (all of them without one)."""
+    n = tpar.size(tp)
+    if cfg.n_kv_head % n or cfg.n_head % n:
+        raise ValueError(f"n_head={cfg.n_head}, n_kv_head={cfg.n_kv_head} "
+                         f"do not split over tp={n}")
+    return cfg.n_kv_head // n
+
+
+def _refuse_tp_state(k: torch.Tensor, cfg: LlamaConfig, what: str) -> None:
+    if k.shape[3] != cfg.n_kv_head:
+        raise ValueError(
+            f"{what} on a tensor-parallel state ({k.shape[3]} of "
+            f"{cfg.n_kv_head} KV heads) is not ported: ROADMAP queue 1 "
+            "item 10")
 
 
 def _layer_params(params: Dict, layer: int) -> Dict:
@@ -251,14 +311,17 @@ def _head(params: Dict):
 
 def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False, return_moe_aux: bool = False):
+                return_hidden: bool = False, return_moe_aux: bool = False,
+                tp=None):
     """Teacher-forced forward: (B, T) int -> (B, T, V) logits.
     ``return_hidden=True`` also returns the post-final-norm hidden states
     (the draft heads' input); ``return_moe_aux=True`` appends the mean
     over layers of the experts' load-balancing statistic (0 for a dense
     config).  The experts route as JAX's training forward routes them:
     at ``moe_capacity_factor``, in ``moe_group_size`` groups, tokens
-    past an expert's capacity dropped for it."""
+    past an expert's capacity dropped for it.  ``tp``: a tensor-parallel
+    group over which ``params`` is this rank's shard (the module's
+    docstring)."""
     b, t = tokens.shape
     hd = cfg.head_dim
     dev = tokens.device
@@ -270,16 +333,11 @@ def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     auxs = []
     for layer in range(cfg.n_layer):
         lp = _layer_params(params, layer)
-        h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
-        q = nn.linear(h, lp["wq"]).reshape(b, t, cfg.n_head, hd)
-        k = nn.linear(h, lp["wk"]).reshape(b, t, cfg.n_kv_head, hd)
-        v = nn.linear(h, lp["wv"]).reshape(b, t, cfg.n_kv_head, hd)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
+        q, k, v = _attention_in(lp, x, cfg, cos, sin, tp)
         att = _gqa_cache_attention(q, k, v, causal, cfg)
-        x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
+        x = x + _attention_out(lp, att, tp)
         h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-        y, aux = _mlp(lp, h, cfg)
+        y, aux = _mlp(lp, h, cfg, tp=tp)
         x = x + y
         auxs.append(aux)
     x = rms_norm(x, params["lnf_s"], cfg.rms_eps)
@@ -334,9 +392,10 @@ class LlamaDecodeState(NamedTuple):
 
 
 def init_llama_decode_state(cfg: LlamaConfig, batch: int = 1,
-                            dtype=torch.float32, device="cpu"
+                            dtype=torch.float32, device="cpu", tp=None
                             ) -> LlamaDecodeState:
-    shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_kv_head,
+    """Zero caches of the KV heads a rank of ``tp`` holds."""
+    shape = (cfg.n_layer, batch, cfg.max_seq_len, local_kv_heads(cfg, tp),
              cfg.head_dim)
     return LlamaDecodeState(
         torch.zeros(shape, dtype=dtype, device=device),
@@ -372,50 +431,45 @@ def _step_tables(pos: torch.Tensor, t: int, s_cap: int,
 def _layer_step(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, tables: _StepTables,
                 cfg: LlamaConfig,
-                token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_mask: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
     """One layer for T new tokens, the cache (B, S, KV, hd) already
     holding the tokens before them: writes their K and V rows in place
     and attends the window ``tables`` describes (``_step_tables``, made
     once a step for every layer).  ``token_mask`` (B, T) marks the real
     tokens for expert routing.  Returns x."""
-    b, t, _ = x.shape
-    hd = cfg.head_dim
-    h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
-    q = nn.linear(h, lp["wq"]).reshape(b, t, cfg.n_head, hd)
-    k = nn.linear(h, lp["wk"]).reshape(b, t, cfg.n_kv_head, hd)
-    v = nn.linear(h, lp["wv"]).reshape(b, t, cfg.n_kv_head, hd)
-    q = _apply_rope(q, tables.cos, tables.sin)
-    k = _apply_rope(k, tables.cos, tables.sin)
+    q, k, v = _attention_in(lp, x, cfg, tables.cos, tables.sin, tp)
     k_cache.index_copy_(1, tables.rows, k.to(k_cache.dtype))
     v_cache.index_copy_(1, tables.rows, v.to(v_cache.dtype))
     s = tables.valid.shape[-1]
     att = _gqa_cache_attention(q, k_cache[:, :s], v_cache[:, :s],
                                tables.valid, cfg)
-    x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
+    x = x + _attention_out(lp, att, tp)
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h, cfg, token_mask, drop_free=True)[0]
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp)[0]
 
 
 def _layers(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
             cfg: LlamaConfig, attn_len: Optional[int] = None,
-            token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            token_mask: Optional[torch.Tensor] = None,
+            tp=None) -> torch.Tensor:
     """Every layer over (B, T) new tokens; returns the last hidden x."""
     x = params["tok_emb"][tokens]
     tables = _step_tables(state.pos, tokens.shape[1], state.k.shape[2],
                           attn_len, cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step(_layer_params(params, layer), x, state.k[layer],
-                        state.v[layer], tables, cfg, token_mask)
+                        state.v[layer], tables, cfg, token_mask, tp)
     return x
 
 
 def _forward_cached(params: Dict, tokens: torch.Tensor,
                     state: LlamaDecodeState, cfg: LlamaConfig,
-                    attn_len: Optional[int] = None
+                    attn_len: Optional[int] = None, tp=None
                     ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """(B, T) new tokens -> (B, V) logits of the last position; cache
     extended.  The final norm and head run on the last position only."""
-    x = _layers(params, tokens, state, cfg, attn_len)
+    x = _layers(params, tokens, state, cfg, attn_len, tp=tp)
     x = rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps)
     logits = nn.linear(x, _head(params))
     return logits, state._replace(pos=state.pos + tokens.shape[1])
@@ -471,14 +525,15 @@ def _gumbel(logits: torch.Tensor,
 
 
 def prefill(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
-            cfg: LlamaConfig) -> Tuple[torch.Tensor, LlamaDecodeState]:
+            cfg: LlamaConfig, tp=None
+            ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Cache the prompt; returns (last-position logits (B, V), state)."""
-    return _forward_cached(params, tokens, state, cfg)
+    return _forward_cached(params, tokens, state, cfg, tp=tp)
 
 
 def prefill_padded(params: Dict, tokens: torch.Tensor, valid_len,
                    state: LlamaDecodeState, cfg: LlamaConfig,
-                   attn_len: Optional[int] = None
+                   attn_len: Optional[int] = None, tp=None
                    ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Bucketed prefill: ``tokens`` (B, Tpad) right-padded, the first
     ``valid_len`` (an int or a 0-d device tensor, uniform across the
@@ -494,7 +549,7 @@ def prefill_padded(params: Dict, tokens: torch.Tensor, valid_len,
                                 device=tokens.device)
     valid_mask = (torch.arange(tokens.shape[1], device=tokens.device)
                   < valid_len).expand(tokens.shape)
-    x = _layers(params, tokens, state, cfg, attn_len, valid_mask)
+    x = _layers(params, tokens, state, cfg, attn_len, valid_mask, tp)
     last = (valid_len - 1).long().reshape(1)
     x = rms_norm(x.index_select(1, last)[:, 0], params["lnf_s"], cfg.rms_eps)
     logits = nn.linear(x, _head(params))
@@ -505,7 +560,7 @@ def decode_block(params: Dict, first_token: torch.Tensor,
                  state: LlamaDecodeState, cfg: LlamaConfig, block: int = 16,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, attn_len: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None, tp=None
                  ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Generate ``block`` tokens on the device from ``first_token`` (B,)
     (the token sampled from the prefill's logits).  Returns the tokens
@@ -517,7 +572,7 @@ def decode_block(params: Dict, first_token: torch.Tensor,
     out = []
     for _ in range(block):
         logits, state = _forward_cached(params, tok[:, None], state, cfg,
-                                        attn_len)
+                                        attn_len, tp)
         tok = _sample(logits, temperature, top_k, top_p, generator)
         out.append(tok)
     return torch.stack(out, dim=1), state
@@ -599,9 +654,10 @@ class LlamaPoolState(NamedTuple):
 
 
 def init_llama_pool_state(cfg: LlamaConfig, batch: int,
-                          dtype=torch.float32, device="cpu"
+                          dtype=torch.float32, device="cpu", tp=None
                           ) -> LlamaPoolState:
-    shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_kv_head,
+    """Zero caches of the KV heads a rank of ``tp`` holds."""
+    shape = (cfg.n_layer, batch, cfg.max_seq_len, local_kv_heads(cfg, tp),
              cfg.head_dim)
     return LlamaPoolState(
         torch.zeros(shape, dtype=dtype, device=device),
@@ -631,7 +687,7 @@ def _row_tables(pos_vec: torch.Tensor, t: int, s_cap: int,
 def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, tables: _StepTables,
                      cfg: LlamaConfig,
-                     token_mask: Optional[torch.Tensor] = None
+                     token_mask: Optional[torch.Tensor] = None, tp=None
                      ) -> torch.Tensor:
     """One layer for T new tokens per row, each row at its own position
     (``_row_tables``): writes their K and V rows of the cache (B, S, KV,
@@ -640,28 +696,22 @@ def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
     another (the residual stream keeps x's dtype).  ``token_mask`` (B, T)
     marks the real tokens for expert routing."""
     b, t, _ = x.shape
-    hd = cfg.head_dim
-    h = rms_norm(x, lp["ln1_s"], cfg.rms_eps)
-    q = nn.linear(h, lp["wq"]).reshape(b, t, cfg.n_head, hd)
-    k = nn.linear(h, lp["wk"]).reshape(b, t, cfg.n_kv_head, hd)
-    v = nn.linear(h, lp["wv"]).reshape(b, t, cfg.n_kv_head, hd)
-    q = _apply_rope(q, tables.cos, tables.sin)
-    k = _apply_rope(k, tables.cos, tables.sin)
+    q, k, v = _attention_in(lp, x, cfg, tables.cos, tables.sin, tp)
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
     k_cache.index_put_((bidx, tables.rows), k.to(k_cache.dtype))
     v_cache.index_put_((bidx, tables.rows), v.to(v_cache.dtype))
     s = tables.valid.shape[-1]
     att = _gqa_cache_attention(q, k_cache[:, :s], v_cache[:, :s],
                                tables.valid, cfg).to(x.dtype)
-    x = x + nn.linear(att.reshape(b, t, cfg.n_head * hd), lp["wo"])
+    x = x + _attention_out(lp, att, tp)
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h, cfg, token_mask, drop_free=True)[0]
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp)[0]
 
 
 def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, pos_vec: torch.Tensor,
                       cfg: LlamaConfig, attn_len: Optional[int] = None,
-                      token_mask: Optional[torch.Tensor] = None
+                      token_mask: Optional[torch.Tensor] = None, tp=None
                       ) -> torch.Tensor:
     """Every layer over (B, T) new tokens at per-row positions, the caches
     k/v (L, B, S, KV, hd) written in place; returns the last hidden x.
@@ -671,7 +721,7 @@ def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
                          cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step_rows(_layer_params(params, layer), x, k[layer],
-                             v[layer], tables, cfg, token_mask)
+                             v[layer], tables, cfg, token_mask, tp)
     return x
 
 
@@ -719,19 +769,20 @@ def _write_slot_values(vec: torch.Tensor, slots: torch.Tensor,
     return vec
 
 
-def prefix_kv(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def prefix_kv(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+              tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced KV rows of a shared prompt prefix: ``tokens`` (1, P)
     -> (k, v) each (L, P, KV, hd), in the params' dtype.  Computed once,
     they seed every slot whose prompt starts with the prefix
-    (``prefill_slots``)."""
+    (``prefill_slots``).  Under ``tp``, this rank's KV heads."""
     p = tokens.shape[1]
-    shape = (cfg.n_layer, 1, p, cfg.n_kv_head, cfg.head_dim)
+    shape = (cfg.n_layer, 1, p, local_kv_heads(cfg, tp), cfg.head_dim)
     dtype, dev = params["tok_emb"].dtype, tokens.device
     k = torch.zeros(shape, dtype=dtype, device=dev)
     v = torch.zeros(shape, dtype=dtype, device=dev)
     _scan_layers_rows(params, tokens, k, v,
-                      torch.zeros((1,), dtype=torch.int32, device=dev), cfg)
+                      torch.zeros((1,), dtype=torch.int32, device=dev), cfg,
+                      tp=tp)
     return k[:, 0], v[:, 0]
 
 
@@ -744,7 +795,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
                   prefix_v: Optional[torch.Tensor] = None,
                   rows: Optional[Tuple] = None,
                   generator: Optional[torch.Generator] = None,
-                  gumbel: Optional[torch.Tensor] = None
+                  gumbel: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, LlamaPoolState]:
     """Prefill N mixed-length prompts into pool slots in one program.
 
@@ -774,7 +825,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
     x = params["tok_emb"][tokens]
     tables = _row_tables(torch.full((n,), p, dtype=torch.int32, device=dev),
                          tpad, p + tpad, None, cfg, dev)
-    shape = (n, p + tpad, cfg.n_kv_head, cfg.head_dim)
+    shape = (n, p + tpad, state.k.shape[3], cfg.head_dim)
     for layer in range(cfg.n_layer):
         kc = torch.zeros(shape, dtype=dtype, device=dev)
         vc = torch.zeros(shape, dtype=dtype, device=dev)
@@ -782,7 +833,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
             kc[:, :p] = prefix_k[layer].to(dtype)
             vc[:, :p] = prefix_v[layer].to(dtype)
         x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
-                             tables, cfg, tok_mask)
+                             tables, cfg, tok_mask, tp)
         _write_slot_rows(state.k[layer], slot_ids, act, kc[:, :width])
         _write_slot_rows(state.v[layer], slot_ids, act, vc[:, :width])
     logits = _head_rows(params, x, valid_lens, cfg)
@@ -815,7 +866,9 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
 
     ``final=False`` (middle chunks) skips the head and returns zeros;
     ``final=True`` samples each row's first token at its last valid
-    position and stores it in the slot's ``tok``."""
+    position and stores it in the slot's ``tok``.  A tensor-parallel
+    state is refused (ROADMAP queue 1 item 10)."""
+    _refuse_tp_state(state.k, cfg, "prefill_slots_continue")
     n, tpad = tokens.shape
     dev = tokens.device
     cap, s = state.k.shape[1], state.k.shape[2]
@@ -857,7 +910,7 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
                         attn_len: Optional[int] = None,
                         rows: Optional[Tuple] = None,
                         generator: Optional[torch.Generator] = None,
-                        gumbel: Optional[torch.Tensor] = None
+                        gumbel: Optional[torch.Tensor] = None, tp=None
                         ) -> Tuple[torch.Tensor, LlamaPoolState]:
     """Advance every active row ``block`` tokens in one program.
 
@@ -873,7 +926,7 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
     out = []
     for i in range(block):
         x = _scan_layers_rows(params, tok[:, None], state.k, state.v, pos,
-                              cfg, attn_len, token_mask=act[:, None])
+                              cfg, attn_len, token_mask=act[:, None], tp=tp)
         logits = nn.linear(rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps),
                            _head(params))
         nxt = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
@@ -1116,7 +1169,9 @@ def decode_block_spec_pooled(params: Dict, state: LlamaPoolState,
     state holds new ``pos`` and ``tok``.
 
     Returns (tokens (B, block), state, iters (B,): each row's active
-    iterations, as JAX counts them)."""
+    iterations, as JAX counts them).  A tensor-parallel state is refused
+    (ROADMAP queue 1 item 10)."""
+    _refuse_tp_state(state.k, cfg, "decode_block_spec_pooled")
     bufs = spec_buffers(state.pos.shape[0], block, k_draft,
                         state.pos.device, drafts=draft_tokens is not None)
     st = state._replace(pos=state.pos.clone(), tok=state.tok.clone())

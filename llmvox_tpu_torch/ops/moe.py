@@ -23,8 +23,14 @@ Two choices JAX makes implicitly are explicit here:
   the K4 route is held to (the sum order and the bf16 rounding of the
   dequantized weights differ, as for the dense ``w4`` path).
 
-The expert-parallel ``moe_ffn_a2a`` / ``make_moe_a2a`` are not ported
-(the multi-device mesh, ROADMAP queue 1 item 10).
+Under Megatron tensor parallelism (``tp_group``, ep = 1: the split
+``llama_param_shardings`` gives every expert) each rank holds its block
+of every expert's hidden columns (``moe_wgate`` / ``moe_wup``) and the
+matching rows of ``moe_wdown``; the router is whole on every rank, so
+routing, dispatch and the statistic are the same on each, and one
+all-reduce after the combine sums the ranks' partial outputs.  The
+expert-parallel ``moe_ffn_a2a`` / ``make_moe_a2a`` (ep > 1, an
+all-to-all) are not ported: ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from llmvox_tpu_torch.ops import cuda_int4_mm, nn, quant
+from llmvox_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def _experts(w) -> int:
@@ -119,8 +126,8 @@ def top_k_lower_index(logits: torch.Tensor, k: int
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wgate, wup, wdown,
             top_k: int, capacity_factor: float = 2.0,
             token_mask: Optional[torch.Tensor] = None,
-            group_size: int = 0, drop_free: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            group_size: int = 0, drop_free: bool = False,
+            tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed SwiGLU experts over ``x`` (..., C).
 
     ``router_w`` (C, E); ``wgate``/``wup`` (E, C, I); ``wdown`` (E, I, C),
@@ -132,7 +139,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wgate, wup, wdown,
     take no capacity, add nothing to the statistic and get a zero output.
     ``group_size``: dispatch in groups of G tokens (0: one group).
     ``drop_free=True`` makes the capacity the group size, so no token can
-    overflow; every inference path passes it."""
+    overflow; every inference path passes it.  ``tp_group``: the experts'
+    hidden columns are this rank's block (the module's docstring), and
+    ``y`` is summed over the group."""
     orig_shape = x.shape
     c = orig_shape[-1]
     e = router_w.shape[-1]
@@ -187,7 +196,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wgate, wup, wdown,
     h = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
     xout = expert_matmul(h, wdown).reshape(e, ng, cap, c)
     y = torch.einsum("gnec,egcd->gnd", cg, xout.to(dtype))
-    y = y.reshape(npad, c)[:n]
+    y = tpar.reduce_from_tp(y.reshape(npad, c)[:n], tp_group)
 
     # the statistic over masked-in tokens only
     m32 = mask.float()

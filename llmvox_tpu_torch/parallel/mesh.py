@@ -16,16 +16,24 @@ idiom differs in two places, and the port follows it:
   the trainers all-reduce gradients and statistics over the default
   process group.  ``initialize_distributed`` forms that group.
 
-Data parallelism needs only ``all_reduce`` and ``broadcast``: both NCCL
-and gloo carry them on CUDA tensors, so two gloo ranks can share one card
-(NCCL refuses two ranks on one GPU).  ``gather_rows`` is therefore an
-``all_reduce`` of a zero-filled buffer, not an ``all_gather``.
+Data parallelism and Megatron tensor parallelism need only
+``all_reduce`` and ``broadcast``: both NCCL and gloo carry them on CUDA
+tensors, so two gloo ranks can share one card (NCCL refuses two ranks on
+one GPU).  ``gather_rows`` is therefore an ``all_reduce`` of a
+zero-filled buffer, not an ``all_gather``.
+
+A launch of ``dp * tp`` ranks splits into tensor-parallel groups of
+``tp`` consecutive ranks and data-parallel groups of the ranks with the
+same tp index, tp innermost as JAX's ``create_mesh`` orders its axes:
+rank r is tp index ``r % tp`` and dp index ``r // tp``
+(``initialize_model_parallel``).  The collectives take a ``group``
+(None: every rank; ``LOCAL``: this rank alone, a no-op).
 """
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -171,19 +179,90 @@ def barrier() -> None:
         dist.barrier()
 
 
-def data_parallel_size(dp_size: int) -> int:
-    """The ranks a trainer's ``dp_size`` runs on: ``dp_size``, or the
-    launch's world size for -1 (JAX's "all devices" is one process's
-    devices).  It must be the world size: nothing falls back to fewer
-    ranks."""
+def data_parallel_size(dp_size: int, tp_size: int = 1) -> int:
+    """The data-parallel ranks a trainer's ``dp_size`` runs on:
+    ``dp_size``, or the launch's world over ``tp_size`` for -1 (JAX's
+    "all devices" is one process's devices).  ``dp_size * tp_size`` must
+    be the world size: nothing falls back to fewer ranks."""
     w = world()
-    dp = w if dp_size == -1 else dp_size
-    if dp != w:
+    if tp_size < 1 or w % tp_size:
+        raise ValueError(f"a world of {w} ranks does not split into "
+                         f"tensor-parallel groups of tp_size={tp_size}")
+    dp = w // tp_size if dp_size == -1 else dp_size
+    if dp * tp_size != w:
         raise ValueError(
-            f"dp_size={dp_size} but the launch has a world of {w}: data "
-            "parallelism runs one rank a card (torchrun --nproc_per_node "
-            "N), and dp_size -1 takes the world size")
+            f"dp_size={dp_size} x tp_size={tp_size} but the launch has a "
+            f"world of {w}: training runs one rank a card (torchrun "
+            "--nproc_per_node N), and dp_size -1 takes the world over "
+            "tp_size")
     return dp
+
+
+class _Local:
+    """The group of this rank alone (``LOCAL``)."""
+
+    def __repr__(self) -> str:
+        return "LOCAL"
+
+
+# every collective over it is a no-op; None names every rank
+LOCAL = _Local()
+
+
+class ModelParallel(NamedTuple):
+    """The groups of one launch split as dp x tp (tp innermost): each
+    group's size, this rank's indices, and the process groups.  A group
+    of this rank alone (the tp group at tp 1, the dp group at dp 1) is
+    ``LOCAL``, and the dp group at tp 1 is None (every rank), so any
+    group here can be handed to the collectives as it is."""
+    dp: int
+    tp: int
+    dp_rank: int
+    tp_rank: int
+    dp_group: Optional[object]
+    tp_group: object
+
+
+def initialize_model_parallel(tp_size: int = 1) -> ModelParallel:
+    """Split the launch's world into ``world / tp_size`` data-parallel
+    replicas of ``tp_size`` tensor-parallel ranks, as JAX's
+    ``create_mesh(dp_size=-1, tp_size=tp_size)`` orders a mesh: rank r is
+    tp index ``r % tp_size`` and dp index ``r // tp_size``.  Every rank
+    calls it, in the same order (``new_group`` is collective); each call
+    forms its own groups."""
+    w, r = world(), rank()
+    dp = data_parallel_size(-1, tp_size)
+    tp_group = dp_group = LOCAL
+    if tp_size > 1:
+        for i in range(dp):
+            g = dist.new_group(list(range(i * tp_size, (i + 1) * tp_size)))
+            if r // tp_size == i:
+                tp_group = g
+    if dp > 1 and tp_size == 1:
+        dp_group = None
+    elif dp > 1:
+        for j in range(tp_size):
+            g = dist.new_group(list(range(j, w, tp_size)))
+            if r % tp_size == j:
+                dp_group = g
+    return ModelParallel(dp, tp_size, r // tp_size, r % tp_size, dp_group,
+                         tp_group)
+
+
+def group_size(group=None) -> int:
+    """The ranks in ``group`` (None: every rank, 1 without a process
+    group; ``LOCAL``: 1)."""
+    if group is None:
+        return world()
+    if group is LOCAL:
+        return 1
+    return dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    if group is LOCAL:
+        return 0
+    return rank() if group is None else dist.get_rank(group)
 
 
 def _collective_device(t: Optional[torch.device] = None) -> torch.device:
@@ -194,17 +273,20 @@ def _collective_device(t: Optional[torch.device] = None) -> torch.device:
     return t if t is not None else torch.device("cpu")
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], op: str = "sum") -> None:
-    """All-reduce ``tensors`` in place as ONE collective: their values
-    flattened into one buffer of their common dtype (``op`` "sum" or
-    "mean").  Every rank ends with the same bits."""
-    if world() == 1 or not tensors:
+def all_reduce_(tensors: Sequence[torch.Tensor], op: str = "sum",
+                group=None) -> None:
+    """All-reduce ``tensors`` in place over ``group`` (None: every rank)
+    as ONE collective: their values flattened into one buffer of their
+    common dtype (``op`` "sum" or "mean").  Every rank ends with the same
+    bits."""
+    n_ranks = group_size(group)
+    if n_ranks == 1 or not tensors:
         return
     dev = _collective_device(tensors[0].device)
     flat = torch.cat([t.reshape(-1).to(dev) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     if op == "mean":
-        flat /= world()
+        flat /= n_ranks
     elif op != "sum":
         raise ValueError(f"all_reduce_: op {op!r}")
     off = 0
@@ -214,19 +296,20 @@ def all_reduce_(tensors: Sequence[torch.Tensor], op: str = "sum") -> None:
         off += n
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """(n, ...) rows of every rank, concatenated in rank order: the
-    global rows of JAX's ``lax.all_gather(x).reshape(-1, ...)``.  Every
-    rank holds ``n`` rows.  It is an ``all_reduce`` of a zero-filled
-    (world, n, ...) buffer, which gloo carries on CUDA tensors too; adding
-    zeros leaves each row's bits as they were."""
-    w = world()
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, ...) rows of every rank of ``group`` (None: every rank),
+    concatenated in the group's rank order: the global rows of JAX's
+    ``lax.all_gather(x).reshape(-1, ...)``.  Every rank holds ``n`` rows.
+    It is an ``all_reduce`` of a zero-filled (ranks, n, ...) buffer, which
+    gloo carries on CUDA tensors too; adding zeros leaves each row's bits
+    as they were."""
+    w = group_size(group)
     if w == 1:
         return x
     dev = _collective_device(x.device)
     buf = torch.zeros((w, *x.shape), dtype=x.dtype, device=dev)
-    buf[rank()] = x.to(dev)
-    dist.all_reduce(buf)
+    buf[group_rank(group)] = x.to(dev)
+    dist.all_reduce(buf, group=group)
     return buf.reshape(-1, *x.shape[1:]).to(x.device)
 
 
@@ -243,27 +326,29 @@ def average_metrics(metrics: Dict) -> Dict[str, float]:
     return dict(zip(keys, (local / world()).tolist()))
 
 
-def broadcast_from_master(tree):
-    """Every rank adopts rank 0's values: tensors are overwritten in place
-    (and returned), numpy arrays and Python scalars returned anew; dicts,
-    lists and tuples keep their structure.  One rank returns ``tree``."""
-    if world() == 1:
+def broadcast_from_master(tree, group=None):
+    """Every rank of ``group`` (None: every rank) adopts the values of the
+    group's first rank: tensors are overwritten in place (and returned),
+    numpy arrays and Python scalars returned anew; dicts, lists and tuples
+    keep their structure.  One rank returns ``tree``."""
+    if group_size(group) == 1:
         return tree
     if isinstance(tree, dict):
-        return {k: broadcast_from_master(v) for k, v in tree.items()}
+        return {k: broadcast_from_master(v, group) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [broadcast_from_master(v) for v in tree]
+        out = [broadcast_from_master(v, group) for v in tree]
         return type(tree)(out) if isinstance(tree, list) else (
             type(tree)(*out) if hasattr(tree, "_fields") else tuple(out))
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     if isinstance(tree, torch.Tensor):
         buf = tree.to(_collective_device(tree.device))
-        dist.broadcast(buf, 0)
+        dist.broadcast(buf, src, group=group)
         if buf is not tree:
             tree.copy_(buf)
         return tree
     arr = np.asarray(tree)
     buf = torch.from_numpy(np.ascontiguousarray(arr)).to(
         _collective_device())
-    dist.broadcast(buf, 0)
+    dist.broadcast(buf, src, group=group)
     out = buf.cpu().numpy()
     return out if isinstance(tree, np.ndarray) else out.item()

@@ -1,21 +1,45 @@
-"""Data-parallel layouts over a mesh: which rows each device keeps.
+"""Layouts over a mesh: which rows each device keeps, and Megatron's split
+of the decoder and the Llama over a tensor-parallel group.
 
-Counterpart of the dp part of ``llmvox_tpu/parallel/sharding.py``.  A
-``Sharding`` names, per mesh axis, the leading dimensions it splits, as a
-JAX ``PartitionSpec`` does: ``P("dp")`` gives the device at dp index i
-the i-th contiguous block of rows, in device order, and the devices along
-the other axes the same block; ``P()`` gives every device all of it.
+Counterpart of ``llmvox_tpu/parallel/sharding.py``.  A ``Sharding``
+names, per mesh axis, the leading dimensions it splits, as a JAX
+``PartitionSpec`` does: ``P("dp")`` gives the device at dp index i the
+i-th contiguous block of rows, in device order, and the devices along the
+other axes the same block; ``P()`` gives every device all of it.
 ``blocks`` lists each device's index (a tuple of slices) in the mesh's
 row-major device order, as ``jax.device_put(x, sharding)``'s
-``addressable_shards`` hold them.  The tensor-parallel, FSDP and Llama
-rules are still to port (ROADMAP queue 1 item 10).
+``addressable_shards`` hold them.
+
+Tensor parallelism keeps JAX's spec tables as data (``DECODER_TP_SPECS``,
+``LLAMA_TP_SPECS``): column-parallel weights split their output columns
+over tp, row-parallel ones their input rows, the rest is replicated.
+``shard_tree`` cuts a full tree in the JAX layout into one tp rank's
+shard; ``place_shard`` puts a rank's shard of a leaf where it lies in a
+zero-filled full leaf, so that the sum over the ranks (an all-reduce) is
+the leaf gathered back.  The trainer and the Llama run on the shards
+(``parallel/tensor_parallel.py``).  One layout differs from JAX's
+``addressable_shards``: the decoder's fused QKV (``wqkv (L, C, 3C)``,
+``bqkv (L, 3C)``).  A contiguous block of its 3C axis is not a head
+block (at tp 2, rank 0's holds all of q and half of k; JAX splits it
+again into q, k and v and GSPMD moves the data), so tp rank r holds head
+block r of q, of k and of v, concatenated, and ``place_shard`` puts them
+back in that order.
+
+Still refused (ROADMAP queue 1 item 10): FSDP's shardings, sequence
+parallelism and expert parallelism (ep > 1 is JAX's ``moe_ffn_a2a``);
+a quantized tree under tp, on which JAX's ``llama_param_shardings``
+raises (its table walk reads ``.key`` of a quantized leaf's fields).
 """
 from __future__ import annotations
 
 import itertools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
-from llmvox_tpu_torch.parallel.mesh import DP_AXIS, SP_AXIS, Mesh
+import numpy as np
+import torch
+
+from llmvox_tpu_torch.parallel.mesh import (DP_AXIS, EP_AXIS, SP_AXIS,
+                                            TP_AXIS, Mesh)
 
 
 def dp_rows(n: int, index: int, parts: int) -> slice:
@@ -65,3 +89,165 @@ def batch_seq_sharding(mesh: Mesh) -> Sharding:
     """(B, T, ...) split over (dp, sp): the sequence-parallel trainer's
     input layout."""
     return Sharding(mesh, (DP_AXIS, SP_AXIS))
+
+
+# ---------------------------------------------------------------------------
+# Megatron tensor parallelism
+# ---------------------------------------------------------------------------
+
+# JAX's ``decoder_param_shardings`` table (llmvox_tpu/parallel/sharding.py:
+# 45-58), and the draft heads replicated: JAX's table has no entry for them
+# (its Trainer replicates every leaf at tp_size > 1 without FSDP)
+DECODER_TP_SPECS = {
+    "wpe": (), "lnf_s": (), "lnf_b": (), "head": (), "draft_heads": (),
+    "h": {
+        "ln1_s": (), "ln1_b": (),
+        "wqkv": (None, None, TP_AXIS), "bqkv": (None, TP_AXIS),
+        "wo": (None, TP_AXIS, None), "bo": (),
+        "ln2_s": (), "ln2_b": (),
+        "wfc": (None, None, TP_AXIS), "bfc": (None, TP_AXIS),
+        "wproj": (None, TP_AXIS, None), "bproj": (),
+    },
+}
+
+# JAX's ``llama_param_shardings`` table (sharding.py:185-206)
+LLAMA_TP_SPECS = {
+    "tok_emb": (), "lnf_s": (), "head": (), "draft_heads": (),
+    "h": {
+        "ln1_s": (), "ln2_s": (),
+        "wq": (None, None, TP_AXIS), "wk": (None, None, TP_AXIS),
+        "wv": (None, None, TP_AXIS), "wo": (None, TP_AXIS, None),
+        "wgate": (None, None, TP_AXIS), "wup": (None, None, TP_AXIS),
+        "wdown": (None, TP_AXIS, None),
+        "router": (),
+        "moe_wgate": (None, EP_AXIS, None, TP_AXIS),
+        "moe_wup": (None, EP_AXIS, None, TP_AXIS),
+        "moe_wdown": (None, EP_AXIS, TP_AXIS, None),
+    },
+}
+
+# the decoder's fused q|k|v leaves, cut by heads (the module's docstring)
+FUSED_QKV = frozenset({"wqkv", "bqkv"})
+
+
+def _is_quantized(leaf) -> bool:
+    # ops/quant.py's containers hold their tensors as fields
+    return not isinstance(leaf, (torch.Tensor, np.ndarray))
+
+
+def _walk(tree: Dict, specs: Dict, fn, path: Tuple[str, ...] = ()):
+    out = {}
+    for k, v in tree.items():
+        if k not in specs:
+            raise ValueError(f"no tensor-parallel rule for parameter "
+                             f"{'/'.join(path + (k,))!r}")
+        out[k] = (_walk(v, specs[k], fn, path + (k,)) if isinstance(v, dict)
+                  else fn(path + (k,), v, specs[k]))
+    return out
+
+
+def _refuse_quantized(tree: Dict) -> None:
+    def check(path, leaf, spec):
+        if _is_quantized(leaf):
+            raise ValueError(
+                f"{'/'.join(path)} is quantized ({type(leaf).__name__}): a "
+                "quantized tree is not sharded over tp (JAX's "
+                "llama_param_shardings raises on it too; ROADMAP queue 1 "
+                "item 10)")
+        return spec
+    _walk(tree, LLAMA_TP_SPECS, check)
+
+
+def tp_dim(spec: Tuple) -> Optional[int]:
+    """The dimension a spec splits over tp (None: replicated over tp)."""
+    return spec.index(TP_AXIS) if TP_AXIS in spec else None
+
+
+def tp_index(n: int, tp: int, rank: int, fused: bool = False) -> np.ndarray:
+    """The indices of tp rank ``rank``'s block of an axis of ``n``: the
+    rank-th contiguous block, or for a fused q|k|v axis the rank-th block
+    of each third, concatenated."""
+    if not fused:
+        return np.arange(n)[dp_rows(n, rank, tp)]
+    third = n // 3
+    if n % 3:
+        raise ValueError(f"a fused q|k|v axis of {n} is not three blocks")
+    block = dp_rows(third, rank, tp)
+    return np.concatenate([np.arange(third)[block] + i * third
+                           for i in range(3)])
+
+
+def _take(x, dim: int, idx: np.ndarray):
+    if isinstance(x, torch.Tensor):
+        return x.index_select(dim, torch.as_tensor(idx, device=x.device))
+    return np.take(np.asarray(x), idx, axis=dim)
+
+
+def shard_leaf(x, spec: Tuple, tp: int, rank: int, fused: bool = False):
+    """Tp rank ``rank``'s shard of one leaf (a copy; the leaf itself when
+    it is replicated)."""
+    d = tp_dim(spec)
+    if d is None or tp == 1:
+        return x
+    return _take(x, d, tp_index(x.shape[d], tp, rank, fused))
+
+
+def place_shard(shard: torch.Tensor, full_shape: Sequence[int], spec: Tuple,
+                tp: int, rank: int, fused: bool = False) -> torch.Tensor:
+    """A zero-filled tensor of the full leaf's shape holding ``shard`` where
+    tp rank ``rank``'s block lies: summed over the ranks (an all-reduce,
+    which gloo carries on CUDA tensors), the full leaf, bit for bit."""
+    d = tp_dim(spec)
+    if d is None or tp == 1:
+        return shard
+    full = shard.new_zeros(tuple(full_shape))
+    idx = torch.as_tensor(tp_index(full_shape[d], tp, rank, fused),
+                          device=shard.device)
+    return full.index_copy_(d, idx, shard)
+
+
+def shard_tree(tree: Dict, specs: Dict, tp: int, rank: int) -> Dict:
+    """Tp rank ``rank``'s shard of a full tree in the JAX layout."""
+    return _walk(tree, specs, lambda path, x, spec: shard_leaf(
+        x, spec, tp, rank, path[-1] in FUSED_QKV))
+
+
+def check_decoder_tp(cfg, tp: int) -> None:
+    """The decoder splits over ``tp`` ranks by whole heads and MLP
+    columns (JAX's divisibility, as ValueErrors)."""
+    if tp < 1 or cfg.n_head % tp:
+        raise ValueError(f"n_head={cfg.n_head} does not split over "
+                         f"tp_size={tp}")
+
+
+def check_llama_tp(cfg, tp: int, params: Optional[Dict] = None,
+                   ep: int = 1) -> None:
+    """A Llama splits over ``tp`` ranks by whole query and KV heads (so
+    GQA's group map stays on each rank) and MLP or expert columns.  A
+    quantized tree and experts over ``ep`` > 1 (the size of JAX's ep mesh
+    axis: its all-to-all dispatch, ``moe_ffn_a2a``) are refused: ROADMAP
+    queue 1 item 10."""
+    for name in ("n_head", "n_kv_head", "intermediate_size"):
+        if tp < 1 or getattr(cfg, name) % tp:
+            raise ValueError(f"{name}={getattr(cfg, name)} does not split "
+                             f"over tp_size={tp}")
+    if ep > 1 and cfg.n_experts:
+        raise ValueError("experts over ep > 1 are the all-to-all dispatch "
+                         "(moe_ffn_a2a), not ported yet: ROADMAP queue 1 "
+                         "item 10")
+    if params is not None:
+        _refuse_quantized(params)
+
+
+def shard_llama(params: Dict, cfg, tp: int, rank: int, ep: int = 1) -> Dict:
+    """Tp rank ``rank``'s shard of a full Llama tree (``check_llama_tp``
+    first)."""
+    check_llama_tp(cfg, tp, params, ep)
+    return shard_tree(params, LLAMA_TP_SPECS, tp, rank)
+
+
+def shard_decoder(params: Dict, cfg, tp: int, rank: int) -> Dict:
+    """Tp rank ``rank``'s shard of a full decoder tree, the fused QKV by
+    heads."""
+    check_decoder_tp(cfg, tp)
+    return shard_tree(params, DECODER_TP_SPECS, tp, rank)

@@ -9,17 +9,18 @@ from __future__ import annotations
 import json
 import socket
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
 SAMPLE_RATE = 24000
 
 
-def post_chunks(host: str, port: int, path: str, payload: Dict,
-                timeout: float = 600.0) -> List[Tuple[float, bytes]]:
-    """POST ``payload`` as JSON; return [(seconds since the request was
-    sent, chunk bytes), ...] for every chunk of the response body."""
+def stream_chunks(host: str, port: int, path: str, payload: Dict,
+                  timeout: float = 600.0) -> Iterator[Tuple[float, bytes]]:
+    """POST ``payload`` as JSON; yield (seconds since the request was
+    sent, chunk bytes) for each chunk of the response body as it
+    arrives."""
     body = json.dumps(payload).encode()
     with socket.create_connection((host, port), timeout=timeout) as sock:
         t0 = time.perf_counter()
@@ -33,15 +34,20 @@ def post_chunks(host: str, port: int, path: str, payload: Dict,
             raise RuntimeError(f"HTTP error: {status.strip()}")
         while f.readline() not in (b"\r\n", b"\n", b""):
             pass
-        chunks = []
         while True:
             size = int(f.readline().strip() or b"0", 16)
             if size == 0:
                 break
             data = f.read(size)
-            chunks.append((time.perf_counter() - t0, data))
+            yield time.perf_counter() - t0, data
             f.readline()
-    return chunks
+
+
+def post_chunks(host: str, port: int, path: str, payload: Dict,
+                timeout: float = 600.0) -> List[Tuple[float, bytes]]:
+    """POST ``payload`` as JSON; return [(seconds since the request was
+    sent, chunk bytes), ...] for every chunk of the response body."""
+    return list(stream_chunks(host, port, path, payload, timeout))
 
 
 def to_wave(chunks: List[Tuple[float, bytes]]) -> np.ndarray:

@@ -2,6 +2,7 @@
 
   python -m llmvox_tpu_torch.tools.warmup_cache                # deployed
   python -m llmvox_tpu_torch.tools.warmup_cache --pool_capacity 16
+  python -m llmvox_tpu_torch.tools.warmup_cache --batch_streams 4
   python -m llmvox_tpu_torch.tools.warmup_cache --llm_pool_capacity 8 \
       --llm_jax_params llama.npz --llm_checkpoint byte
 
@@ -34,9 +35,13 @@ only.  Two parts:
   captures its own at warmup, so these are discarded, and the run shows
   that every capture succeeds on this card and what it costs.
 
-The offline batch path (``serve/batch.py::BatchTTS``), which the JAX tool
-also compiles, runs eagerly and is not covered.  ``--device cpu`` runs
-the same warmup eagerly, with nothing built or captured.
+The offline batch path (``serve/batch.py::BatchTTS``) is warmed as the
+JAX tool compiles it: ``--batch_streams`` (default 8) streams synthesize
+``"warmup."`` with blocks of 128 and a 128-token cap.  It runs eagerly
+(no graph is captured for it yet: ROADMAP §2 item 1), so this run shows
+that it works at that many streams on this card and what it takes.
+``--device cpu`` runs the same warmup eagerly, with nothing built or
+captured.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ def main(argv=None) -> None:
 
     from llmvox_tpu_torch.codec.codec import WavCodec
     from llmvox_tpu_torch.ops import build, quant
+    from llmvox_tpu_torch.serve.batch import BatchTTS
     from llmvox_tpu_torch.serve.__main__ import pool_mesh
     from llmvox_tpu_torch.serve.engine import TTSEngine
     from llmvox_tpu_torch.serve.pool import DecodePool
@@ -63,6 +69,7 @@ def main(argv=None) -> None:
     add_dataclass_args(parser, ServeConfig)
     add_dataclass_args(parser, DecoderConfig)
     add_dataclass_args(parser, CodecConfig)
+    parser.add_argument("--batch_streams", type=int, default=8)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     scfg = apply_cli_overrides(ServeConfig(), args)
@@ -107,6 +114,15 @@ def main(argv=None) -> None:
            f"{engine.fused_variants()}, buckets {codec.buckets})", before,
            t0)
     del engine
+    t0 = time.perf_counter()
+    btts = BatchTTS(params, table, codec, max_streams=args.batch_streams,
+                    dcfg=dcfg, scfg=scfg, device=args.device,
+                    cache_dtype=dtype, block=128)
+    btts.tts_batch(["warmup."] * args.batch_streams, max_tokens=128)
+    print(f"batch of {btts.B} streams (block {btts.block}; eager): "
+          f"{btts.decode_steps} decode steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del btts
     caps = sorted(scfg.pool_ladder) or (
         [scfg.pool_capacity] if scfg.pool_capacity > 0 else [])
     for cap in caps:

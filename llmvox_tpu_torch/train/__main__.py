@@ -25,6 +25,12 @@ must divide):
 
 Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo
 ranks on the CPU); rank 0 prints, logs and writes the checkpoints.
+
+Tensor-parallel over groups of ``--tp_size`` cards (Megatron's split of
+the decoder; the world is dp x tp, tp innermost, ``--batch_size``
+divides over dp; the checkpoints are written whole, in the JAX layout):
+
+    torchrun --nproc_per_node 4 -m llmvox_tpu_torch.train --tp_size 2 ...
 """
 from __future__ import annotations
 
@@ -110,8 +116,8 @@ def _train(args, tcfg: TrainConfig, mcfg: DecoderConfig, device) -> None:
     dataset = SpeechDataset(tcfg.data_path)
     say(f"dataset: {len(dataset)} samples; model: "
         f"{trainer.n_params / 1e6:.2f}M params; device {trainer.device}"
-        + (f", rank {trainer.rank} of {trainer.dp}" if trainer.dp > 1
-           else ""))
+        + (f", rank {trainer.rank} of {pmesh.world()} (dp {trainer.dp} x "
+           f"tp {trainer.tp})" if pmesh.world() > 1 else ""))
     if args.pack:
         batches = iter(PackedBatchIterator(dataset, mcfg, tcfg.batch_size,
                                            args.pack_len, seed=tcfg.seed))

@@ -12,7 +12,10 @@ hyperparameters of the config it is given (``hyper``):
   mean ``acc + (g - acc) / (i + 1)``); only every k-th call updates;
 - the mean is clipped by its global norm (the decoder's only): scaled by ``max_norm / norm``
   when ``norm >= max_norm`` and left as it is below (no epsilon; a
-  ``grad_clip`` of 0 therefore zeroes every update, as it does in JAX);
+  ``grad_clip`` of 0 therefore zeroes every update, as it does in JAX).
+  Under tensor parallelism (``sharded`` and ``norm_reduce`` set) the
+  squares of the sharded tensors are summed over the tp group and those
+  of the replicated ones counted once, so the norm is the whole tree's;
 - Adam with bias correction ``1 - beta ** count`` in f32 and ``eps``
   added to ``sqrt(nu_hat)``; weight decay added to the Adam step for the
   tensors ``decay_mask`` selects (by name, not by ndim); then the step is
@@ -153,6 +156,11 @@ class AdamW:
         # data parallelism: reduces the accumulated gradients over the
         # ranks in place, once an update, before clipping
         self.reduce: Optional[Callable[[List[torch.Tensor]], None]] = None
+        # tensor parallelism: which params are this rank's shards, and the
+        # sum over the tp group (in place) of their squared norms
+        self.sharded: List[bool] = [False] * len(self.params)
+        self.norm_reduce: Optional[Callable[[List[torch.Tensor]],
+                                            None]] = None
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -175,7 +183,7 @@ class AdamW:
     def _update(self, grads: List[torch.Tensor]) -> None:
         hp = self.hyper
         if hp.grad_clip is not None:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            norm = self._global_norm(grads)
             clip = ~(norm < hp.grad_clip)
         lr = self.schedule(self.count)
         self.count += 1
@@ -193,6 +201,17 @@ class AdamW:
             if wd:
                 u = u + hp.weight_decay * p
             p.add_(u, alpha=-lr)
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if self.norm_reduce is None:
+            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        sq = [(g.float() ** 2).sum() for g in grads]
+        part = sum((q for q, sh in zip(sq, self.sharded) if sh), zero)
+        part = part.reshape(1).clone()
+        self.norm_reduce([part])
+        rep = sum((q for q, sh in zip(sq, self.sharded) if not sh), zero)
+        return torch.sqrt(rep + part[0])
 
     def state_dict(self) -> Dict[str, object]:
         return {"mu": self.mu, "nu": self.nu, "acc": self.acc,

@@ -1,4 +1,5 @@
-"""Decoder training, on one device or data-parallel over several.
+"""Decoder training, on one device, or data- and tensor-parallel over
+several.
 
 Counterpart of ``llmvox_tpu/train/trainer.py``.  A step builds the fused
 inputs from the int32 ids on the device, runs the loss forward and
@@ -17,20 +18,37 @@ is divided by the whole batch's count of valid targets (summed over the
 ranks first), so the rank gradients sum to JAX's global one; the
 accumulated gradients are summed over the ranks once an update, before
 clipping and AdamW, so every rank applies the same update to the same
-bits.  Rank 0 writes checkpoints.  Tensor and sequence parallelism and
-FSDP are refused: ROADMAP queue 1 item 10.
+bits.  Rank 0 writes checkpoints.
+
+Tensor parallelism (``tp_size`` > 1) splits the world into dp x tp ranks,
+tp innermost (``parallel/mesh.py::initialize_model_parallel``): each tp
+group of ``tp_size`` consecutive ranks trains one Megatron-sharded copy
+(``parallel/sharding.py::shard_decoder``; the draft heads, norms,
+embeddings and head replicated) on one dp block of rows, and the
+gradients are summed over each dp group once an update.  AdamW keeps
+each rank's moments for its shards; the clip's global norm sums the
+sharded tensors over the tp group and counts the replicated ones once.
+Dropout draws from a generator seeded by the dp index, so the ranks of a
+tp group, which hold the same activations, draw the same masks.  The
+checkpoints (params and the optimizer's file) are gathered into the full
+JAX layout, which JAX reads and which resumes at any tp.  JAX's Trainer
+places every leaf replicated at ``tp_size`` > 1 without FSDP; the
+sharded run equals it to rounding.  Sequence parallelism and FSDP are
+refused: ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from llmvox_tpu_torch.models import decoder as dec
 from llmvox_tpu_torch.parallel import mesh as pmesh
+from llmvox_tpu_torch.parallel import sharding as psh
 from llmvox_tpu_torch.parallel.sharding import dp_rows
 from llmvox_tpu_torch.train import checkpoint as ckpt
 from llmvox_tpu_torch.train.data import build_decoder_inputs
@@ -58,66 +76,133 @@ def estimate_mfu(cfg: DecoderConfig, n_params: int, tokens_per_iter: int,
     return flops_per_token * tokens_per_iter / dt / peak
 
 
-def _check_supported(tcfg: TrainConfig) -> int:
+def _check_supported(tcfg: TrainConfig,
+                     mcfg: DecoderConfig) -> pmesh.ModelParallel:
     multi = [name for name, on in (
-        ("tp_size", tcfg.tp_size != 1), ("sp_size", tcfg.sp_size != 1),
-        ("fsdp", tcfg.fsdp)) if on]
+        ("sp_size", tcfg.sp_size != 1), ("fsdp", tcfg.fsdp)) if on]
     if multi:
         raise ValueError(
-            f"{', '.join(multi)}: tensor and sequence parallelism and FSDP "
-            "are not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item "
-            "10")
-    dp = pmesh.data_parallel_size(tcfg.dp_size)
+            f"{', '.join(multi)}: sequence parallelism and FSDP are not "
+            "ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
+    dp = pmesh.data_parallel_size(tcfg.dp_size, tcfg.tp_size)
+    psh.check_decoder_tp(mcfg, tcfg.tp_size)
     if tcfg.batch_size % dp:
         raise ValueError(f"batch_size {tcfg.batch_size} must divide over "
                          f"dp={dp}")
-    return dp
+    return pmesh.initialize_model_parallel(tcfg.tp_size)
+
+
+def _spec(name: str):
+    node = psh.DECODER_TP_SPECS
+    for k in name.split("/"):
+        node = node[k]
+    return node
+
+
+def _tree(names: List[str], tensors: List[torch.Tensor]) -> Dict:
+    """The nested tree of ``names`` ("h/wqkv", ...) and their tensors."""
+    out: Dict = {}
+    for name, t in zip(names, tensors):
+        *parents, leaf = name.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return out
 
 
 class Trainer:
-    """End-to-end decoder training.  ``params`` (a tree in the JAX layout)
-    replaces the seeded initialisation, as assigning ``state.params`` does
-    for the JAX trainer.  Under a process group of N ranks it trains
-    data-parallel (the module's docstring); the batches it is given are
-    the global ones."""
+    """End-to-end decoder training.  ``params`` (a full tree in the JAX
+    layout) replaces the seeded initialisation, as assigning
+    ``state.params`` does for the JAX trainer.  Under a process group of N
+    ranks it trains data-parallel, and tensor-parallel at ``tp_size`` > 1
+    (the module's docstring); the batches it is given are the global
+    ones.  ``params`` is this rank's shard of the tree, ``full_params()``
+    the whole of it."""
 
     def __init__(self, tcfg: TrainConfig, mcfg: DecoderConfig,
                  text_table: np.ndarray, codebook: np.ndarray, *,
                  compute_dtype=torch.bfloat16, device="cuda",
                  params: Optional[Dict] = None):
-        self.dp = _check_supported(tcfg)
+        self.mp = _check_supported(tcfg, mcfg)
+        self.dp, self.tp = self.mp.dp, self.mp.tp
         self.rank = pmesh.rank()
         self.device = resolve_device(device)
         self.tcfg, self.mcfg = tcfg, mcfg
         self.compute_dtype = compute_dtype
-        # dropout masks, seed + rank as JAX's seed + process_index; the
-        # data order is numpy's, seeded by the iterators
+        # dropout masks, seed + dp index as JAX's seed + process_index
+        # (the ranks of a tp group draw alike); the data order is numpy's,
+        # seeded by the iterators
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(tcfg.seed + self.rank)
+        self.generator.manual_seed(tcfg.seed + self.mp.dp_rank)
         if params is None:
             params = init_decoder_params(tcfg.seed, mcfg)
-        self.model = dec.DecoderModel(params, mcfg, self.device)
+        self.n_params = dec.num_params(params)
+        if self.tp > 1:
+            params = psh.shard_decoder(params, mcfg, self.tp,
+                                       self.mp.tp_rank)
+        self.model = dec.DecoderModel(params, mcfg, self.device,
+                                      tp=self.mp.tp_group)
         tree = self.model.tree()
         leaves = named_leaves(tree)
         self.names = [n for n, _ in leaves]
+        self.specs = [_spec(n) for n in self.names]
         self.opt = AdamW(tcfg, [p for _, p in leaves],
                          [d for _, d in named_leaves(decay_mask(tree))])
-        if self.dp > 1:
-            with torch.no_grad():
-                pmesh.broadcast_from_master(self.opt.params)
-            self.opt.reduce = pmesh.all_reduce_
+        if self.tp > 1:
+            self.opt.sharded = [psh.tp_dim(s) is not None
+                                for s in self.specs]
+            self.opt.norm_reduce = functools.partial(
+                pmesh.all_reduce_, group=self.mp.tp_group)
+        with torch.no_grad():
+            pmesh.broadcast_from_master(self.opt.params,
+                                        group=self.mp.dp_group)
+        self.opt.reduce = functools.partial(pmesh.all_reduce_,
+                                            group=self.mp.dp_group)
         self._n_heads = (tree["draft_heads"].shape[0]
                          if "draft_heads" in tree else 0)
         self.text_table = torch.as_tensor(
             np.asarray(text_table, np.float32)).to(self.device)
         self.codebook = torch.as_tensor(
             np.asarray(codebook, np.float32)).to(self.device)
-        self.n_params = dec.num_params(tree)
         self.iter_num = 0
 
     @property
     def params(self) -> Dict:
+        """This rank's parameters (its shard under tensor parallelism)."""
         return self.model.tree()
+
+    def _gather(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each of this rank's tensors (one per parameter, in ``names``'
+        order) made whole in the JAX layout: under tp an all-reduce over
+        the group of zero-filled full tensors, each rank's shard in its
+        place (every rank of the group takes part)."""
+        if self.tp == 1:
+            return [t.detach() for t in tensors]
+        out = []
+        for name, t, spec in zip(self.names, tensors, self.specs):
+            d = psh.tp_dim(spec)
+            shape = list(t.shape)
+            if d is not None:
+                shape[d] *= self.tp
+            out.append(psh.place_shard(
+                t.detach(), shape, spec, self.tp, self.mp.tp_rank,
+                name.split("/")[-1] in psh.FUSED_QKV))
+        pmesh.all_reduce_([o for o, s in zip(out, self.specs)
+                           if psh.tp_dim(s) is not None],
+                          group=self.mp.tp_group)
+        return out
+
+    def _shard(self, name: str, spec, value) -> torch.Tensor:
+        """This rank's shard of a whole leaf read from a file."""
+        return torch.as_tensor(psh.shard_leaf(
+            np.asarray(value), spec, self.tp, self.mp.tp_rank,
+            name.split("/")[-1] in psh.FUSED_QKV))
+
+    def full_params(self) -> Dict:
+        """The whole parameter tree in the JAX layout (a collective over
+        the tp group under tensor parallelism)."""
+        return _tree(self.names, self._gather(self.opt.params))
 
     # -- checkpointing ---------------------------------------------------
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
@@ -125,44 +210,53 @@ class Trainer:
         returns once the files are there."""
         name = tag or self.tcfg.checkpoint_filename
         path = os.path.join(self.tcfg.out_dir, f"{name}.npz")
+        params = self.full_params()
+        state = self.opt.state_dict()
+        state.update({k: self._gather(state[k]) for k in ("mu", "nu", "acc")})
         if pmesh.is_master():
-            ckpt.save_params_npz(path, self.params,
+            ckpt.save_params_npz(path, params,
                                  meta={"iter_num": self.iter_num,
                                        "model_args": self.mcfg.__dict__,
                                        "config": self.tcfg.__dict__})
             ckpt.save_opt_state(os.path.join(self.tcfg.out_dir,
                                              f"{name}.adamw.npz"),
-                                self.names, self.opt.state_dict())
+                                self.names, state)
         pmesh.barrier()
         return path
 
     @torch.no_grad()
     def load_checkpoint(self, path: str) -> None:
         """Params and ``iter_num`` from ``path`` (written by either
-        package); the optimizer from the port's ``.adamw.npz`` beside it,
-        or afresh where there is none."""
+        package, at any tp); the optimizer from the port's ``.adamw.npz``
+        beside it, or afresh where there is none.  Each rank keeps its
+        shard."""
         saved = ckpt.flatten_pytree(ckpt.load_params_npz(path))
         if saved.keys() != set(self.names):
             raise ValueError(f"{path}: parameters {sorted(saved)} are not "
                              f"the model's {sorted(self.names)}")
-        for name, p in zip(self.names, self.opt.params):
-            p.copy_(torch.as_tensor(saved[name]))
+        for name, spec, p in zip(self.names, self.specs, self.opt.params):
+            p.copy_(self._shard(name, spec, saved[name]))
         self.iter_num = int(ckpt.load_meta(path).get("iter_num", 0))
         opt_path = path[:-len(".npz")] + ".adamw.npz"
-        reduce = self.opt.reduce
-        self.opt = AdamW(self.tcfg, self.opt.params, self.opt.decay)
-        self.opt.reduce = reduce
+        old = self.opt
+        self.opt = AdamW(self.tcfg, old.params, old.decay)
+        self.opt.reduce, self.opt.sharded, self.opt.norm_reduce = (
+            old.reduce, old.sharded, old.norm_reduce)
         if os.path.exists(opt_path):
-            self.opt.load_state_dict(ckpt.load_opt_state(opt_path,
-                                                         self.names))
+            state = ckpt.load_opt_state(opt_path, self.names)
+            for k in ("mu", "nu", "acc"):
+                state[k] = [self._shard(n, s, v) for n, s, v in
+                            zip(self.names, self.specs, state[k])]
+            self.opt.load_state_dict(state)
 
     # -- steps -----------------------------------------------------------
     def rows(self, batch) -> Tuple:
-        """This rank's block of a global batch's rows (all of it on one
-        rank)."""
+        """This rank's block of a global batch's rows: its dp index's
+        (all of it on one dp rank)."""
         if self.dp == 1:
             return tuple(batch)
-        rows = dp_rows(np.asarray(batch[0]).shape[0], self.rank, self.dp)
+        rows = dp_rows(np.asarray(batch[0]).shape[0], self.mp.dp_rank,
+                       self.dp)
         return tuple(np.asarray(a)[rows] for a in batch)
 
     def loss(self, batch, train: bool) -> torch.Tensor:
@@ -179,7 +273,7 @@ class Trainer:
         if self.dp > 1:
             counts = dec.loss_counts(targets, self.mcfg, self._n_heads,
                                      segments)
-            pmesh.all_reduce_([counts])
+            pmesh.all_reduce_([counts], group=self.mp.dp_group)
         emb = build_decoder_inputs(self.text_table, self.codebook, text_ids,
                                    targets, self.mcfg, pos_ids=positions)
         return self.model(emb.to(self.compute_dtype), targets,
@@ -188,9 +282,10 @@ class Trainer:
                           segments=segments, counts=counts)
 
     def _global(self, loss: torch.Tensor) -> float:
-        """The whole batch's loss from this rank's share."""
+        """The whole batch's loss from this rank's share (summed over the
+        dp group; the ranks of a tp group hold the same share)."""
         loss = loss.detach().reshape(1).clone()
-        pmesh.all_reduce_([loss])
+        pmesh.all_reduce_([loss], group=self.mp.dp_group)
         return float(loss[0])
 
     def step(self, text_ids: np.ndarray, targets: np.ndarray,
@@ -258,7 +353,7 @@ class Trainer:
                 tokens = text_ids.shape[0] * text_ids.shape[1] * n_iters
                 mfu = estimate_mfu(self.mcfg, self.n_params, tokens,
                                    max(dt, 1e-9),
-                                   peak=H100_PEAK_FLOPS * self.dp,
+                                   peak=H100_PEAK_FLOPS * self.dp * self.tp,
                                    seq_len=text_ids.shape[1])
                 if not master:
                     continue

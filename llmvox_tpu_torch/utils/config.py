@@ -242,11 +242,11 @@ class ServeConfig:
 class TrainConfig:
     """Decoder-training knobs, the same fields and defaults as the JAX
     package's TrainConfig.  The port's ``train/trainer.py::Trainer`` trains
-    data-parallel over the ranks of a ``torchrun`` launch: ``dp_size`` -1
-    (the default) is the launch's world size, one rank without
-    ``torchrun``, and any other value must equal it.  It refuses a
-    ``tp_size``, ``sp_size`` or ``fsdp`` that needs more (ROADMAP item
-    10)."""
+    over the ranks of a ``torchrun`` launch, split into ``dp_size`` x
+    ``tp_size`` (Megatron tensor parallelism, tp innermost): ``dp_size``
+    -1 (the default) is the launch's world over ``tp_size``, one rank
+    without ``torchrun``, and any other value must make the world.  It
+    refuses ``sp_size`` > 1 and ``fsdp`` (ROADMAP queue 1 item 10)."""
 
     # System
     dtype: str = "bfloat16"
@@ -294,9 +294,10 @@ class TrainConfig:
     lr_decay_iters: int = 2_600_000
     min_lr: float = 3e-6
 
-    # Parallelism: data-parallel size -1 means "all devices" (one, here);
-    # sequence parallelism (sp_size, sp_layout "ring" or "zigzag") and
-    # fsdp are the JAX package's multi-device paths
+    # Parallelism: data-parallel size -1 means "the world over tp_size";
+    # tp_size splits each replica over that many ranks (Megatron); sequence
+    # parallelism (sp_size, sp_layout "ring" or "zigzag") and fsdp are the
+    # JAX package's multi-device paths still to port (ROADMAP item 10)
     dp_size: int = -1
     tp_size: int = 1
     sp_size: int = 1

@@ -1,0 +1,48 @@
+"""Profiler helpers: a device trace around a block of work, and named
+spans inside it.
+
+Counterpart of ``llmvox_tpu/utils/runtime.py``'s ``profile_trace`` and
+``annotate`` (``jax.profiler.trace`` and ``TraceAnnotation``), on
+``torch.profiler``: the trace records the host's ops and, on a card, the
+CUDA kernels (CUPTI), and is written as a Chrome trace (``trace.json``
+under ``out_dir``) that Perfetto or ``chrome://tracing`` loads; each
+``annotate`` span is a ``record_function`` range in it.  JAX's
+``enable_compilation_cache`` has no counterpart: the built kernels stay
+in ``ops/build.py``'s directory, and CUDA graphs are captured at warmup.
+
+    with profile_trace("trace_dir"):
+        with annotate("tts"):
+            engine.tts("hello")
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+from typing import Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: Optional[str] = None) -> Iterator:
+    """Profile the block and write ``<out_dir>/trace.json`` when it ends
+    (``out_dir`` defaults to a fresh temporary directory); the device's
+    kernels are in it when a card is present.  Yields the
+    ``torch.profiler.profile``, whose ``trace_path`` names the file once
+    the block has ended."""
+    out_dir = out_dir or tempfile.mkdtemp(prefix="llmvox_trace_")
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.trace_path = os.path.join(out_dir, "trace.json")
+    with prof:
+        yield prof
+    prof.export_chrome_trace(prof.trace_path)
+
+
+def annotate(name: str):
+    """A named span in the trace (``torch.profiler.record_function``)."""
+    return torch.profiler.record_function(name)

@@ -124,7 +124,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "codec.stoi", "codec.metrics", "codec.eval",
                   "codec.utmos", "codec.entropy", "codec.lm",
                   "codec.compress", "parallel", "parallel.mesh",
-                  "parallel.sharding", "parallel.launch"):
+                  "parallel.sharding", "parallel.launch",
+                  "parallel.tensor_parallel", "utils.runtime",
+                  "tools.validate_parity", "serve.ui"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke"]:
             importlib.import_module(n)

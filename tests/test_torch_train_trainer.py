@@ -222,9 +222,10 @@ def test_average_and_partial_checkpoints_match_jax(tmp_path):
 
 
 def test_estimate_mfu_and_refusals():
-    """JAX's formula against the H100's dense bf16 peak (989e12); tensor
-    and sequence parallelism and FSDP (ROADMAP item 10), a dp_size that is
-    not the launch's world size, and a card that is not there refused."""
+    """JAX's formula against the H100's dense bf16 peak (989e12);
+    sequence parallelism and FSDP (ROADMAP item 10), a tp_size that does
+    not split the launch's world, a dp_size that is not the launch's
+    world size, and a card that is not there refused."""
     cfg = _port(TINY, tconfig.DecoderConfig)
     assert ttrainer.H100_PEAK_FLOPS == 989e12
     for t in (16, 0):
@@ -234,7 +235,7 @@ def test_estimate_mfu_and_refusals():
             rtol=1e-12)
     table, codebook = _tables()
     for bad, match in ((dict(dp_size=2), "world of 1"),
-                       (dict(tp_size=2), "item 10"),
+                       (dict(tp_size=2), "tp_size=2"),
                        (dict(sp_size=2), "item 10"),
                        (dict(fsdp=True), "item 10")):
         with pytest.raises(ValueError, match=match):
