@@ -14,8 +14,9 @@
         # blocks launched on the loop, a thread per replica or the card's
         # dispatch thread, in turns, with and without the lag ticker
     python3 chip_smoke.py --phase22
-        # the build and phase 22 alone (data and tensor parallelism over
-        # every card up to 4: NCCL on a host with four cards)
+        # the build and phase 22 alone (data, tensor and sequence
+        # parallelism and FSDP over every card up to 4: NCCL on a host
+        # with four cards)
 
 Phases, each of which raises on failure (exit code non-zero, no result):
   1. the card's name and power limit; build every kernel from the sources
@@ -94,7 +95,7 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      f32 rounds on the dedicated replicas, a 16-slot pool, the spec pool
      on the (0, 2, 4) ladder and a w4 pool, each with graphs and eagerly
      (the same chunks and tokens, PCM max |diff| <= 1e-5, printed); then
-     bf16 turns (graphs, eager, eager, graphs) without the lag ticker:
+     one bf16 turn with graphs and one eagerly, without the lag ticker:
      TTFA and RTF on the replicas, TTFA, aggregate and host ms per step
      at 4 and 8 concurrent requests on a 16-slot pool.
  14. ``/tts`` from the in-framework Llama (``streams/llm.py``) at the
@@ -278,6 +279,19 @@ Phases, each of which raises on failure (exit code non-zero, no result):
      held so too); each rank's weight and KV bytes against
      one process's, the prefill logits' gap, every kernel's launches on
      the tp path (0);
+     then in the same ranks sequence parallelism and FSDP (``_sp_rank``,
+     ``_sp_one``; ``sp_layouts``): the decoder trainer at
+     ``DecoderConfig()`` with 4 draft heads, f32, 2 rows at T=2048,
+     accumulation 2, two updates, at sp 2 ring, sp 2 zigzag and FSDP at
+     dp 2 on one card (two gloo ranks: the rotation, all-gather and
+     reduce-scatter take the all-reduce route), or dp 2 x sp 2 with FSDP,
+     sp 4 zigzag and sp 2 x tp 2 on four (NCCL: the native route), each
+     held to one process as above, each rank's parameter and moment bytes
+     beside one process's; then a bf16 update at T=8192, B=2 at sp = world
+     (ring and zigzag on one card, zigzag on four), timed beside one
+     process's (cuDNN's SDPA), each rank's peak device memory beside one
+     process's; the route printed, every kernel's launches on the sp /
+     fsdp path (0);
      (b) the dp-sharded ``DecodePool`` at ``DecoderConfig()``, 16 slots
      over the ranks' devices (the same card twice on one card), EOA off,
      a length cap of 96: three f32 ``/tts`` through ``build_server``, each
@@ -3805,8 +3819,8 @@ def phase_graphs(engines, weights, device="cuda") -> dict:
     dedicated replicas (one request), a 16-slot pool, the spec pool on the
     (0, 2, 4) ladder and a 16-slot w4 pool (4 concurrent requests each):
     the same chunks, the same tokens on every served stream, PCM within
-    1e-5.  bf16, in turns graph, eager, eager, graph, without the lag
-    ticker: TTFA and RTF on the dedicated replicas (3 requests), TTFA,
+    1e-5.  bf16, one turn with graphs and one eagerly (each warmed by an
+    untimed request first), without the lag ticker: TTFA and RTF on the dedicated replicas (3 requests), TTFA,
     aggregate and the host ms per pool step at 4 and 8 concurrent
     requests on a 16-slot pool (EOA off).  ``engines`` are phase 3's bf16
     replicas, which serve through graphs."""
@@ -3855,7 +3869,7 @@ def phase_graphs(engines, weights, device="cuda") -> dict:
         _serve(no_eoa, pool, "pool", 4)
         built[on] = (eng, pool)
     turns = {True: [], False: []}
-    for on in (True, False, False, True):
+    for on in (True, False):
         eng, pool = built[on]
         ded, _ = _serve(weights, eng, "dedicated", 3)
         rec = {"ttfa_ms": [r[2] * 1e3 for r in ded],
@@ -3875,7 +3889,7 @@ def phase_graphs(engines, weights, device="cuda") -> dict:
         rtf = [x for r in rs for x in r["rtf"]]
         summary = {"ttfa_ms": statistics.median(ttfa),
                    "rtf": statistics.median(rtf)}
-        text = (f"[graphs] bf16 {mode} (2 turns): dedicated TTFA median "
+        text = (f"[graphs] bf16 {mode} (1 turn): dedicated TTFA median "
                 f"{summary['ttfa_ms']:.1f} ms ({min(ttfa):.1f}-"
                 f"{max(ttfa):.1f}), RTF median {summary['rtf']:.3f} "
                 f"({min(rtf):.3f}-{max(rtf):.3f})")
@@ -6539,6 +6553,185 @@ def _tp_one(tp: dict, dev, small, one_params) -> dict:
     return out
 
 
+# phase 22's sequence-parallel and FSDP checks, in the same ranks
+SP_T = 2048               # the f32 checks' sequence width
+SP_BF16_T = 8192          # the timed bf16 update's: the deployed block
+SP_TIMED = 2              # timed bf16 updates, after one to warm up
+
+
+def sp_layouts(world: int) -> tuple:
+    """(the f32 checks' (name, TrainConfig fields), the names also timed
+    in bf16 at ``SP_BF16_T``): two ranks (one card, or two over NCCL) run
+    sp 2 ring and zigzag and FSDP at dp 2; four (NCCL) dp 2 x sp 2 with
+    FSDP, sp 4 zigzag and sp 2 x tp 2."""
+    if world == 2:
+        return ((("sp 2 ring", dict(sp_size=2)),
+                 ("sp 2 zigzag", dict(sp_size=2, sp_layout="zigzag")),
+                 ("fsdp dp 2", dict(fsdp=True))),
+                ("sp 2 ring", "sp 2 zigzag"))
+    assert world == 4, f"phase 22's sp checks run on 2 or 4 ranks, not {world}"
+    return ((("dp 2 x sp 2 fsdp", dict(sp_size=2, fsdp=True)),
+             ("sp 4 zigzag", dict(sp_size=4, sp_layout="zigzag")),
+             ("sp 2 x tp 2", dict(sp_size=2, tp_size=2))),
+            ("sp 4 zigzag",))
+
+
+def _sp_inputs(cfg=None, t: int = SP_T, n: int = 4, k: int = 2):
+    """``n`` bucketed micro-batches of 2 rows at T = ``t`` (packed ones do
+    not compose with sp), the deployed width with its draft heads, seeded
+    params, accumulation ``k``."""
+    from llmvox_tpu_torch.train.data import collate
+    from llmvox_tpu_torch.utils import params as P
+    from llmvox_tpu_torch.utils.config import DecoderConfig, TrainConfig
+    cfg = dataclasses.replace(cfg or DecoderConfig(),
+                              n_draft_heads=TRAIN_HEADS)
+    t = min(t, cfg.block_size)
+    tcfg = TrainConfig(batch_size=2, gradient_accumulation_steps=k,
+                       learning_rate=1e-3, warmup_iters=0, grad_clip=0.1,
+                       dp_size=-1)
+    rng = np.random.default_rng(23)
+    table = P.random_text_table(2, cfg)
+    codebook = rng.standard_normal(
+        (max(cfg.vocab_size, cfg.eoa_token_id + 1), cfg.speech_embed_dim)
+    ).astype(np.float32)
+    samples = synthetic_samples(2 * n, 230 + t, t - 1, cfg)
+    batches = [collate(samples[2 * i:2 * i + 2], cfg, bucket=t)
+               for i in range(n)]
+    assert all(b[0].shape == (2, t) for b in batches)
+    return cfg, tcfg, P.init_decoder_params(23, cfg), table, codebook, batches
+
+
+def _state_bytes(tr) -> tuple:
+    """(this rank's parameter bytes, its AdamW moments' bytes)."""
+    size = lambda ts: sum(x.numel() * x.element_size() for x in ts)  # noqa
+    return size(tr.opt.params), size(tr.opt.mu + tr.opt.nu)
+
+
+def _timed_updates(tr, batches) -> tuple:
+    """(ms of each update after the first, one micro-step each; the peak
+    device memory of this process over them, None off the card)."""
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    ms = []
+    for b in batches:
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        tr.step(*b)
+        _sync(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms[1:], (torch.cuda.max_memory_allocated(tr.device) if cuda
+                    else None)
+
+
+def _sp_rank(rank: int, world: int, dev, small) -> dict:
+    """The sequence-parallel and FSDP checks on one rank (the group still
+    formed): each of ``sp_layouts``' f32 trainers on the same inputs (rank
+    0 keeps its gathered params for ``_sp_one``), then the timed bf16
+    updates at ``SP_BF16_T``."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.train.trainer import Trainer
+    checks, timed = sp_layouts(world)
+    _zero_launches()
+    cfg, tcfg, params, table, codebook, batches = _sp_inputs(small[0])
+    out = {"route": pmesh.route(dev), "checks": {}, "timed": {},
+           "T": batches[0][0].shape[1]}
+    for name, kw in checks:
+        tr = Trainer(dataclasses.replace(tcfg, **kw), cfg, table, codebook,
+                     compute_dtype=torch.float32, device=dev, params=params)
+        losses, ms, _ = _dp_updates(tr, batches, lockstep=False)
+        res = {"losses": losses, "update_ms": ms,
+               "layout": f"dp {tr.dp} x sp {tr.sp} x tp {tr.tp}"
+                         + (" fsdp" if tr.fsdp else ""),
+               "bytes": _state_bytes(tr)}
+        full = tr._gather(tr.opt.params)
+        if rank == 0:
+            res["keep"] = [x.clone() for x in full]
+        out["checks"][name] = res
+        del tr, full
+    cfg16, tcfg16, params16, table16, codebook16, batches16 = _sp_inputs(
+        small[0], SP_BF16_T, SP_TIMED + 1, 1)
+    out["T_bf16"] = batches16[0][0].shape[1]
+    for name, kw in checks:
+        if name not in timed:
+            continue
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        tr = Trainer(dataclasses.replace(tcfg16, **kw), cfg16, table16,
+                     codebook16, compute_dtype=torch.bfloat16, device=dev,
+                     params=params16)
+        ms, peak = _timed_updates(tr, batches16)
+        out["timed"][name] = {"update_ms": ms, "peak_bytes": peak}
+        del tr
+    # one ring step's rotation over every rank at the timed shape: the
+    # bf16 (k, v) share forward, its f32 gradient backward
+    shape = (2, 2, out["T_bf16"] // world, cfg16.n_embd)
+    out["rotate_ms"] = {
+        str(dt).split(".")[-1]: (_rotate_ms(torch.zeros(
+            shape, dtype=dt, device=dev)), int(np.prod(shape)) * (
+                2 if dt == torch.bfloat16 else 4))
+        for dt in (torch.bfloat16, torch.float32)}
+    out["launches"] = _read_launches()
+    return out
+
+
+def _rotate_ms(x: torch.Tensor, reps: int = 5) -> float:
+    """The median ms of ``rotate(x)`` over every rank (after one to warm
+    up), synchronised."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    ms = []
+    for _ in range(reps + 1):
+        _sync(x.device)
+        t0 = time.perf_counter()
+        pmesh.rotate(x, None)
+        _sync(x.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:])
+
+
+def _sp_one(sp: dict, dev, small) -> dict:
+    """Rank 0, the group gone: one process on this card trains the same
+    f32 updates and holds every layout to it (the trainer bounds), then
+    times the bf16 update at ``SP_BF16_T`` with SDPA."""
+    from llmvox_tpu_torch.train.trainer import Trainer
+    cfg, tcfg, params, table, codebook, batches = _sp_inputs(small[0])
+    one = Trainer(dataclasses.replace(tcfg, dp_size=1), cfg, table,
+                  codebook, compute_dtype=torch.float32, device=dev,
+                  params=params)
+    start = [p.detach().clone() for p in one.opt.params]
+    l1, ms1, _ = _dp_updates(one, batches, lockstep=False)
+    moved = max(float((b.detach() - a).abs().max())
+                for a, b in zip(start, one.opt.params))
+    assert moved > 10 * TRAIN_PARAM_ATOL, moved
+    out = {"checks": {}, "one": {"update_ms": ms1,
+                                 "bytes": _state_bytes(one),
+                                 "param_moved": moved}}
+    for name, res in sp["checks"].items():
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], l1))
+        perr = max(float((a - b.detach()).abs().max())
+                   for a, b in zip(res.pop("keep"), one.opt.params))
+        assert lerr <= TRAIN_LOSS_RTOL, (name, res["losses"], l1)
+        assert perr <= TRAIN_PARAM_ATOL, (name, perr)
+        out["checks"][name] = dict(res, loss_rel_err=lerr,
+                                   param_abs_err=perr)
+    del one, start
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg16, tcfg16, params16, table16, codebook16, batches16 = _sp_inputs(
+        small[0], SP_BF16_T, SP_TIMED + 1, 1)
+    one16 = Trainer(dataclasses.replace(tcfg16, dp_size=1), cfg16, table16,
+                    codebook16, compute_dtype=torch.bfloat16, device=dev,
+                    params=params16)
+    ms, peak = _timed_updates(one16, batches16)
+    out["one"].update(bf16_update_ms=ms, bf16_peak_bytes=peak)
+    out.update(timed=sp["timed"], route=sp["route"], T=sp["T"],
+               T_bf16=sp["T_bf16"], launches=sp["launches"],
+               rotate_ms=sp["rotate_ms"])
+    return out
+
+
 def _dp_rank(rank: int, world: int, small=None) -> dict:
     """One rank of phase 22 (``parallel/launch.py::spawn``): the decoder
     and codec trainers data-parallel on this rank's card, lockstep after
@@ -6581,6 +6774,12 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
     t0 = time.perf_counter()
     tp = _tp_rank(rank, world, dev, small)
     out["tp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sp = _sp_rank(rank, world, dev, small)
+    out["sp_s"] = time.perf_counter() - t0
+    out["sp_rank"] = {"timed": sp["timed"],
+                      "bytes": {k: v["bytes"]
+                                for k, v in sp["checks"].items()}}
     dist.destroy_process_group()
     if rank:
         return out
@@ -6607,6 +6806,13 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
     out["tp"]["decoder"]["loss_rel_err"] = tlerr
     out["tp_s"] += time.perf_counter() - t0
     del one, tp
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["sp"] = _sp_one(sp, dev, small)
+    out["sp_s"] += time.perf_counter() - t0
+    del sp
     r32 = ct.CodecTrainer(ccfg, dataclasses.replace(ctcfg, dp_size=1),
                           device=dev, **state)
     logs1, cms1, embeds1, _ = _codec_steps(r32, audios)
@@ -6830,6 +7036,49 @@ def _log_tp(t: dict, ranks, backend: str, card: str) -> None:
         f"{[round(r['tp_s'], 1) for r in ranks]} s")
 
 
+def _log_sp(t: dict, ranks, backend: str, card: str) -> None:
+    """Phase 22's sequence-parallel and FSDP figures, each beside the
+    card."""
+    gb = 1e9
+    one = t["one"]
+    log(f"[sp] the rotation, all-gather and reduce-scatter took the "
+        f"{t['route']!r} route ({backend}; {card})")
+    for name, r in t["checks"].items():
+        per = [rk["sp_rank"]["bytes"][name] for rk in ranks]
+        log(f"[sp] decoder, DecoderConfig() with {TRAIN_HEADS} draft heads, "
+            f"f32, 2 x {t['T']} rows, k=2, 2 updates, {name} "
+            f"({r['layout']}): losses' rel err {r['loss_rel_err']:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}), params' max|err| "
+            f"{r['param_abs_err']:.2e} (tol {TRAIN_PARAM_ATOL:.0e}; moved "
+            f"up to {one['param_moved']:.2e}) against one process on the "
+            f"same card; each rank's params + moments "
+            f"{[f'{p / gb:.4f} + {m / gb:.4f}' for p, m in per]} GB, one "
+            f"process's {one['bytes'][0] / gb:.4f} + "
+            f"{one['bytes'][1] / gb:.4f} GB; ms an update (the second) "
+            f"{r['update_ms'][1]:.1f}, one process "
+            f"{one['update_ms'][1]:.1f} ({backend}; {card})")
+    for name, r in t["timed"].items():
+        ms = [rk["sp_rank"]["timed"][name]["update_ms"] for rk in ranks]
+        peaks = [rk["sp_rank"]["timed"][name]["peak_bytes"] for rk in ranks]
+        log(f"[sp] bf16 update (one micro-step) at T={t['T_bf16']}, B=2, "
+            f"{name}: ms {[[round(x, 1) for x in m] for m in ms]} (each "
+            f"rank), one process (SDPA) "
+            f"{[round(x, 1) for x in one['bf16_update_ms']]}; peak device "
+            f"memory {[round(p / gb, 3) for p in peaks if p is not None]} "
+            f"GB each rank, one process "
+            f"{(one['bf16_peak_bytes'] or 0) / gb:.3f} GB "
+            f"({backend}; {card})")
+    rot = t["rotate_ms"]
+    log(f"[sp] one ring step's rotation over the {len(ranks)} ranks at "
+        f"T={t['T_bf16']}, B=2 ({t['route']!r} route): "
+        + ", ".join(f"{dt} {ms:.2f} ms ({nbytes / 1e6:.1f} MB a rank)"
+                    for dt, (ms, nbytes) in rot.items())
+        + f" ({backend}; {card})")
+    log(f"[sp] kernel launches on the sp / fsdp path (rank 0, counted): "
+        f"{t['launches']}; the ranks' sp checks took "
+        f"{[round(r['sp_s'], 1) for r in ranks]} s")
+
+
 def phase_dp(engines, weights, card: str, device="cuda", small=None,
              graphs=None) -> dict:
     """Phase 22: data and tensor parallelism on the card(s).  The trainers'
@@ -6873,10 +7122,12 @@ def phase_dp(engines, weights, card: str, device="cuda", small=None,
         f"(the second) world {world} {c['step_ms'][1]:.1f}, world 1 "
         f"{c['world1_step_ms'][1]:.1f} ({backend}; {card})")
     _log_tp(r0["tp"], ranks, backend, card)
+    _log_sp(r0["sp"], ranks, backend, card)
     train_s = time.perf_counter() - t0
     pool = _dp_pool(engines, weights, devices[:world], graphs)
     out = {"world": world, "backend": backend, "devices": devices,
-           "decoder": d, "codec": c, "tp": r0["tp"], "pool": pool,
+           "decoder": d, "codec": c, "tp": r0["tp"], "sp": r0["sp"],
+           "pool": pool,
            "train_s": train_s,
            "ranks": [{k: r[k] for k in ("rank", "device")} for r in ranks]}
     out["phase_s"] = time.perf_counter() - t0
@@ -7110,6 +7361,7 @@ def main(argv) -> int:
     moe_llm = dict(pool_llm)
     mesh_pool = dict(pool_llm)
     tp_path = dict(pool_llm)
+    sp_path = dict(pool_llm)
     if not kernels_only:
         engines, weights = phase_offline()
         lap("offline")
@@ -7194,6 +7446,8 @@ def main(argv) -> int:
                          k2=dp["pool"]["k2_shard_launches"])
         # phase 22's tensor-parallel checks on rank 0, counted from 0
         tp_path = dp["tp"]["launches"]
+        # and its sequence-parallel and FSDP checks
+        sp_path = dp["sp"]["launches"]
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -7207,6 +7461,7 @@ def main(argv) -> int:
              "moe_launches": moe_llm["k1"],
              "mesh_pool_launches": mesh_pool["k1"],
              "tp_launches": tp_path["k1"],
+             "sp_fsdp_launches": sp_path["k1"],
              "codec_train_launches": codec_launches["k1"],
              "codec_eval_launches": eval_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
@@ -7226,6 +7481,7 @@ def main(argv) -> int:
               "moe_launches": moe_llm["k2"],
               "mesh_pool_launches": mesh_pool["k2"],
               "tp_launches": tp_path["k2"],
+              "sp_fsdp_launches": sp_path["k2"],
               "codec_train_launches": codec_launches["k2"],
               "codec_eval_launches": eval_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
@@ -7244,6 +7500,7 @@ def main(argv) -> int:
               "moe_launches": moe_llm["k3"],
               "mesh_pool_launches": mesh_pool["k3"],
               "tp_launches": tp_path["k3"],
+              "sp_fsdp_launches": sp_path["k3"],
               "codec_train_launches": codec_launches["k3"],
               "codec_eval_launches": eval_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
@@ -7264,6 +7521,7 @@ def main(argv) -> int:
               "moe_launches": moe_llm["k4"],
               "mesh_pool_launches": mesh_pool["k4"],
               "tp_launches": tp_path["k4"],
+              "sp_fsdp_launches": sp_path["k4"],
               "codec_train_launches": codec_launches["k4"],
               "codec_eval_launches": eval_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",

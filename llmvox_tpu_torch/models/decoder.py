@@ -39,10 +39,17 @@ Quantized params (``ops/quant.py``, ``--quantize``) flow through every
 path unchanged: ``v[layer]`` of a stacked container is that layer's 2-D
 container, ``nn.linear`` dispatches on it (w4 through kernel K4), and the
 head stays a weight-only int8 ``QuantizedTensor``.
+
+Training runs on one rank's share of the work: its Megatron shard of the
+params (``tp``), its dp shards gathered where they are used (``fsdp``),
+and under sequence parallelism its share of the sequence (``seq_share``:
+the rows' global positions index ``wpe`` and the dropout masks, and the
+attention is the ring of ``ops/ring_attention.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -56,7 +63,11 @@ from llmvox_tpu_torch.ops import cuda_attn, cuda_batched_attn, \
 from llmvox_tpu_torch.ops.attention import causal_attention_auto, \
     segment_mask
 from llmvox_tpu_torch.models.spec import run_spec_loop
+from llmvox_tpu_torch.ops.ring_attention import (check_seq, ring_attention,
+                                                 zigzag_permutation)
+from llmvox_tpu_torch.parallel import mesh as pmesh
 from llmvox_tpu_torch.parallel import tensor_parallel as tpar
+from llmvox_tpu_torch.parallel.sharding import dp_rows
 from llmvox_tpu_torch.utils.config import DecoderConfig
 from llmvox_tpu_torch.utils.graphs import register_counter
 
@@ -636,18 +647,22 @@ def _drop(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, p: Dict, cfg: DecoderConfig,
-           keep: Optional[Tuple[torch.Tensor, torch.Tensor]],
-           segments: Optional[torch.Tensor],
-           mask: Optional[torch.Tensor], tp=None) -> torch.Tensor:
+           keep: Optional[Tuple[torch.Tensor, torch.Tensor]], attn,
+           tp=None, fsdp=None) -> torch.Tensor:
     """One pre-LN transformer block over (B, T, C); ``keep`` holds the
-    block's two residual dropout masks, drawn by the caller, and ``mask``
-    the packed batch's attention mask on the card, built once by the
-    caller.  ``tp``: a tensor-parallel group over which ``p`` is this
-    rank's shard (``parallel/sharding.py::shard_decoder``): its heads of
-    the fused QKV (column-parallel, cut by heads) and of ``wo``
+    block's two residual dropout masks, drawn by the caller, and ``attn``
+    the (B, T, H, D) q/k/v -> (B, T, H, D) attention the caller chose
+    (``_attention``).  ``tp``: a tensor-parallel group over which ``p`` is
+    this rank's shard (``parallel/sharding.py::shard_decoder``): its heads
+    of the fused QKV (column-parallel, cut by heads) and of ``wo``
     (row-parallel), its columns of ``wfc`` and rows of ``wproj``; the
     row-parallel products are summed over the group before their biases,
-    which are added once."""
+    which are added once.  ``fsdp`` (``parallel/sharding.py::FSDP``):
+    ``p``'s matrices are this rank's dp shards, gathered here, in the
+    block, so that a block recomputed in the backward pass gathers them
+    again."""
+    if fsdp is not None:
+        p = fsdp.layer(p)
     b, t, _ = x.shape
     hnorm = tpar.copy_to_tp(nn.layer_norm(x, p["ln1_s"], p.get("ln1_b"),
                                           cfg.ln_eps), tp)
@@ -655,8 +670,7 @@ def _block(x: torch.Tensor, p: Dict, cfg: DecoderConfig,
     shape = (b, t, -1, cfg.head_dim)
     q, k, v = (z.reshape(shape) for z in qkv.split(qkv.shape[-1] // 3,
                                                       dim=-1))
-    a = causal_attention_auto(q, k, v, segments=segments,
-                              mask=mask).reshape(b, t, -1)
+    a = attn(q, k, v).reshape(b, t, -1)
     a = _row_parallel(a, p["wo"], p.get("bo"), tp)
     if keep is not None:
         a = _drop(a, keep[0], cfg.dropout)
@@ -668,6 +682,51 @@ def _block(x: torch.Tensor, p: Dict, cfg: DecoderConfig,
     if keep is not None:
         m = _drop(m, keep[1], cfg.dropout)
     return x + m
+
+
+class SeqShare(NamedTuple):
+    """This rank's share of the sequence axis (``seq_share``): ``rows``
+    (Tc,) the global positions of its rows, in its order; ``t`` the
+    global width; ``group`` the sequence-parallel group whose ring runs
+    the attention (None: one process holding every row, permuted, the
+    attention masked causally on ``rows``); ``layout`` "ring" or
+    "zigzag"."""
+    rows: torch.Tensor
+    t: int
+    group: object
+    layout: str
+
+
+def seq_share(t: int, device, sp=None, layout: str = "ring",
+              perm=None) -> SeqShare:
+    """The rows of a T-wide sequence this rank holds: block i of
+    ``perm``'s order (the identity by default; ``zigzag_permutation(t,
+    n)`` under the zigzag layout) on sp index i of ``sp``, as JAX's
+    ``P(dp, sp)`` splits the permuted sequence (``parallel/sharding.py::
+    batch_seq_sharding``).  T must divide as JAX's ring requires."""
+    n = tpar.size(sp)
+    check_seq(t, n, layout)
+    if perm is None and layout == "zigzag":
+        perm = zigzag_permutation(t, n)[0]
+    order = (torch.arange(t) if perm is None
+             else torch.as_tensor(np.asarray(perm), dtype=torch.long))
+    i = pmesh.group_rank(sp) if n > 1 else 0
+    return SeqShare(order[dp_rows(t, i, n)].to(device), t,
+                    sp if n > 1 else None, layout)
+
+
+def _attention(share: Optional[SeqShare], segments, mask):
+    """The blocks' attention: the ring over ``share``'s group, attention
+    causal on its global positions for one process holding permuted rows,
+    else ``causal_attention_auto`` (packed batches through ``segments``,
+    ``mask`` their SDPA mask on the card)."""
+    if share is not None and share.group is not None:
+        return functools.partial(ring_attention, group=share.group,
+                                 layout=share.layout)
+    if share is not None:
+        mask = share.rows[:, None] >= share.rows[None, :]
+    return functools.partial(causal_attention_auto, segments=segments,
+                             mask=mask)
 
 
 def _row_parallel(x: torch.Tensor, w: torch.Tensor,
@@ -684,7 +743,8 @@ def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
                   generator: Optional[torch.Generator] = None,
                   train: bool = False, return_hidden: bool = False,
                   positions: Optional[torch.Tensor] = None,
-                  segments: Optional[torch.Tensor] = None, tp=None):
+                  segments: Optional[torch.Tensor] = None, tp=None,
+                  share: Optional[SeqShare] = None, fsdp=None):
     """(B, T, C) fused input embeddings -> (B, T, vocab) f32 logits, causal.
 
     The compute dtype is ``emb``'s: f32 params are cast into each product.
@@ -704,33 +764,47 @@ def apply_decoder(params: Dict, emb: torch.Tensor, cfg: DecoderConfig, *,
     shard (``_block``); the embeddings, norms, head and draft heads are
     whole on every rank, and so are the activations between blocks, so
     the ranks of a group draw the same dropout masks from generators
-    seeded alike."""
+    seeded alike.  ``share`` (``seq_share``): ``emb`` holds this rank's
+    rows of a longer sequence; ``wpe`` is indexed by their global
+    positions, each dropout mask is drawn for the whole sequence and cut
+    to them (so the ranks of one sequence drop what one process would),
+    and the attention is the ring over its group.  ``fsdp``
+    (``parallel/sharding.py::FSDP``): the matrices are this rank's dp
+    shards, each gathered where it is used."""
     b, t, c = emb.shape
     use_dropout = train and cfg.dropout > 0.0 and generator is not None
-    wpe = (params["wpe"][:t] if positions is None
-           else params["wpe"][positions.long()])
+    wpe = params["wpe"] if fsdp is None else fsdp.leaf("wpe", params["wpe"])
+    if share is not None:
+        wpe = wpe[share.rows]
+    else:
+        wpe = wpe[:t] if positions is None else wpe[positions.long()]
     x = emb + wpe.to(emb.dtype)
     keeps: List = [None] * cfg.n_layer
     if use_dropout:
         def draw():
-            return torch.rand((b, t, c), generator=generator,
+            keep = torch.rand((b, t if share is None else share.t, c),
+                              generator=generator,
                               device=emb.device) < 1.0 - cfg.dropout
+            return keep if share is None else keep[:, share.rows]
         x = _drop(x, draw(), cfg.dropout)
         keeps = [(draw(), draw()) for _ in range(cfg.n_layer)]
     # SDPA's boolean mask of a packed batch, (B, 1, T, T): built once here,
     # not in every layer and every recomputed block
     mask = (segment_mask(t, segments, emb.device)
             if segments is not None and emb.is_cuda else None)
+    attn = _attention(share, segments, mask)
     h = params["h"]
     for layer in range(cfg.n_layer):
         p = {k: v[layer] for k, v in h.items()}
         if cfg.remat_layers and torch.is_grad_enabled():
-            x = checkpoint(_block, x, p, cfg, keeps[layer], segments, mask,
-                           tp, use_reentrant=False)
+            x = checkpoint(_block, x, p, cfg, keeps[layer], attn, tp, fsdp,
+                           use_reentrant=False)
         else:
-            x = _block(x, p, cfg, keeps[layer], segments, mask, tp)
+            x = _block(x, p, cfg, keeps[layer], attn, tp, fsdp)
     x = nn.layer_norm(x, params["lnf_s"], params.get("lnf_b"), cfg.ln_eps)
-    logits = nn.linear(x, params["head"]).float()
+    head = (params["head"] if fsdp is None
+            else fsdp.leaf("head", params["head"]))
+    logits = nn.linear(x, head).float()
     if return_hidden:
         return logits, x
     return logits
@@ -783,7 +857,8 @@ def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  segments: Optional[torch.Tensor] = None,
                  counts: Optional[torch.Tensor] = None,
-                 perm=None, tp=None) -> torch.Tensor:
+                 perm=None, tp=None, sp=None, sp_layout: str = "ring",
+                 fsdp=None) -> torch.Tensor:
     """Cross-entropy with ``ignore_index``; with draft heads
     (``params["draft_heads"]``) plus ``MTP_WEIGHT`` times their mean loss,
     head j predicting the target j+1 further ahead from the same hidden
@@ -791,28 +866,50 @@ def decoder_loss(params: Dict, emb: torch.Tensor, targets: torch.Tensor,
     ignored.  ``counts`` (``loss_counts`` summed over data-parallel ranks)
     divides each term in place of this batch's own counts.  ``tp``: a
     tensor-parallel group over which ``params`` is this rank's shard
-    (``apply_decoder``).  ``perm`` (the zigzag layout of sequence
-    parallelism) is the JAX package's multi-device path: ROADMAP item
-    10."""
-    if perm is not None:
-        raise NotImplementedError(
-            "decoder_loss(perm=...) is the zigzag sequence-parallel layout, "
-            "not ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
+    (``apply_decoder``); ``fsdp``: the matrices are dp shards.
+
+    Sequence parallelism: ``emb`` and ``targets`` hold the whole
+    sequence; ``sp`` (a group) runs the model on this rank's share of it
+    (``seq_share``: its contiguous block under ``sp_layout`` "ring", its
+    block of the zigzag permutation under "zigzag") with the ring
+    attention, and the loss is this rank's share of the terms (pass the
+    whole batch's ``counts``).  ``perm`` (JAX's ``decoder_loss(perm=)``)
+    reorders the sequence first; on one process (no ``sp``) the rows run
+    permuted with the attention causal on their original positions,
+    which gives the unpermuted loss.  Either way the draft heads' shifted
+    targets are built in the original order before any permutation or
+    cut (``t + shift`` means the adjacent original position), as JAX's
+    are.  Packed batches are refused there, as JAX asserts
+    (``llmvox_tpu/models/decoder.py:120-121, 241``)."""
     n_heads = (params["draft_heads"].shape[0]
                if "draft_heads" in params else 0)
     shifted = _shifted_targets(targets, cfg, n_heads, segments)
+    share = None
+    if perm is not None or tpar.active(sp):
+        if segments is not None or positions is not None:
+            raise ValueError(
+                "packed batches (segments, positions) do not compose with "
+                "sequence parallelism or the zigzag perm: JAX asserts "
+                "'packed segments need the default attention' and 'zigzag "
+                "perm is not composable with packed batches' "
+                "(llmvox_tpu/models/decoder.py:120-121, 241)")
+        share = seq_share(targets.shape[1], emb.device, sp, sp_layout, perm)
+        emb = emb[:, share.rows]
+        targets, *shifted = (z[:, share.rows] for z in [targets] + shifted)
     cnt = [None] * (1 + n_heads) if counts is None else list(counts)
     kw = dict(generator=generator, train=train, positions=positions,
-              segments=segments, tp=tp)
+              segments=segments, tp=tp, share=share, fsdp=fsdp)
     if n_heads == 0:
         logits = apply_decoder(params, emb, cfg, **kw)
         return _masked_ce(logits, targets, cfg.ignore_index, cnt[0])
     logits, hidden = apply_decoder(params, emb, cfg, return_hidden=True,
                                    **kw)
     loss = _masked_ce(logits, targets, cfg.ignore_index, cnt[0])
+    heads = (params["draft_heads"] if fsdp is None
+             else fsdp.leaf("draft_heads", params["draft_heads"]))
     aux = 0.0
     for j in range(n_heads):
-        lj = nn.linear(hidden, params["draft_heads"][j]).float()
+        lj = nn.linear(hidden, heads[j]).float()
         aux = aux + _masked_ce(lj, shifted[j], cfg.ignore_index, cnt[1 + j])
     return loss + MTP_WEIGHT * aux / n_heads
 
@@ -840,13 +937,15 @@ class DecoderModel(torch.nn.Module):
     ``tree()`` returns that tree of parameters, which ``decoder_loss`` and
     the serving functions (``decode_block``, ``sample_block``) take as
     they take any params tree.  ``tp``: a tensor-parallel group over which
-    ``params`` is this rank's shard (``decoder_loss``)."""
+    ``params`` is this rank's shard, ``fsdp`` the FSDP gather of its dp
+    shards (``decoder_loss``)."""
 
     def __init__(self, params: Dict, cfg: DecoderConfig, device="cpu",
-                 tp=None):
+                 tp=None, fsdp=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.fsdp = fsdp
         self.top = torch.nn.ParameterDict(
             {k: _parameter(v, device) for k, v in params.items()
              if k != "h"})
@@ -859,4 +958,4 @@ class DecoderModel(torch.nn.Module):
     def forward(self, emb: torch.Tensor, targets: torch.Tensor, **kw
                 ) -> torch.Tensor:
         return decoder_loss(self.tree(), emb, targets, self.cfg, tp=self.tp,
-                            **kw)
+                            fsdp=self.fsdp, **kw)

@@ -125,16 +125,18 @@ def segment_mask(t: int, segments: Optional[torch.Tensor], device
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     segments: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     segments: Optional[torch.Tensor] = None,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, T, H, D) q/k/v -> (B, T, H, D), causal, softmax in f32.
 
     ``segments`` (B, T): block-diagonal-causal masking for packed batches
-    (``train/data.py::collate_packed``)."""
+    (``train/data.py::collate_packed``); ``mask`` (T, T) or (B, 1, T, T),
+    True where a query attends a key, replaces both."""
     t, d = q.shape[1], q.shape[-1]
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (
         1.0 / math.sqrt(d))
-    mask = segment_mask(t, segments, q.device)
+    if mask is None:
+        mask = segment_mask(t, segments, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", w, v)
@@ -199,19 +201,22 @@ def causal_attention_auto(q: torch.Tensor, k: torch.Tensor,
     ``scaled_dot_product_attention``, causal without segments and with the
     boolean causal & same-segment mask with them, no attention dropout;
     ``mask`` is that mask when the caller built it once for every layer
-    (``segment_mask``).  Elsewhere JAX's choice: the naive path for short
+    (``segment_mask``), or any boolean (T, T) mask with a key in every
+    row, on every device.  Elsewhere JAX's choice: the naive path for short
     sequences, blockwise tiles above 1024 positions when T divides by
     256."""
     t = q.shape[1]
     if q.is_cuda:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if segments is None:
+        if segments is None and mask is None:
             o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         else:
             if mask is None:
                 mask = segment_mask(t, segments, q.device)
             o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         return o.transpose(1, 2)
+    if mask is not None:
+        return causal_attention(q, k, v, mask=mask)
     if t > 1024 and t % 256 == 0:
         return flash_causal_attention(q, k, v, segments=segments)
     return causal_attention(q, k, v, segments=segments)

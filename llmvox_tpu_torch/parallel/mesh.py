@@ -17,15 +17,21 @@ idiom differs in two places, and the port follows it:
   process group.  ``initialize_distributed`` forms that group.
 
 Data parallelism and Megatron tensor parallelism need only
-``all_reduce`` and ``broadcast``: both NCCL and gloo carry them on CUDA
-tensors, so two gloo ranks can share one card (NCCL refuses two ranks on
-one GPU).  ``gather_rows`` is therefore an ``all_reduce`` of a
-zero-filled buffer, not an ``all_gather``.
+``all_reduce``, ``broadcast`` and an all-gather of rows (``gather_rows``);
+sequence parallelism and FSDP a ring rotation (``ppermute``, JAX's
+``lax.ppermute``), an all-gather and a reduce-scatter along one
+dimension.  NCCL and gloo both carry ``all_reduce`` and ``broadcast`` on
+CUDA tensors, so two gloo ranks can share one card (NCCL refuses two
+ranks on one GPU).  The rest takes one of two routes, chosen by the
+backend and the tensor's device (``route``):
+the op itself (``"native"``: NCCL, or gloo on CPU tensors) or an
+``all_reduce`` of a zero-filled buffer (``"all_reduce"``: gloo on CUDA
+tensors, which carries nothing else), bitwise equal for the rotation and
+the gather because adding zeros changes no bit (but a -0.0's sign).
 
-A launch of ``dp * tp`` ranks splits into tensor-parallel groups of
-``tp`` consecutive ranks and data-parallel groups of the ranks with the
-same tp index, tp innermost as JAX's ``create_mesh`` orders its axes:
-rank r is tp index ``r % tp`` and dp index ``r // tp``
+A launch of ``dp * sp * tp`` ranks is ordered as JAX's ``create_mesh``
+orders its axes (dp, sp, ep, tp), tp innermost: rank r is tp index
+``r % tp``, sp index ``(r // tp) % sp`` and dp index ``r // (tp * sp)``
 (``initialize_model_parallel``).  The collectives take a ``group``
 (None: every rank; ``LOCAL``: this rank alone, a no-op).
 """
@@ -179,22 +185,29 @@ def barrier() -> None:
         dist.barrier()
 
 
-def data_parallel_size(dp_size: int, tp_size: int = 1) -> int:
+def data_parallel_size(dp_size: int, tp_size: int = 1,
+                       sp_size: int = 1) -> int:
     """The data-parallel ranks a trainer's ``dp_size`` runs on:
-    ``dp_size``, or the launch's world over ``tp_size`` for -1 (JAX's
-    "all devices" is one process's devices).  ``dp_size * tp_size`` must
-    be the world size: nothing falls back to fewer ranks."""
+    ``dp_size``, or the launch's world over ``tp_size * sp_size`` for -1
+    (JAX's "all devices" is one process's devices).  ``dp_size * sp_size
+    * tp_size`` must be the world size: nothing falls back to fewer
+    ranks."""
     w = world()
-    if tp_size < 1 or w % tp_size:
+    for name, n in (("tp_size", tp_size), ("sp_size", sp_size)):
+        if n < 1 or w % n:
+            raise ValueError(f"a world of {w} ranks does not split into "
+                             f"groups of {name}={n}")
+    if w % (tp_size * sp_size):
         raise ValueError(f"a world of {w} ranks does not split into "
-                         f"tensor-parallel groups of tp_size={tp_size}")
-    dp = w // tp_size if dp_size == -1 else dp_size
-    if dp * tp_size != w:
+                         f"groups of tp_size={tp_size} x sp_size={sp_size}")
+    inner = tp_size * sp_size
+    dp = w // inner if dp_size == -1 else dp_size
+    if dp * inner != w:
         raise ValueError(
-            f"dp_size={dp_size} x tp_size={tp_size} but the launch has a "
-            f"world of {w}: training runs one rank a card (torchrun "
-            "--nproc_per_node N), and dp_size -1 takes the world over "
-            "tp_size")
+            f"dp_size={dp_size} x sp_size={sp_size} x tp_size={tp_size} but "
+            f"the launch has a world of {w}: training runs one rank a card "
+            "(torchrun --nproc_per_node N), and dp_size -1 takes the world "
+            "over sp_size x tp_size")
     return dp
 
 
@@ -210,43 +223,71 @@ LOCAL = _Local()
 
 
 class ModelParallel(NamedTuple):
-    """The groups of one launch split as dp x tp (tp innermost): each
+    """The groups of one launch split as dp x sp x tp (tp innermost): each
     group's size, this rank's indices, and the process groups.  A group
     of this rank alone (the tp group at tp 1, the dp group at dp 1) is
-    ``LOCAL``, and the dp group at tp 1 is None (every rank), so any
-    group here can be handed to the collectives as it is."""
+    ``LOCAL``, and a group of every rank (the dp group at sp 1 and tp 1,
+    the batch group at tp 1) is None, so any group here can be handed to
+    the collectives as it is.  ``batch_group`` is the dp x sp ranks of
+    one tp index: the ranks whose shares of a batch make it whole, over
+    which a replicated leaf's gradient is summed."""
     dp: int
     tp: int
     dp_rank: int
     tp_rank: int
     dp_group: Optional[object]
     tp_group: object
+    sp: int = 1
+    sp_rank: int = 0
+    sp_group: object = None
+    batch_group: Optional[object] = None
 
 
-def initialize_model_parallel(tp_size: int = 1) -> ModelParallel:
-    """Split the launch's world into ``world / tp_size`` data-parallel
-    replicas of ``tp_size`` tensor-parallel ranks, as JAX's
-    ``create_mesh(dp_size=-1, tp_size=tp_size)`` orders a mesh: rank r is
-    tp index ``r % tp_size`` and dp index ``r // tp_size``.  Every rank
-    calls it, in the same order (``new_group`` is collective); each call
-    forms its own groups."""
+def _form(groups: List[List[int]], model: bool = False):
+    """Form every group of ``groups`` (every rank calls this in the same
+    order: ``new_group`` is collective) and return this rank's: ``LOCAL``
+    for a group of one rank, None for a group of every rank unless
+    ``model`` (a tensor-parallel group is always a group, since None
+    there means no tensor parallelism)."""
+    r, w = rank(), world()
+    mine = LOCAL
+    for ranks in groups:
+        if len(ranks) == 1:
+            continue
+        if len(ranks) == w and not model:
+            return None
+        g = dist.new_group(ranks)
+        if r in ranks:
+            mine = g
+    return mine
+
+
+def initialize_model_parallel(tp_size: int = 1,
+                              sp_size: int = 1) -> ModelParallel:
+    """Split the launch's world into ``world / (sp_size * tp_size)``
+    data-parallel replicas of ``sp_size`` sequence-parallel shares of
+    ``tp_size`` tensor-parallel ranks, as JAX's ``create_mesh(dp_size=-1,
+    tp_size=tp_size, sp_size=sp_size)`` orders a mesh (dp, sp, ep, tp):
+    rank r is tp index ``r % tp``, sp index ``(r // tp) % sp`` and dp
+    index ``r // (tp * sp)``.  Every rank calls it, in the same order
+    (``new_group`` is collective); each call forms its own groups."""
     w, r = world(), rank()
-    dp = data_parallel_size(-1, tp_size)
-    tp_group = dp_group = LOCAL
-    if tp_size > 1:
-        for i in range(dp):
-            g = dist.new_group(list(range(i * tp_size, (i + 1) * tp_size)))
-            if r // tp_size == i:
-                tp_group = g
-    if dp > 1 and tp_size == 1:
-        dp_group = None
-    elif dp > 1:
-        for j in range(tp_size):
-            g = dist.new_group(list(range(j, w, tp_size)))
-            if r % tp_size == j:
-                dp_group = g
-    return ModelParallel(dp, tp_size, r // tp_size, r % tp_size, dp_group,
-                         tp_group)
+    tp, sp = tp_size, sp_size
+    dp = data_parallel_size(-1, tp, sp)
+    inner = tp * sp
+
+    def at(d, s, t):
+        return d * inner + s * tp + t
+    tp_group = _form([[at(d, s, t) for t in range(tp)]
+                      for d in range(dp) for s in range(sp)], model=True)
+    sp_group = _form([[at(d, s, t) for s in range(sp)]
+                      for d in range(dp) for t in range(tp)], model=True)
+    dp_group = _form([[at(d, s, t) for d in range(dp)]
+                      for s in range(sp) for t in range(tp)])
+    batch_group = _form([[x for x in range(w) if x % tp == t]
+                         for t in range(tp)])
+    return ModelParallel(dp, tp, r // inner, r % tp, dp_group, tp_group,
+                         sp, (r // tp) % sp, sp_group, batch_group)
 
 
 def group_size(group=None) -> int:
@@ -300,17 +341,11 @@ def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """(n, ...) rows of every rank of ``group`` (None: every rank),
     concatenated in the group's rank order: the global rows of JAX's
     ``lax.all_gather(x).reshape(-1, ...)``.  Every rank holds ``n`` rows.
-    It is an ``all_reduce`` of a zero-filled (ranks, n, ...) buffer, which
-    gloo carries on CUDA tensors too; adding zeros leaves each row's bits
-    as they were."""
-    w = group_size(group)
-    if w == 1:
+    ``all_gather_dim`` along the rows, on the backend's device."""
+    if group_size(group) == 1:
         return x
-    dev = _collective_device(x.device)
-    buf = torch.zeros((w, *x.shape), dtype=x.dtype, device=dev)
-    buf[group_rank(group)] = x.to(dev)
-    dist.all_reduce(buf, group=group)
-    return buf.reshape(-1, *x.shape[1:]).to(x.device)
+    return all_gather_dim(x.to(_collective_device(x.device)), 0,
+                          group).to(x.device)
 
 
 def average_metrics(metrics: Dict) -> Dict[str, float]:
@@ -352,3 +387,132 @@ def broadcast_from_master(tree, group=None):
     dist.broadcast(buf, src, group=group)
     out = buf.cpu().numpy()
     return out if isinstance(tree, np.ndarray) else out.item()
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism and FSDP: the ring rotation, all-gather and
+# reduce-scatter along one dimension
+# ---------------------------------------------------------------------------
+
+NATIVE = "native"
+ALL_REDUCE = "all_reduce"
+
+
+def route(device) -> str:
+    """How a rotation, all-gather or reduce-scatter of tensors on
+    ``device`` travels: ``NATIVE`` (point-to-point sends,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``) where the
+    backend carries them, NCCL or gloo on the CPU; ``ALL_REDUCE`` (of a
+    zero-filled buffer) for gloo on CUDA tensors, which carries only
+    ``all_reduce`` and ``broadcast``."""
+    if dist.get_backend() == "nccl" or torch.device(device).type == "cpu":
+        return NATIVE
+    return ALL_REDUCE
+
+
+def _global(group, i: int) -> int:
+    return i if group is None else dist.get_global_rank(group, i)
+
+
+def rotate(x: torch.Tensor, group, shift: int = 1,
+           via: Optional[str] = None) -> torch.Tensor:
+    """Rank i of ``group`` sends ``x`` to rank ``(i + shift) % n`` and
+    returns what rank ``(i - shift) % n`` sent (every rank's ``x`` has one
+    shape and dtype): JAX's ``lax.ppermute`` with the ring's pairs.
+    ``via`` forces a route (``route`` by default)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    i = group_rank(group)
+    x = x.contiguous()
+    if (via or route(x.device)) == NATIVE:
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, _global(group, (i + shift) % n),
+                          group=group),
+               dist.P2POp(dist.irecv, out, _global(group, (i - shift) % n),
+                          group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    buf = x.new_zeros((n, *x.shape))
+    buf[(i + shift) % n] = x
+    dist.all_reduce(buf, group=group)
+    return buf[i]
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group,
+                   via: Optional[str] = None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in the group's rank
+    order (every rank's ``x`` has one shape)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    if (via or route(x.device)) == NATIVE:
+        out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
+        getattr(dist, "all_gather_single",
+                dist.all_gather_into_tensor)(out, xt, group=group)
+    else:
+        buf = xt.new_zeros((n, *xt.shape))
+        buf[group_rank(group)] = xt
+        dist.all_reduce(buf, group=group)
+        out = buf.reshape(n * xt.shape[0], *xt.shape[1:])
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
+                       via: Optional[str] = None) -> torch.Tensor:
+    """The sum over the ranks of ``x``, split along ``dim`` into as many
+    contiguous blocks as ranks: rank i keeps block i."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    size = xt.shape[0] // n
+    if (via or route(x.device)) == NATIVE:
+        out = xt.new_empty((size, *xt.shape[1:]))
+        getattr(dist, "reduce_scatter_single",
+                dist.reduce_scatter_tensor)(out, xt, group=group)
+    else:
+        xt = xt.clone()
+        dist.all_reduce(xt, group=group)
+        i = group_rank(group)
+        out = xt[i * size:(i + 1) * size]
+    return out.movedim(0, dim).contiguous()
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return rotate(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rotate(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``rotate`` differentiated: its backward is the inverse rotation,
+    as JAX's transpose of ``ppermute`` is."""
+    return _PPermute.apply(x, group, shift) if group_size(group) > 1 else x
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """ZeRO-3's gather of a parameter: forward, the ranks' shards
+    concatenated along ``dim``; backward, the gradient summed over the
+    ranks and each rank's block kept (a reduce-scatter), so the shard's
+    gradient is the whole batch's."""
+    return (_GatherShards.apply(x, dim, group) if group_size(group) > 1
+            else x)

@@ -1,5 +1,6 @@
-"""Layouts over a mesh: which rows each device keeps, and Megatron's split
-of the decoder and the Llama over a tensor-parallel group.
+"""Layouts over a mesh: which rows each device keeps, Megatron's split
+of the decoder and the Llama over a tensor-parallel group, and FSDP's
+split of the decoder over a data-parallel group.
 
 Counterpart of ``llmvox_tpu/parallel/sharding.py``.  A ``Sharding``
 names, per mesh axis, the leading dimensions it splits, as a JAX
@@ -25,10 +26,20 @@ again into q, k and v and GSPMD moves the data), so tp rank r holds head
 block r of q, of k and of v, concatenated, and ``place_shard`` puts them
 back in that order.
 
-Still refused (ROADMAP queue 1 item 10): FSDP's shardings, sequence
-parallelism and expert parallelism (ep > 1 is JAX's ``moe_ffn_a2a``);
-a quantized tree under tp, on which JAX's ``llama_param_shardings``
-raises (its table walk reads ``.key`` of a quantized leaf's fields).
+FSDP (ZeRO-3) keeps JAX's ``decoder_fsdp_shardings`` table
+(``DECODER_FSDP_SPECS``): every matrix splits one dimension over dp, the
+one tp does not take, and norms and biases stay whole.  ``shard_leaf`` /
+``place_shard`` / ``shard_tree`` cut and place a leaf over dp and tp
+together; ``FSDP`` gathers a rank's shards where the forward uses them
+(``parallel/mesh.py::gather_shards``, whose backward reduce-scatters the
+gradient), and the optimizer's moments take their parameter's shard
+(``opt_state_specs``, JAX's ``opt_state_shardings``).
+
+Still refused (ROADMAP queue 1 item 10): expert parallelism (ep > 1 is
+JAX's ``moe_ffn_a2a``) and ``llama_fsdp_shardings``, which only an
+ep-aware train step uses; a quantized tree under tp, on which JAX's
+``llama_param_shardings`` raises (its table walk reads ``.key`` of a
+quantized leaf's fields).
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.parallel.mesh import (DP_AXIS, EP_AXIS, SP_AXIS,
-                                            TP_AXIS, Mesh)
+                                            TP_AXIS, Mesh, gather_shards)
 
 
 def dp_rows(n: int, index: int, parts: int) -> slice:
@@ -87,7 +98,8 @@ def batch_sharding(mesh: Mesh) -> Sharding:
 
 def batch_seq_sharding(mesh: Mesh) -> Sharding:
     """(B, T, ...) split over (dp, sp): the sequence-parallel trainer's
-    input layout."""
+    input layout (its rows by ``dp_rows``, and T, permuted first under
+    the zigzag layout, by ``models/decoder.py::seq_share``)."""
     return Sharding(mesh, (DP_AXIS, SP_AXIS))
 
 
@@ -126,6 +138,21 @@ LLAMA_TP_SPECS = {
     },
 }
 
+# JAX's ``decoder_fsdp_shardings`` table (llmvox_tpu/parallel/sharding.py:
+# 86-101): dp on one matrix dimension, tp's Megatron dimension on the other
+DECODER_FSDP_SPECS = {
+    "wpe": (None, DP_AXIS), "lnf_s": (), "lnf_b": (), "head": (DP_AXIS, None),
+    "h": {
+        "ln1_s": (), "ln1_b": (),
+        "wqkv": (None, DP_AXIS, TP_AXIS), "bqkv": (None, TP_AXIS),
+        "wo": (None, TP_AXIS, DP_AXIS), "bo": (),
+        "ln2_s": (), "ln2_b": (),
+        "wfc": (None, DP_AXIS, TP_AXIS), "bfc": (None, TP_AXIS),
+        "wproj": (None, TP_AXIS, DP_AXIS), "bproj": (),
+    },
+    "draft_heads": (None, DP_AXIS, None),
+}
+
 # the decoder's fused q|k|v leaves, cut by heads (the module's docstring)
 FUSED_QKV = frozenset({"wqkv", "bqkv"})
 
@@ -158,9 +185,20 @@ def _refuse_quantized(tree: Dict) -> None:
     _walk(tree, LLAMA_TP_SPECS, check)
 
 
+def axis_dim(spec: Tuple, axis: str) -> Optional[int]:
+    """The dimension a spec splits over ``axis`` (None: not split)."""
+    return spec.index(axis) if axis in spec else None
+
+
 def tp_dim(spec: Tuple) -> Optional[int]:
     """The dimension a spec splits over tp (None: replicated over tp)."""
-    return spec.index(TP_AXIS) if TP_AXIS in spec else None
+    return axis_dim(spec, TP_AXIS)
+
+
+def dp_dim(spec: Tuple) -> Optional[int]:
+    """The dimension a spec splits over dp (FSDP; None: whole on every
+    dp rank)."""
+    return axis_dim(spec, DP_AXIS)
 
 
 def tp_index(n: int, tp: int, rank: int, fused: bool = False) -> np.ndarray:
@@ -183,33 +221,91 @@ def _take(x, dim: int, idx: np.ndarray):
     return np.take(np.asarray(x), idx, axis=dim)
 
 
-def shard_leaf(x, spec: Tuple, tp: int, rank: int, fused: bool = False):
-    """Tp rank ``rank``'s shard of one leaf (a copy; the leaf itself when
-    it is replicated)."""
+def shard_leaf(x, spec: Tuple, tp: int, rank: int, fused: bool = False,
+               dp: int = 1, dp_rank: int = 0):
+    """The shard of one leaf that tp rank ``rank`` and dp rank ``dp_rank``
+    hold (a copy; the leaf itself when it is replicated)."""
     d = tp_dim(spec)
-    if d is None or tp == 1:
-        return x
-    return _take(x, d, tp_index(x.shape[d], tp, rank, fused))
+    if d is not None and tp > 1:
+        x = _take(x, d, tp_index(x.shape[d], tp, rank, fused))
+    d = dp_dim(spec)
+    if d is not None and dp > 1:
+        x = _take(x, d, np.arange(x.shape[d])[dp_rows(x.shape[d], dp_rank,
+                                                      dp)])
+    return x
 
 
 def place_shard(shard: torch.Tensor, full_shape: Sequence[int], spec: Tuple,
-                tp: int, rank: int, fused: bool = False) -> torch.Tensor:
+                tp: int, rank: int, fused: bool = False, dp: int = 1,
+                dp_rank: int = 0) -> torch.Tensor:
     """A zero-filled tensor of the full leaf's shape holding ``shard`` where
-    tp rank ``rank``'s block lies: summed over the ranks (an all-reduce,
-    which gloo carries on CUDA tensors), the full leaf, bit for bit."""
-    d = tp_dim(spec)
-    if d is None or tp == 1:
+    its block lies: summed over the ranks (an all-reduce over tp, then over
+    dp, which gloo carries on CUDA tensors), the full leaf, bit for bit."""
+    dt, dd = tp_dim(spec), dp_dim(spec)
+    dt = dt if tp > 1 else None
+    dd = dd if dp > 1 else None
+    if dt is None and dd is None:
         return shard
     full = shard.new_zeros(tuple(full_shape))
-    idx = torch.as_tensor(tp_index(full_shape[d], tp, rank, fused),
-                          device=shard.device)
-    return full.index_copy_(d, idx, shard)
+    view = full
+    if dd is not None:
+        size = full_shape[dd] // dp
+        view = full.narrow(dd, dp_rank * size, size)
+    if dt is None:
+        view.copy_(shard)
+    else:
+        view.index_copy_(dt, torch.as_tensor(
+            tp_index(full_shape[dt], tp, rank, fused), device=shard.device),
+            shard)
+    return full
 
 
-def shard_tree(tree: Dict, specs: Dict, tp: int, rank: int) -> Dict:
-    """Tp rank ``rank``'s shard of a full tree in the JAX layout."""
+def shard_tree(tree: Dict, specs: Dict, tp: int, rank: int, dp: int = 1,
+               dp_rank: int = 0) -> Dict:
+    """The shard of a full tree in the JAX layout that tp rank ``rank``
+    (and under FSDP dp rank ``dp_rank``) holds."""
     return _walk(tree, specs, lambda path, x, spec: shard_leaf(
-        x, spec, tp, rank, path[-1] in FUSED_QKV))
+        x, spec, tp, rank, path[-1] in FUSED_QKV, dp, dp_rank))
+
+
+def decoder_fsdp_shardings(mesh: Mesh, params: Dict) -> Dict:
+    """JAX's ``decoder_fsdp_shardings``: each leaf's ``Sharding`` over
+    ``mesh`` (dp on one matrix dimension, tp on the other)."""
+    return _walk(params, DECODER_FSDP_SPECS,
+                 lambda path, x, spec: Sharding(mesh, spec))
+
+
+def opt_state_specs(state: Dict, param_specs: Sequence[Tuple]) -> Dict:
+    """The specs of an ``AdamW.state_dict()``: every entry holding one
+    tensor a parameter (Adam's moments, the accumulated gradients) takes
+    the parameters' specs, so each rank keeps its parameter's shard of
+    them, and every other (the counts) is replicated: JAX's
+    ``opt_state_shardings`` (``llmvox_tpu/parallel/sharding.py:111-134``)."""
+    n = len(param_specs)
+    return {k: list(param_specs) if isinstance(v, list) and len(v) == n
+            else () for k, v in state.items()}
+
+
+class FSDP(NamedTuple):
+    """ZeRO-3 over the dp ``group``: ``dims`` maps a leaf's name
+    (``"h/wqkv"``, ``"head"``) to the dimension its shard splits.  A
+    leaf is gathered where the forward uses it (``gather_shards``: its
+    backward reduce-scatters the gradient over the group), a layer's
+    leaves inside the layer's block."""
+    group: object
+    dims: Dict[str, int]
+
+    def leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        d = self.dims.get(name)
+        return x if d is None else gather_shards(x, d, self.group)
+
+    def layer(self, p: Dict) -> Dict:
+        """One layer's leaves (the stacked axis indexed away)."""
+        out = {}
+        for k, x in p.items():
+            d = self.dims.get("h/" + k)
+            out[k] = x if d is None else gather_shards(x, d - 1, self.group)
+        return out
 
 
 def check_decoder_tp(cfg, tp: int) -> None:
@@ -246,8 +342,21 @@ def shard_llama(params: Dict, cfg, tp: int, rank: int, ep: int = 1) -> Dict:
     return shard_tree(params, LLAMA_TP_SPECS, tp, rank)
 
 
-def shard_decoder(params: Dict, cfg, tp: int, rank: int) -> Dict:
-    """Tp rank ``rank``'s shard of a full decoder tree, the fused QKV by
-    heads."""
+def check_decoder_fsdp(cfg, dp: int) -> None:
+    """FSDP splits the width C over ``dp`` (and with it 4C and the
+    positions' table's rows stay whole), evenly, as GSPMD requires."""
+    if dp < 1 or cfg.n_embd % dp:
+        raise ValueError(f"n_embd={cfg.n_embd} does not split over "
+                         f"dp={dp} (FSDP)")
+
+
+def shard_decoder(params: Dict, cfg, tp: int, rank: int, dp: int = 1,
+                  dp_rank: int = 0, fsdp: bool = False) -> Dict:
+    """The shard of a full decoder tree that tp rank ``rank`` holds, the
+    fused QKV by heads; with ``fsdp``, also dp rank ``dp_rank``'s block of
+    every matrix (``DECODER_FSDP_SPECS``)."""
     check_decoder_tp(cfg, tp)
-    return shard_tree(params, DECODER_TP_SPECS, tp, rank)
+    if not fsdp:
+        return shard_tree(params, DECODER_TP_SPECS, tp, rank)
+    check_decoder_fsdp(cfg, dp)
+    return shard_tree(params, DECODER_FSDP_SPECS, tp, rank, dp, dp_rank)

@@ -31,6 +31,16 @@ the decoder; the world is dp x tp, tp innermost, ``--batch_size``
 divides over dp; the checkpoints are written whole, in the JAX layout):
 
     torchrun --nproc_per_node 4 -m llmvox_tpu_torch.train --tp_size 2 ...
+
+Sequence-parallel over groups of ``--sp_size`` cards (each sequence
+split over them, ring attention; ``--sp_layout zigzag`` balances the
+causal work; T must divide by sp, or 2 x sp for zigzag; not with
+``--pack``), and FSDP (``--fsdp true``: each rank keeps 1/dp of every matrix
+and of its AdamW moments), composing with dp and tp (dp x sp x tp, tp
+innermost):
+
+    torchrun --nproc_per_node 8 -m llmvox_tpu_torch.train --sp_size 2 \
+        --tp_size 2 --fsdp true ...
 """
 from __future__ import annotations
 
@@ -117,7 +127,11 @@ def _train(args, tcfg: TrainConfig, mcfg: DecoderConfig, device) -> None:
     say(f"dataset: {len(dataset)} samples; model: "
         f"{trainer.n_params / 1e6:.2f}M params; device {trainer.device}"
         + (f", rank {trainer.rank} of {pmesh.world()} (dp {trainer.dp} x "
-           f"tp {trainer.tp})" if pmesh.world() > 1 else ""))
+           f"tp {trainer.tp}"
+           + (f", sp {trainer.sp} {tcfg.sp_layout}" if trainer.sp > 1
+              else "")
+           + (", fsdp" if trainer.fsdp else "") + ")"
+           if pmesh.world() > 1 else ""))
     if args.pack:
         batches = iter(PackedBatchIterator(dataset, mcfg, tcfg.batch_size,
                                            args.pack_len, seed=tcfg.seed))

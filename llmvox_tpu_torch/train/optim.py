@@ -13,9 +13,10 @@ hyperparameters of the config it is given (``hyper``):
 - the mean is clipped by its global norm (the decoder's only): scaled by ``max_norm / norm``
   when ``norm >= max_norm`` and left as it is below (no epsilon; a
   ``grad_clip`` of 0 therefore zeroes every update, as it does in JAX).
-  Under tensor parallelism (``sharded`` and ``norm_reduce`` set) the
-  squares of the sharded tensors are summed over the tp group and those
-  of the replicated ones counted once, so the norm is the whole tree's;
+  Under tensor parallelism and FSDP (``sharded`` and ``norm_reduce``
+  set) the squares of each sharded tensor are summed over the groups of
+  the axes it is split over (tp, dp, or both in turn) and those of the
+  replicated ones counted once, so the norm is the whole tree's;
 - Adam with bias correction ``1 - beta ** count`` in f32 and ``eps``
   added to ``sqrt(nu_hat)``; weight decay added to the Adam step for the
   tensors ``decay_mask`` selects (by name, not by ndim); then the step is
@@ -29,7 +30,8 @@ back to the host.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -156,11 +158,12 @@ class AdamW:
         # data parallelism: reduces the accumulated gradients over the
         # ranks in place, once an update, before clipping
         self.reduce: Optional[Callable[[List[torch.Tensor]], None]] = None
-        # tensor parallelism: which params are this rank's shards, and the
-        # sum over the tp group (in place) of their squared norms
-        self.sharded: List[bool] = [False] * len(self.params)
-        self.norm_reduce: Optional[Callable[[List[torch.Tensor]],
-                                            None]] = None
+        # tensor parallelism and FSDP: the mesh axes ("tp", "dp") each
+        # param is split over on this rank (() when it is whole), and per
+        # axis the sum over its group (in place) of squared norms
+        self.sharded: List[Tuple[str, ...]] = [()] * len(self.params)
+        self.norm_reduce: Dict[str, Callable[[List[torch.Tensor]],
+                                             None]] = {}
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -203,15 +206,24 @@ class AdamW:
             p.add_(u, alpha=-lr)
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        if self.norm_reduce is None:
-            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        zero = grads[0].new_zeros((), dtype=torch.float32)
         sq = [(g.float() ** 2).sum() for g in grads]
-        part = sum((q for q, sh in zip(sq, self.sharded) if sh), zero)
-        part = part.reshape(1).clone()
-        self.norm_reduce([part])
-        rep = sum((q for q, sh in zip(sq, self.sharded) if not sh), zero)
-        return torch.sqrt(rep + part[0])
+        if not self.norm_reduce:
+            return torch.sqrt(sum(sq))
+        # one partial sum per set of axes a param is split over, summed
+        # over each of its axes' groups in turn; the whole ones' once
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        keys = sorted(set(self.sharded))
+        parts = torch.stack([sum((q for q, s in zip(sq, self.sharded)
+                                  if s == key), zero) for key in keys])
+        for axis, reduce in self.norm_reduce.items():
+            sel = torch.tensor([i for i, key in enumerate(keys)
+                                if axis in key], dtype=torch.long,
+                               device=parts.device)
+            if len(sel):
+                sub = parts[sel]
+                reduce([sub])
+                parts[sel] = sub
+        return torch.sqrt(parts.sum())
 
     def state_dict(self) -> Dict[str, object]:
         return {"mu": self.mu, "nu": self.nu, "acc": self.acc,

@@ -31,10 +31,32 @@ sharded tensors over the tp group and counts the replicated ones once.
 Dropout draws from a generator seeded by the dp index, so the ranks of a
 tp group, which hold the same activations, draw the same masks.  The
 checkpoints (params and the optimizer's file) are gathered into the full
-JAX layout, which JAX reads and which resumes at any tp.  JAX's Trainer
-places every leaf replicated at ``tp_size`` > 1 without FSDP; the
-sharded run equals it to rounding.  Sequence parallelism and FSDP are
-refused: ROADMAP queue 1 item 10.
+JAX layout, which JAX reads and which resumes at any layout.  JAX's
+Trainer places every leaf replicated at ``tp_size`` > 1 without FSDP; the
+sharded run equals it to rounding.
+
+Sequence parallelism (``sp_size`` > 1) splits each dp block of rows's
+sequence over ``sp_size`` ranks, the world dp x sp x tp in JAX's mesh
+order (tp innermost).  Each rank runs the decoder on its share of T (its
+contiguous block under ``sp_layout`` "ring", its block of the zigzag
+permutation under "zigzag"; ``models/decoder.py::seq_share``) with the
+ring attention of ``ops/ring_attention.py``; the draft heads' shifted
+targets are built over the whole sequence first, each loss term is
+divided by the whole batch's valid counts, and dropout draws each
+sequence's whole mask from the dp index's generator and keeps the
+rank's rows, so the sp ranks of a dp block drop what one process would.
+Packed batches are refused under sp, as JAX asserts.
+
+FSDP (``fsdp``) keeps on each rank 1/dp of every matrix JAX's
+``decoder_fsdp_shardings`` splits (and of its AdamW moments): dp on one
+dimension, tp's Megatron dimension on the other.  Each layer's shards
+are gathered in its block (``parallel/sharding.py::FSDP``, an autograd
+Function whose backward reduce-scatters the gradient over dp: ZeRO-3);
+with ``remat_layers`` the block, and so the gather, runs again in the
+backward pass, and otherwise autograd keeps the gathered layer for it.
+The gradients of the split leaves are summed over sp once an update,
+those of the whole leaves over dp x sp, and the clip's norm sums each
+split leaf's squares over the groups of its axes.
 """
 from __future__ import annotations
 
@@ -47,6 +69,7 @@ import numpy as np
 import torch
 
 from llmvox_tpu_torch.models import decoder as dec
+from llmvox_tpu_torch.ops.ring_attention import LAYOUTS
 from llmvox_tpu_torch.parallel import mesh as pmesh
 from llmvox_tpu_torch.parallel import sharding as psh
 from llmvox_tpu_torch.parallel.sharding import dp_rows
@@ -78,22 +101,22 @@ def estimate_mfu(cfg: DecoderConfig, n_params: int, tokens_per_iter: int,
 
 def _check_supported(tcfg: TrainConfig,
                      mcfg: DecoderConfig) -> pmesh.ModelParallel:
-    multi = [name for name, on in (
-        ("sp_size", tcfg.sp_size != 1), ("fsdp", tcfg.fsdp)) if on]
-    if multi:
-        raise ValueError(
-            f"{', '.join(multi)}: sequence parallelism and FSDP are not "
-            "ported to llmvox_tpu_torch yet: ROADMAP queue 1 item 10")
-    dp = pmesh.data_parallel_size(tcfg.dp_size, tcfg.tp_size)
+    if tcfg.sp_layout not in LAYOUTS:
+        raise ValueError(f"sp_layout {tcfg.sp_layout!r} is not one of "
+                         f"{LAYOUTS} (JAX's Trainer runs the plain ring for "
+                         "any layout but 'zigzag')")
+    dp = pmesh.data_parallel_size(tcfg.dp_size, tcfg.tp_size, tcfg.sp_size)
     psh.check_decoder_tp(mcfg, tcfg.tp_size)
+    if tcfg.fsdp:
+        psh.check_decoder_fsdp(mcfg, dp)
     if tcfg.batch_size % dp:
         raise ValueError(f"batch_size {tcfg.batch_size} must divide over "
                          f"dp={dp}")
-    return pmesh.initialize_model_parallel(tcfg.tp_size)
+    return pmesh.initialize_model_parallel(tcfg.tp_size, tcfg.sp_size)
 
 
-def _spec(name: str):
-    node = psh.DECODER_TP_SPECS
+def _spec(name: str, fsdp: bool = False):
+    node = psh.DECODER_FSDP_SPECS if fsdp else psh.DECODER_TP_SPECS
     for k in name.split("/"):
         node = node[k]
     return node
@@ -115,50 +138,63 @@ class Trainer:
     """End-to-end decoder training.  ``params`` (a full tree in the JAX
     layout) replaces the seeded initialisation, as assigning
     ``state.params`` does for the JAX trainer.  Under a process group of N
-    ranks it trains data-parallel, and tensor-parallel at ``tp_size`` > 1
-    (the module's docstring); the batches it is given are the global
-    ones.  ``params`` is this rank's shard of the tree, ``full_params()``
-    the whole of it."""
+    ranks it trains data-parallel, tensor-parallel at ``tp_size`` > 1,
+    sequence-parallel at ``sp_size`` > 1 and with FSDP at ``fsdp`` (the
+    module's docstring); the batches it is given are the global ones.
+    ``params`` is this rank's shard of the tree, ``full_params()`` the
+    whole of it."""
 
     def __init__(self, tcfg: TrainConfig, mcfg: DecoderConfig,
                  text_table: np.ndarray, codebook: np.ndarray, *,
                  compute_dtype=torch.bfloat16, device="cuda",
                  params: Optional[Dict] = None):
         self.mp = _check_supported(tcfg, mcfg)
-        self.dp, self.tp = self.mp.dp, self.mp.tp
+        self.dp, self.tp, self.sp = self.mp.dp, self.mp.tp, self.mp.sp
         self.rank = pmesh.rank()
         self.device = resolve_device(device)
         self.tcfg, self.mcfg = tcfg, mcfg
         self.compute_dtype = compute_dtype
         # dropout masks, seed + dp index as JAX's seed + process_index
-        # (the ranks of a tp group draw alike); the data order is numpy's,
-        # seeded by the iterators
+        # (the ranks of a tp group and of an sp group draw alike); the data
+        # order is numpy's, seeded by the iterators
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tcfg.seed + self.mp.dp_rank)
         if params is None:
             params = init_decoder_params(tcfg.seed, mcfg)
         self.n_params = dec.num_params(params)
-        if self.tp > 1:
+        # FSDP over a dp group of one splits nothing
+        self.fsdp = tcfg.fsdp and self.dp > 1
+        if self.tp > 1 or self.fsdp:
             params = psh.shard_decoder(params, mcfg, self.tp,
-                                       self.mp.tp_rank)
+                                       self.mp.tp_rank, self.dp,
+                                       self.mp.dp_rank, self.fsdp)
+        gather = None
+        if self.fsdp:
+            dims = {n: psh.dp_dim(_spec(n, True))
+                    for n, _ in named_leaves(params)}
+            gather = psh.FSDP(self.mp.dp_group, {
+                n: d for n, d in dims.items() if d is not None})
         self.model = dec.DecoderModel(params, mcfg, self.device,
-                                      tp=self.mp.tp_group)
+                                      tp=self.mp.tp_group, fsdp=gather)
         tree = self.model.tree()
-        leaves = named_leaves(tree)
-        self.names = [n for n, _ in leaves]
-        self.specs = [_spec(n) for n in self.names]
-        self.opt = AdamW(tcfg, [p for _, p in leaves],
+        self.names = [n for n, _ in named_leaves(tree)]
+        self.specs = [_spec(n, self.fsdp) for n in self.names]
+        # the axes each leaf is split over on this rank
+        self.split = [tuple(a for a, n, d in (
+            ("tp", self.tp, psh.tp_dim(spec)),
+            ("dp", self.dp, psh.dp_dim(spec))) if n > 1 and d is not None)
+            for spec in self.specs]
+        self.opt = AdamW(tcfg, [p for _, p in named_leaves(tree)],
                          [d for _, d in named_leaves(decay_mask(tree))])
-        if self.tp > 1:
-            self.opt.sharded = [psh.tp_dim(s) is not None
-                                for s in self.specs]
-            self.opt.norm_reduce = functools.partial(
-                pmesh.all_reduce_, group=self.mp.tp_group)
+        self.opt.sharded = list(self.split)
+        self.opt.norm_reduce = {
+            a: functools.partial(pmesh.all_reduce_, group=g)
+            for a, g in (("tp", self.mp.tp_group), ("dp", self.mp.dp_group))
+            if any(a in sp for sp in self.split)}
         with torch.no_grad():
-            pmesh.broadcast_from_master(self.opt.params,
-                                        group=self.mp.dp_group)
-        self.opt.reduce = functools.partial(pmesh.all_reduce_,
-                                            group=self.mp.dp_group)
+            for same, group in self._groups():
+                pmesh.broadcast_from_master(same, group=group)
+        self.opt.reduce = self._reduce
         self._n_heads = (tree["draft_heads"].shape[0]
                          if "draft_heads" in tree else 0)
         self.text_table = torch.as_tensor(
@@ -167,52 +203,73 @@ class Trainer:
             np.asarray(codebook, np.float32)).to(self.device)
         self.iter_num = 0
 
+    def _groups(self) -> List[Tuple[List[torch.Tensor], object]]:
+        """(tensors, the group over which they are the same tensor): the
+        leaves whole over dp on the dp x sp ranks of their tp index, the
+        dp-split ones on their sp group."""
+        whole = [p for p, s in zip(self.opt.params, self.split)
+                 if "dp" not in s]
+        split = [p for p, s in zip(self.opt.params, self.split) if "dp" in s]
+        return [(whole, self.mp.batch_group), (split, self.mp.sp_group)]
+
+    def _reduce(self, acc: List[torch.Tensor]) -> None:
+        """The accumulated gradients summed over the ranks that hold a copy
+        of each leaf: the dp x sp ranks for a whole leaf; the sp ranks for
+        a dp-split one, whose gather's backward summed it over dp."""
+        whole = [a for a, s in zip(acc, self.split) if "dp" not in s]
+        split = [a for a, s in zip(acc, self.split) if "dp" in s]
+        pmesh.all_reduce_(whole, group=self.mp.batch_group)
+        pmesh.all_reduce_(split, group=self.mp.sp_group)
+
     @property
     def params(self) -> Dict:
-        """This rank's parameters (its shard under tensor parallelism)."""
+        """This rank's parameters (its shards under tp and FSDP)."""
         return self.model.tree()
 
     def _gather(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each of this rank's tensors (one per parameter, in ``names``'
-        order) made whole in the JAX layout: under tp an all-reduce over
-        the group of zero-filled full tensors, each rank's shard in its
-        place (every rank of the group takes part)."""
-        if self.tp == 1:
-            return [t.detach() for t in tensors]
+        order) made whole in the JAX layout: an all-reduce over the tp
+        group, then the dp group, of zero-filled full tensors, each rank's
+        shard in its place (every rank of the groups takes part)."""
         out = []
-        for name, t, spec in zip(self.names, tensors, self.specs):
-            d = psh.tp_dim(spec)
+        for name, t, spec, split in zip(self.names, tensors, self.specs,
+                                        self.split):
             shape = list(t.shape)
-            if d is not None:
-                shape[d] *= self.tp
+            for a, n, d in (("tp", self.tp, psh.tp_dim(spec)),
+                            ("dp", self.dp, psh.dp_dim(spec))):
+                if a in split:
+                    shape[d] *= n
             out.append(psh.place_shard(
                 t.detach(), shape, spec, self.tp, self.mp.tp_rank,
-                name.split("/")[-1] in psh.FUSED_QKV))
-        pmesh.all_reduce_([o for o, s in zip(out, self.specs)
-                           if psh.tp_dim(s) is not None],
-                          group=self.mp.tp_group)
+                name.split("/")[-1] in psh.FUSED_QKV, self.dp,
+                self.mp.dp_rank))
+        for a, group in (("tp", self.mp.tp_group), ("dp", self.mp.dp_group)):
+            pmesh.all_reduce_([o for o, s in zip(out, self.split) if a in s],
+                              group=group)
         return out
 
     def _shard(self, name: str, spec, value) -> torch.Tensor:
         """This rank's shard of a whole leaf read from a file."""
         return torch.as_tensor(psh.shard_leaf(
             np.asarray(value), spec, self.tp, self.mp.tp_rank,
-            name.split("/")[-1] in psh.FUSED_QKV))
+            name.split("/")[-1] in psh.FUSED_QKV, self.dp, self.mp.dp_rank))
 
     def full_params(self) -> Dict:
         """The whole parameter tree in the JAX layout (a collective over
-        the tp group under tensor parallelism)."""
+        the tp and dp groups under tp and FSDP)."""
         return _tree(self.names, self._gather(self.opt.params))
 
     # -- checkpointing ---------------------------------------------------
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
-        """Rank 0 writes (the ranks hold the same bits); every rank
-        returns once the files are there."""
+        """Rank 0 writes (the whole tree, gathered); every rank returns
+        once the files are there."""
         name = tag or self.tcfg.checkpoint_filename
         path = os.path.join(self.tcfg.out_dir, f"{name}.npz")
         params = self.full_params()
         state = self.opt.state_dict()
-        state.update({k: self._gather(state[k]) for k in ("mu", "nu", "acc")})
+        specs = psh.opt_state_specs(state, self.specs)
+        state.update({k: self._gather(v) for k, v in state.items()
+                      if specs[k]})
         if pmesh.is_master():
             ckpt.save_params_npz(path, params,
                                  meta={"iter_num": self.iter_num,
@@ -227,9 +284,9 @@ class Trainer:
     @torch.no_grad()
     def load_checkpoint(self, path: str) -> None:
         """Params and ``iter_num`` from ``path`` (written by either
-        package, at any tp); the optimizer from the port's ``.adamw.npz``
-        beside it, or afresh where there is none.  Each rank keeps its
-        shard."""
+        package, at any layout); the optimizer from the port's
+        ``.adamw.npz`` beside it, or afresh where there is none.  Each rank
+        keeps its shard."""
         saved = ckpt.flatten_pytree(ckpt.load_params_npz(path))
         if saved.keys() != set(self.names):
             raise ValueError(f"{path}: parameters {sorted(saved)} are not "
@@ -244,15 +301,18 @@ class Trainer:
             old.reduce, old.sharded, old.norm_reduce)
         if os.path.exists(opt_path):
             state = ckpt.load_opt_state(opt_path, self.names)
-            for k in ("mu", "nu", "acc"):
-                state[k] = [self._shard(n, s, v) for n, s, v in
-                            zip(self.names, self.specs, state[k])]
+            specs = psh.opt_state_specs(state, self.specs)
+            for k in state:
+                if specs[k]:
+                    state[k] = [self._shard(n, s, v) for n, s, v in
+                                zip(self.names, self.specs, state[k])]
             self.opt.load_state_dict(state)
 
     # -- steps -----------------------------------------------------------
     def rows(self, batch) -> Tuple:
         """This rank's block of a global batch's rows: its dp index's
-        (all of it on one dp rank)."""
+        (all of it on one dp rank), every position of them (the sequence
+        is cut in the model, ``models/decoder.py::seq_share``)."""
         if self.dp == 1:
             return tuple(batch)
         rows = dp_rows(np.asarray(batch[0]).shape[0], self.mp.dp_rank,
@@ -262,15 +322,17 @@ class Trainer:
     def loss(self, batch, train: bool) -> torch.Tensor:
         """The loss of one global batch (text, targets[, segments,
         positions]): with dropout when ``train``, without it otherwise.
-        Data-parallel, this rank's share of it: its rows' terms over the
-        whole batch's valid counts, so the ranks' shares sum to the
-        loss."""
+        Data- or sequence-parallel, this rank's share of it: its rows'
+        and positions' terms over the whole batch's valid counts, so the
+        ranks' shares sum to the loss."""
         dev = [torch.as_tensor(np.asarray(a)).to(self.device)
                for a in self.rows(batch)]
         text_ids, targets = dev[:2]
         segments, positions = dev[2:] if len(dev) == 4 else (None, None)
         counts = None
-        if self.dp > 1:
+        if self.dp > 1 or self.sp > 1:
+            # this dp block's whole sequences: the sp ranks' shares of them
+            # sum to these counts
             counts = dec.loss_counts(targets, self.mcfg, self._n_heads,
                                      segments)
             pmesh.all_reduce_([counts], group=self.mp.dp_group)
@@ -279,13 +341,15 @@ class Trainer:
         return self.model(emb.to(self.compute_dtype), targets,
                           generator=self.generator if train else None,
                           train=train, positions=positions,
-                          segments=segments, counts=counts)
+                          segments=segments, counts=counts,
+                          sp=self.mp.sp_group if self.sp > 1 else None,
+                          sp_layout=self.tcfg.sp_layout)
 
     def _global(self, loss: torch.Tensor) -> float:
         """The whole batch's loss from this rank's share (summed over the
-        dp group; the ranks of a tp group hold the same share)."""
+        dp x sp ranks; the ranks of a tp group hold the same share)."""
         loss = loss.detach().reshape(1).clone()
-        pmesh.all_reduce_([loss], group=self.mp.dp_group)
+        pmesh.all_reduce_([loss], group=self.mp.batch_group)
         return float(loss[0])
 
     def step(self, text_ids: np.ndarray, targets: np.ndarray,
@@ -353,7 +417,7 @@ class Trainer:
                 tokens = text_ids.shape[0] * text_ids.shape[1] * n_iters
                 mfu = estimate_mfu(self.mcfg, self.n_params, tokens,
                                    max(dt, 1e-9),
-                                   peak=H100_PEAK_FLOPS * self.dp * self.tp,
+                                   peak=H100_PEAK_FLOPS * pmesh.world(),
                                    seq_len=text_ids.shape[1])
                 if not master:
                     continue

@@ -243,10 +243,10 @@ class TrainConfig:
     """Decoder-training knobs, the same fields and defaults as the JAX
     package's TrainConfig.  The port's ``train/trainer.py::Trainer`` trains
     over the ranks of a ``torchrun`` launch, split into ``dp_size`` x
-    ``tp_size`` (Megatron tensor parallelism, tp innermost): ``dp_size``
-    -1 (the default) is the launch's world over ``tp_size``, one rank
-    without ``torchrun``, and any other value must make the world.  It
-    refuses ``sp_size`` > 1 and ``fsdp`` (ROADMAP queue 1 item 10)."""
+    ``sp_size`` x ``tp_size`` in JAX's mesh order (tp innermost):
+    ``dp_size`` -1 (the default) is the launch's world over ``sp_size *
+    tp_size``, one rank without ``torchrun``, and any other value must
+    make the world."""
 
     # System
     dtype: str = "bfloat16"
@@ -294,10 +294,11 @@ class TrainConfig:
     lr_decay_iters: int = 2_600_000
     min_lr: float = 3e-6
 
-    # Parallelism: data-parallel size -1 means "the world over tp_size";
-    # tp_size splits each replica over that many ranks (Megatron); sequence
-    # parallelism (sp_size, sp_layout "ring" or "zigzag") and fsdp are the
-    # JAX package's multi-device paths still to port (ROADMAP item 10)
+    # Parallelism: data-parallel size -1 means "the world over sp_size x
+    # tp_size"; tp_size splits each replica over that many ranks
+    # (Megatron); sp_size splits each sequence over that many ranks (ring
+    # attention, sp_layout "ring" or the balanced "zigzag"); fsdp keeps
+    # 1/dp of every matrix and of its AdamW moments on each rank (ZeRO-3)
     dp_size: int = -1
     tp_size: int = 1
     sp_size: int = 1

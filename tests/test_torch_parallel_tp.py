@@ -399,12 +399,14 @@ def test_one_process_checkpoint_resumes_at_tp2(tp):
 
 
 def test_trainer_refusals(tp):
-    """sp_size and fsdp name ROADMAP item 10; a tp that does not divide
-    the world, a dp_size that is not world / tp, and n_head % tp are
-    refused."""
+    """An sp_size that does not divide the world, an unknown sp_layout, a
+    tp that does not divide the world, a dp_size that is not world / tp,
+    and n_head % tp are refused; FSDP at dp 2 x tp 2 is built (it trains
+    in test_torch_parallel_sp_fsdp.py)."""
     ref = tp["ranks"][0]["refused"]
-    assert "sp_size" in ref["sp_size"] and "item 10" in ref["sp_size"]
-    assert "fsdp" in ref["fsdp"] and "item 10" in ref["fsdp"]
+    assert "sp_size=3" in ref["sp_size"]
+    assert "sp_layout 'diagonal'" in ref["layout"]
+    assert ref["fsdp"] is None
     assert "tp_size=3" in ref["tp3"]
     assert "world of 4" in ref["dp3"]
     with pytest.raises(ValueError, match="n_head=4"):

@@ -226,7 +226,8 @@ def test_dp_checkpoint_loads_in_one_process_and_jax(dp):
 
 def test_dp_refusals(dp):
     """A dp_size that is not the launch's world is refused on the ranks
-    and on one process; tp, sp and fsdp still name ROADMAP item 10."""
+    and on one process (tp, sp and FSDP compose with dp:
+    test_torch_parallel_tp.py, test_torch_parallel_sp_fsdp.py)."""
     for r in dp["ranks"]:
         assert "world of 2" in r["refused"]
     table, codebook = dp["table"], dp["codebook"]

@@ -99,8 +99,10 @@ def test_initialiser_distributions():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of llmvox_tpu_torch, and chip_smoke.py, imports in a
-    fresh interpreter where importing jax or llmvox_tpu raises."""
+    """Every module of llmvox_tpu_torch, chip_smoke.py and the tests'
+    rank helpers (a rank is a fresh interpreter with the port only)
+    import in a fresh interpreter where importing jax or llmvox_tpu
+    raises."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "llmvox_tpu"):
@@ -126,9 +128,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "codec.compress", "parallel", "parallel.mesh",
                   "parallel.sharding", "parallel.launch",
                   "parallel.tensor_parallel", "utils.runtime",
-                  "tools.validate_parity", "serve.ui"):
+                  "tools.validate_parity", "serve.ui", "ops.ring_attention"):
             assert "llmvox_tpu_torch." + n in names, n
-        for n in names + ["chip_smoke"]:
+        for n in names + ["chip_smoke", "tests.torch_dp_ranks",
+                          "tests.torch_tp_ranks", "tests.torch_sp_ranks"]:
             importlib.import_module(n)
         bad = [m for m, v in sys.modules.items() if v is not None and (
             m in ("jax", "jaxlib", "llmvox_tpu")

@@ -14,6 +14,7 @@ from llmvox_tpu.models import decoder as jdec
 from llmvox_tpu.ops import attention as jattn
 from llmvox_tpu_torch.models import decoder as tdec
 from llmvox_tpu_torch.ops import attention as tattn
+from llmvox_tpu_torch.ops import ring_attention as tring
 from llmvox_tpu_torch.utils.config import DecoderConfig as TDecoderConfig
 from llmvox_tpu_torch.utils.params import to_torch
 
@@ -278,11 +279,32 @@ def test_dropout_masks_by_distribution_and_off_at_zero():
 
 
 def test_perm_is_refused_and_helpers_match_jax():
+    """``decoder_loss(perm=)`` on one process (the rows run in zigzag
+    order, the attention causal on their original positions) equals
+    JAX's ``decoder_loss(perm=)`` through its zigzag ring on a (dp 1, sp
+    2) mesh, and the loss without the perm, draft heads included; with a
+    packed batch the perm is refused, as JAX asserts."""
+    from jax.sharding import Mesh
+    from llmvox_tpu.ops.ring_attention import make_zigzag_ring_attention
     cfg, params, emb, tgt, _, _ = _loss_case(71, packed=False)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdec.decoder_loss(to_torch(params, "cpu"), torch.tensor(emb),
-                          torch.tensor(tgt), _tcfg(cfg),
-                          perm=np.arange(32))
+    perm = tring.zigzag_permutation(32, 2)[0]
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("dp", "sp"))
+    lj = jax.jit(lambda p: jdec.decoder_loss(
+        p, jnp.asarray(emb), jnp.asarray(tgt), cfg, train=False,
+        attn_fn=make_zigzag_ring_attention(mesh), perm=jnp.asarray(perm)))(
+            jax.tree.map(jnp.asarray, params))
+    tp, tc = to_torch(params, "cpu"), _tcfg(cfg)
+    lt = tdec.decoder_loss(tp, torch.tensor(emb), torch.tensor(tgt), tc,
+                           train=False, perm=perm)
+    plain = tdec.decoder_loss(tp, torch.tensor(emb), torch.tensor(tgt), tc,
+                              train=False)
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-6)
+    np.testing.assert_allclose(float(lt), float(plain), rtol=1e-6)
+    _, _, pemb, ptgt, seg, pos = _loss_case(71, packed=True)
+    with pytest.raises(ValueError, match="not composable with packed"):
+        tdec.decoder_loss(tp, torch.tensor(pemb), torch.tensor(ptgt), tc,
+                          segments=torch.tensor(seg),
+                          positions=torch.tensor(pos), perm=perm)
     assert tdec.num_params(params) == jdec.num_params(params)
     assert (tdec.num_params(params, non_embedding=False)
             == jdec.num_params(params, non_embedding=False))

@@ -222,10 +222,11 @@ def test_average_and_partial_checkpoints_match_jax(tmp_path):
 
 
 def test_estimate_mfu_and_refusals():
-    """JAX's formula against the H100's dense bf16 peak (989e12);
-    sequence parallelism and FSDP (ROADMAP item 10), a tp_size that does
-    not split the launch's world, a dp_size that is not the launch's
-    world size, and a card that is not there refused."""
+    """JAX's formula against the H100's dense bf16 peak (989e12); a
+    tp_size or sp_size that does not split the launch's world, an
+    sp_layout that is neither "ring" nor "zigzag", a dp_size that is not
+    the launch's world size, and a card that is not there refused.  FSDP
+    on one process runs, over a dp group of one: every leaf whole."""
     cfg = _port(TINY, tconfig.DecoderConfig)
     assert ttrainer.H100_PEAK_FLOPS == 989e12
     for t in (16, 0):
@@ -236,11 +237,16 @@ def test_estimate_mfu_and_refusals():
     table, codebook = _tables()
     for bad, match in ((dict(dp_size=2), "world of 1"),
                        (dict(tp_size=2), "tp_size=2"),
-                       (dict(sp_size=2), "item 10"),
-                       (dict(fsdp=True), "item 10")):
+                       (dict(sp_size=2), "sp_size=2"),
+                       (dict(sp_layout="diagonal"), "sp_layout")):
         with pytest.raises(ValueError, match=match):
             ttrainer.Trainer(tconfig.TrainConfig(**bad), cfg, table,
                              codebook, device="cpu")
+    tr = ttrainer.Trainer(tconfig.TrainConfig(fsdp=True), cfg, table,
+                          codebook, device="cpu")
+    assert not tr.fsdp and tr.split == [()] * len(tr.names)
+    assert tr.params["h"]["wqkv"].shape == (cfg.n_layer, cfg.n_embd,
+                                            3 * cfg.n_embd)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ttrainer.Trainer(tconfig.TrainConfig(), cfg, table, codebook)

@@ -61,7 +61,9 @@ def _train(tr, batches):
 def _refusals(tcfg, mcfg, table, codebook):
     from llmvox_tpu_torch.train.trainer import Trainer
     out = {}
-    for name, kw in (("sp_size", dict(sp_size=2)), ("fsdp", dict(fsdp=True)),
+    for name, kw in (("sp_size", dict(sp_size=3)),
+                     ("layout", dict(sp_size=2, sp_layout="diagonal")),
+                     ("fsdp", dict(fsdp=True, tp_size=2)),
                      ("tp3", dict(tp_size=3)), ("dp3", dict(dp_size=3))):
         try:
             Trainer(dataclasses.replace(tcfg, **kw), mcfg, table, codebook,
