@@ -6277,12 +6277,13 @@ def _tp_prompts(cfg, rows: int) -> tuple:
 
 
 def _llama_chains(params, cfg, device, dtype, tp=None, pooled=True,
-                  block=TP_TOKENS, timed=True) -> dict:
+                  block=TP_TOKENS, timed=True, ep=None) -> dict:
     """A B=1 prefill of the first prompt and a greedy block after it
     (then, ``timed``, a second block timed: ms a token), and a pooled
     prefill of ``TP_POOL_ROWS`` prompts with one ``TP_POOL_BLOCK`` block;
     each chain is its first token and the block's.  Under ``tp`` the
-    params are this rank's shard and the caches its KV heads."""
+    params are this rank's shard and the caches its KV heads; under
+    ``ep`` its block of experts."""
     from llmvox_tpu_torch.models import llama as L
     ids, lens = _tp_prompts(cfg, TP_POOL_ROWS)
     out = {}
@@ -6290,15 +6291,17 @@ def _llama_chains(params, cfg, device, dtype, tp=None, pooled=True,
         st = L.init_llama_decode_state(cfg, 1, dtype, device, tp=tp)
         out["cache_bytes"] = _tree_bytes({"k": st.k, "v": st.v})
         lg, st = L.prefill(params, torch.as_tensor(ids[:1], device=device),
-                           st, cfg, tp=tp)
+                           st, cfg, tp=tp, ep=ep)
         out["logits"] = lg[0].float().cpu()
         first = torch.argmax(lg, dim=-1).to(torch.int32)
-        toks, st = L.decode_block(params, first, st, cfg, block=block, tp=tp)
+        toks, st = L.decode_block(params, first, st, cfg, block=block, tp=tp,
+                                  ep=ep)
         out["b1"] = [int(first[0])] + toks[0].tolist()
         if timed:
             _sync(device)
             t0 = time.perf_counter()
-            L.decode_block(params, toks[:, -1], st, cfg, block=block, tp=tp)
+            L.decode_block(params, toks[:, -1], st, cfg, block=block, tp=tp,
+                           ep=ep)
             _sync(device)
             out["token_ms"] = (time.perf_counter() - t0) * 1e3 / block
         del st
@@ -6310,10 +6313,11 @@ def _llama_chains(params, cfg, device, dtype, tp=None, pooled=True,
                 params, torch.as_tensor(ids, device=device),
                 torch.as_tensor(lens, device=device), pst,
                 torch.arange(n, device=device),
-                torch.ones(n, dtype=torch.bool, device=device), cfg, tp=tp)
+                torch.ones(n, dtype=torch.bool, device=device), cfg, tp=tp,
+                ep=ep)
             pt, _ = L.decode_block_pooled(
                 params, pst, torch.ones(n, dtype=torch.bool, device=device),
-                cfg, block=TP_POOL_BLOCK, tp=tp)
+                cfg, block=TP_POOL_BLOCK, tp=tp, ep=ep)
             out["pooled"] = [[int(pf[r])] + pt[r].tolist() for r in range(n)]
             del pst
     return out
@@ -6477,77 +6481,89 @@ def _tp_rank(rank: int, world: int, dev, small) -> dict:
     return out
 
 
+def _geometry(small) -> dict:
+    """The Llama's and the MoE's config fields (the rehearsal's tiny
+    ones from ``small``)."""
+    return dict(zip(("llama", "moe"), small[4] if len(small) > 4
+                    else (LLAMA_8B, MIXTRAL_8X7B)))
+
+
+def _hold_run(got: dict, which: str, depth: int, dtype, dev, small, n: int,
+              name: str, timed: bool, par: str = "tp") -> dict:
+    """One process on this card runs the chains a run of ``n`` ranks
+    (tp or ep) ran (``got``, ``_llama_chains``' with the MoE's recorded
+    routes) and holds them to it: f32 tokens identical; bf16 tokens equal
+    or at ties (``_held_to``); an MoE chain also against the one process
+    forced onto the ranks' routes (``_route_flips``)."""
+    from llmvox_tpu_torch.models.llama import LlamaConfig
+    geometry = _geometry(small)
+    ids, lens = _tp_prompts(LlamaConfig(**geometry["llama"]), TP_POOL_ROWS)
+    lcfg = LlamaConfig(**dict(geometry[which], n_layer=depth))
+    full = _llama_tree(lcfg, 160, dev, dtype)
+    one = _llama_chains(full, lcfg, dev, dtype, pooled="pooled" in got,
+                        block=TP_TOKENS if which == "llama"
+                        else TP_MOE_BLOCK, timed=timed)
+    one["weight_bytes"] = _tree_bytes(full)
+    chains = [("b1", got["b1"], one["b1"], ids[0])]
+    chains += [(f"row {r}", c, o, ids[r, :lens[r]]) for r, (c, o) in
+               enumerate(zip(got.get("pooled", []), one.get("pooled", [])))]
+    held = {}
+    for what, c, o, prompt in chains:
+        if dtype == torch.float32:
+            assert c == o, (name, what, c, o)
+        if c == o:
+            held[what] = "identical"
+            continue
+        part = next(d for d, (a, b) in enumerate(zip(c, o)) if a != b)
+        held[what] = f"parts at step {part}"
+        if which == "llama":
+            held[what] += "; ties: " + (
+                _held_to(full, lcfg, c, prompt, n, (name, what))
+                or "none (every token the one process's pick "
+                   "teacher-forced on the chain)")
+    keep = slice(0x20 + 1, 0x7e + 2)
+    dlog = float((got["logits"] - one["logits"])[keep].abs().max()
+                 / one["logits"][keep].std())
+    if which == "moe":
+        # one process forced onto the ranks' routes, teacher-forced on
+        # their chain: the route flips at router ties, the chain's tokens
+        # its picks or at ties, the prefill logits' gap
+        with _routes(forced=got["routes"]) as own:
+            rows = _forced_logits(full, lcfg, ids[0], got["b1"])
+        routes = _route_flips(got["routes"], own, dtype, n, name)
+        ties = _held_to(full, lcfg, got["b1"], ids[0], n,
+                        (name, "forced"), rows=rows)
+        routes.update(
+            held=ties or "every token the one process's pick",
+            prefill_logits_err=float(
+                (got["logits"] - rows[0].cpu())[keep].abs().max()
+                / rows[0][keep].std().cpu()))
+    res = {"held": held, "tokens": len(got["b1"]),
+           "prefill_logits_err": dlog,
+           "chains": {par: got["b1"], "one": one["b1"]},
+           par: {k: got[k] for k in ("weight_bytes", "cache_bytes")},
+           "one": {k: one[k] for k in ("weight_bytes", "cache_bytes")}}
+    if "token_ms" in got:
+        res.update({f"{par}_token_ms": got["token_ms"],
+                    "one_token_ms": one["token_ms"]})
+    if which == "moe":
+        res["routes"] = routes
+    del full
+    return res
+
+
 def _tp_one(tp: dict, dev, small, one_params) -> dict:
     """Rank 0, the group gone: one process on this card runs what the tp
     ranks ran and holds them to it (the decoder's params to the trainer
     bounds; the Llama's f32 tokens identical, bf16 tokens equal or at
     ties, ``_held_to``)."""
-    from llmvox_tpu_torch.models.llama import LlamaConfig
     perr = max(float((a - b.detach()).abs().max())
                for a, b in zip(tp["keep"]["decoder"], one_params))
     assert perr <= TRAIN_PARAM_ATOL, perr
     out = {"decoder": dict(tp["decoder"], param_abs_err=perr)}
-    geometry = dict(zip(("llama", "moe"), small[4] if len(small) > 4
-                        else (LLAMA_8B, MIXTRAL_8X7B)))
-    ids, lens = _tp_prompts(LlamaConfig(**geometry["llama"]), TP_POOL_ROWS)
     for name, which, depth, dtype in TP_RUNS:
-        lcfg = LlamaConfig(**dict(geometry[which], n_layer=depth))
-        full = _llama_tree(lcfg, 160, dev, dtype)
-        one = _llama_chains(full, lcfg, dev, dtype, pooled=which == "llama",
-                            block=TP_TOKENS if which == "llama"
-                            else TP_MOE_BLOCK, timed=name == "bf16")
-        one["weight_bytes"] = _tree_bytes(full)
-        got = tp[name]
-        chains = [("b1", got["b1"], one["b1"], ids[0])]
-        chains += [(f"row {r}", c, o, ids[r, :lens[r]]) for r, (c, o) in
-                   enumerate(zip(got.get("pooled", []),
-                                 one.get("pooled", [])))]
-        held = {}
-        for what, c, o, prompt in chains:
-            if dtype == torch.float32:
-                assert c == o, (name, what, c, o)
-            if c == o:
-                held[what] = "identical"
-                continue
-            part = next(d for d, (a, b) in enumerate(zip(c, o)) if a != b)
-            held[what] = f"parts at step {part}"
-            if which == "llama":
-                held[what] += "; ties: " + (
-                    _held_to(full, lcfg, c, prompt, tp["llm_tp"],
-                             (name, what))
-                    or "none (every token the one process's pick "
-                       "teacher-forced on the tp chain)")
-        keep = slice(0x20 + 1, 0x7e + 2)
-        dlog = float((got["logits"] - one["logits"])[keep].abs().max()
-                     / one["logits"][keep].std())
-        if which == "moe":
-            # one process forced onto the tp run's routes, teacher-forced
-            # on its chain: the route flips at router ties, the chain's
-            # tokens its picks or at ties, the prefill logits' gap
-            with _routes(forced=got["routes"]) as own:
-                rows = _forced_logits(full, lcfg, ids[0], got["b1"])
-            routes = _route_flips(got["routes"], own, dtype, tp["llm_tp"],
-                                  name)
-            ties = _held_to(full, lcfg, got["b1"], ids[0], tp["llm_tp"],
-                            (name, "forced"), rows=rows)
-            routes.update(
-                held=ties or "every token the one process's pick",
-                prefill_logits_err=float(
-                    (got["logits"] - rows[0].cpu())[keep].abs().max()
-                    / rows[0][keep].std().cpu()))
-        out[name] = {"held": held, "tokens": len(got["b1"]),
-                     "prefill_logits_err": dlog,
-                     "chains": {"tp": got["b1"], "one": one["b1"]},
-                     "tp": {k: got[k] for k in ("weight_bytes",
-                                                "cache_bytes")},
-                     "one": {k: one[k] for k in ("weight_bytes",
-                                                 "cache_bytes")}}
-        if "token_ms" in got:
-            out[name].update(tp_token_ms=got["token_ms"],
-                             one_token_ms=one["token_ms"])
-        if which == "moe":
-            out[name]["routes"] = routes
-        del full
+        out[name] = _hold_run(tp[name], which, depth, dtype, dev, small,
+                              tp["llm_tp"], name, timed=name == "bf16")
     out["launches"] = tp["launches"]
     out["llm_tp"] = tp["llm_tp"]
     return out
@@ -6644,6 +6660,8 @@ def _sp_rank(rank: int, world: int, dev, small) -> dict:
                "layout": f"dp {tr.dp} x sp {tr.sp} x tp {tr.tp}"
                          + (" fsdp" if tr.fsdp else ""),
                "bytes": _state_bytes(tr)}
+        if tr.fsdp:
+            res["ckpt"] = _sharded_ckpt(tr, rank)
         full = tr._gather(tr.opt.params)
         if rank == 0:
             res["keep"] = [x.clone() for x in full]
@@ -6674,6 +6692,46 @@ def _sp_rank(rank: int, world: int, dev, small) -> dict:
         for dt in (torch.bfloat16, torch.float32)}
     out["launches"] = _read_launches()
     return out
+
+
+def _sharded_ckpt(tr, rank: int) -> dict:
+    """The trainer's shards written with ``save_sharded`` (its layout's
+    specs) into a directory of this launch under the temporary directory,
+    then read whole on rank 0: equal to the gathered tree, bit for bit;
+    each rank's file bytes and the seconds each way."""
+    import shutil
+    import tempfile
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.train import checkpoint as ckpt
+    # the ranks are children of one process: its pid names the directory
+    path = os.path.join(tempfile.gettempdir(),
+                        f"llmvox_sharded_{os.getppid()}")
+    specs = {}
+    for name, spec in zip(tr.names, tr.specs):
+        *parents, leaf = name.split("/")
+        node = specs
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = spec
+    t0 = time.perf_counter()
+    ckpt.save_sharded(path, tr.params, specs, tr.mp)
+    res = {"save_s": time.perf_counter() - t0, "bytes": os.path.getsize(
+        os.path.join(path, f"shards-{pmesh.rank()}.npz"))}
+    full = tr._gather(tr.opt.params)
+    if rank == 0:
+        t0 = time.perf_counter()
+        back = ckpt.load_sharded(path)
+        res["load_s"] = time.perf_counter() - t0
+        for name, want in zip(tr.names, full):
+            node = back
+            for k in name.split("/"):
+                node = node[k]
+            assert torch.equal(node, want.detach().cpu()), name
+        res["leaves"] = len(full)
+    pmesh.barrier()
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    return res
 
 
 def _rotate_ms(x: torch.Tensor, reps: int = 5) -> float:
@@ -6732,6 +6790,449 @@ def _sp_one(sp: dict, dev, small) -> dict:
     return out
 
 
+# phase 22's checks of the last multi-device paths, in the same ranks:
+# experts over ep on replicated tokens, the pipelined Llama, the
+# hand-written all-to-all MoE, the ep-aware FSDP step of the Llama, and
+# (in ``_sp_rank``) the sharded checkpoint
+EP_RUNS = (("ep bf16", "moe", BIG_DEPTH, torch.bfloat16),
+           ("ep f32", "moe", TP_MOE_DEPTH, torch.float32))
+PP_POOL = 8               # the pipelined pool's rows
+PP_BLOCK = 8              # tokens a row a block
+PP_SEQ = 1024             # the pipelined caches' rows (8192 cut for time)
+PP_RUNS = (("pp bf16", torch.bfloat16), ("pp f32", torch.float32))
+A2A_ROWS = 256            # each rank's token rows of the all-to-all MoE
+# f32 on the card, the a2a against moe_ffn(group_size=rows): the largest
+# |difference| over the largest |value|, for y and every gradient (the
+# expert matmuls sum 4096 or 14336 products in another order, over
+# another count of rows); aux to JAX's bound
+A2A_REL = 1e-4
+A2A_AUX_RTOL = 1e-5
+FSDP_ROWS, FSDP_T = 4, 65  # the global batch of the ep-aware FSDP step
+FSDP_CF = 1.0             # its capacity factor: routes drop
+# its gradients against the one process, leaf by leaf, to TRAIN_GRAD_RTOL
+# of the leaf's largest |gradient| (the same f32 sums over another split
+# of the rows); its params after one AdamW step (lr 1e-3) to the
+# trainer's atol, except where the one process's |gradient| is within
+# that rounding bound of 0, where Adam's g / (|g| + eps) may take the
+# other sign (up to 2 lr apart)
+FSDP_LR = 1e-3
+
+
+def _peak(dev):
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+
+
+def _timed(fn, dev, reps: int = 1):
+    """(fn's result, the ms of its last run after one untimed)."""
+    res = fn()
+    ms = 0.0
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    return res, ms
+
+
+def _ep_rank(mp, dev, small) -> dict:
+    """Mixtral-8x7B's geometry with each rank's E/ep experts (``EP_RUNS``):
+    the B=1 chain (timed in bf16) and its routes."""
+    from llmvox_tpu_torch.models.llama import LlamaConfig
+    from llmvox_tpu_torch.parallel import sharding as psh
+    out = {}
+    for name, which, depth, dtype in EP_RUNS:
+        lcfg = LlamaConfig(**dict(_geometry(small)[which], n_layer=depth))
+        full = _llama_tree(lcfg, 160, dev, dtype)
+        shard = psh.shard_llama(full, lcfg, 1, 0, ep=mp.ep,
+                                ep_rank=mp.ep_rank)
+        del full
+        with _routes() as calls:
+            res = _llama_chains(shard, lcfg, dev, dtype, pooled=False,
+                                block=TP_MOE_BLOCK, timed=False,
+                                ep=mp.ep_group)
+        res["routes"] = calls
+        if name == "ep bf16":
+            # timed apart: the recorded routes are the chain's alone
+            res["token_ms"] = _llama_chains(
+                shard, lcfg, dev, dtype, pooled=False, block=TP_MOE_BLOCK,
+                ep=mp.ep_group)["token_ms"]
+        res["weight_bytes"] = _tree_bytes(shard)
+        out[name] = res
+        del shard
+    return out
+
+
+def _pp_rank(group, dev, small) -> dict:
+    """Llama-3.1-8B's geometry at ``BIG_DEPTH`` layers over a pp group of
+    every rank: the pp prefill of a fresh pool of ``PP_POOL`` prompts,
+    then from it a ``PP_BLOCK`` block at n_micro pp and 2 pp (each
+    timed); bf16 and f32."""
+    from llmvox_tpu_torch.models import llama as L
+    from llmvox_tpu_torch.models import llama_pp as LP
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    pp, s = pmesh.group_size(group), pmesh.group_rank(group)
+    lcfg = L.LlamaConfig(**dict(_geometry(small)["llama"],
+                                n_layer=BIG_DEPTH, max_seq_len=PP_SEQ))
+    ids, lens = _tp_prompts(lcfg, PP_POOL)
+    out = {"pp": pp}
+    for name, dtype in PP_RUNS:
+        full = _llama_tree(lcfg, 180, dev, dtype)
+        shard = LP.shard_llama_pp(full, lcfg, pp, s)
+        stage_cfg = dataclasses.replace(lcfg, n_layer=lcfg.n_layer // pp)
+        fresh = L.init_llama_pool_state(stage_cfg, PP_POOL, dtype, dev)
+        first, st = LP.make_pp_prefill(group, lcfg, n_micro=pp)(
+            shard, torch.as_tensor(ids, device=dev),
+            torch.as_tensor(lens, device=dev), fresh)
+        res = {"first": first.tolist(), "pos": st.pos.tolist(),
+               "stage_bytes": _tree_bytes(shard["h"]) + _tree_bytes(
+                   {"k": st.k, "v": st.v}), "blocks": {}}
+        ones = torch.ones(PP_POOL, dtype=torch.bool, device=dev)
+        for m in (pp, 2 * pp):
+            decode = LP.make_pp_decode(group, lcfg, block=PP_BLOCK,
+                                       n_micro=m)
+            (toks, _), ms = _timed(lambda: decode(shard, st._replace(
+                k=st.k.clone(), v=st.v.clone()), ones), dev)
+            res["blocks"][m] = {"toks": toks.tolist(),
+                                "step_ms": ms / PP_BLOCK}
+        out[name] = res
+        del full, shard, fresh, st
+    return out
+
+
+def _a2a_inputs(mcfg, ep: int, dev):
+    """The all-to-all MoE's inputs at the MoE's widths, seeded alike on
+    every rank: (ep * A2A_ROWS, C) rows and the layer's router and
+    experts (the scale of tests/test_moe.py::_a2a_setup), f32."""
+    g = torch.Generator(device=dev).manual_seed(190)
+    c, i, e = mcfg["n_embd"], mcfg["intermediate_size"], mcfg["n_experts"]
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    return {"x": draw(ep * A2A_ROWS, c), "rw": draw(c, e),
+            "wg": draw(e, c, i, scale=c ** -0.5),
+            "wu": draw(e, c, i, scale=c ** -0.5),
+            "wd": draw(e, i, c, scale=i ** -0.5)}
+
+
+def _a2a_reference(mcfg, ep: int, e0: int, e_loc: int, dev) -> dict:
+    """``moe_ffn(group_size=A2A_ROWS)`` on one process: y of rank 0's rows
+    and aux, drop-free and capped (cf 1), and the gradients of sum(y * y)
+    + aux of the router and of experts [e0, e0 + e_loc) (drop-free),
+    kept on the card; timed."""
+    from llmvox_tpu_torch.ops import moe
+    a = _a2a_inputs(mcfg, ep, dev)
+    out = {}
+    for name, kw in (("drop-free", dict(drop_free=True)),
+                     ("cf 1", dict(capacity_factor=1.0))):
+        with torch.no_grad():
+            (y, aux), ms = _timed(lambda: moe.moe_ffn(
+                a["x"], a["rw"], a["wg"], a["wu"], a["wd"], 2,
+                group_size=A2A_ROWS, **kw), dev)
+        out[name] = (y[:A2A_ROWS].clone(), float(aux), ms)
+    p = {k: a[k].requires_grad_() for k in ("rw", "wg", "wu", "wd")}
+    y, aux = moe.moe_ffn(a["x"], p["rw"], p["wg"], p["wu"], p["wd"], 2,
+                         group_size=A2A_ROWS, drop_free=True)
+    ((y * y).sum() + aux).backward()
+    out["grads"] = {"rw": p["rw"].grad} | {
+        k: p[k].grad[e0:e0 + e_loc].clone() for k in ("wg", "wu", "wd")}
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _a2a_rank(mp, rank: int, dev, small) -> dict:
+    """``moe_ffn_a2a`` at the MoE's widths over the ep group of every rank:
+    this rank's rows, drop-free and capped, and the gradients (the
+    router's summed over the group); rank 0 holds its rows and experts to
+    the one process's ``moe_ffn(group_size=rows)``, run first while the
+    others wait.  Then ``all_to_all_dim``'s all-reduce route held bitwise
+    to the native one, in bf16 and f32 at the dispatch's shape."""
+    from llmvox_tpu_torch.ops import moe
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    mcfg = _geometry(small)["moe"]
+    g, ep = mp.ep_group, mp.ep
+    i = pmesh.group_rank(g)
+    e_loc = mcfg["n_experts"] // ep
+    ref = (_a2a_reference(mcfg, ep, i * e_loc, e_loc, dev) if rank == 0
+           else None)
+    pmesh.barrier()
+    a = _a2a_inputs(mcfg, ep, dev)
+    rows = slice(i * A2A_ROWS, (i + 1) * A2A_ROWS)
+    ex = slice(i * e_loc, (i + 1) * e_loc)
+    x = a["x"][rows].clone()
+    w = {k: a[k][ex].clone() for k in ("wg", "wu", "wd")}
+    rw = a["rw"]
+    del a
+    out = {"ep": ep, "rows": A2A_ROWS, "cases": {}}
+    for name, kw in (("drop-free", dict(drop_free=True)),
+                     ("cf 1", dict(capacity_factor=1.0))):
+        with torch.no_grad():
+            (y, aux), ms = _timed(lambda: moe.moe_ffn_a2a(
+                x, rw, w["wg"], w["wu"], w["wd"], 2, g, **kw), dev)
+        res = {"ms": ms}
+        if ref is not None:
+            ry, raux, rms = ref[name]
+            res.update(y_rel_err=_rel_err(y, ry),
+                       aux_rel_err=abs(float(aux) - raux) / abs(raux),
+                       one_ms=rms)
+            assert res["y_rel_err"] <= A2A_REL, (name, res)
+            assert res["aux_rel_err"] <= A2A_AUX_RTOL, (name, res)
+        out["cases"][name] = res
+    p = {k: v.requires_grad_() for k, v in
+         dict(w, rw=rw.clone()).items()}
+    y, aux = moe.moe_ffn_a2a(x, p["rw"], p["wg"], p["wu"], p["wd"], 2, g,
+                             drop_free=True)
+    ((y * y).sum() + aux).backward()
+    grads = {k: v.grad for k, v in p.items()}
+    pmesh.all_reduce_([grads["rw"]], group=g)
+    if ref is not None:
+        out["grad_rel_err"] = {k: _rel_err(grads[k], ref["grads"][k])
+                               for k in grads}
+        assert max(out["grad_rel_err"].values()) <= A2A_REL, out
+    del p, grads, y, ref
+    # the all-to-all's routes at the dispatch's (E, cap, C) shape
+    bit = {}
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(191 + rank)
+        buf = torch.randn((mcfg["n_experts"], 16, mcfg["n_embd"]),
+                          generator=gen, device=dev).to(dt)
+        red = pmesh.all_to_all_dim(buf, g, via=pmesh.ALL_REDUCE)
+        nat = (pmesh.all_to_all_dim(buf, g, via=pmesh.NATIVE)
+               if pmesh.route(dev) == pmesh.NATIVE else
+               pmesh.all_to_all_dim(buf.cpu(), g, via=pmesh.NATIVE))
+        bit[str(dt).split(".")[-1]] = bool(torch.equal(red.cpu(),
+                                                       nat.cpu()))
+    assert all(bit.values()), bit
+    out["routes_bitwise"] = bit
+    out["route"] = pmesh.route(dev)
+    return out
+
+
+def _fsdp_llama_step(params, cfg, toks, dev, ep=None, fsdp=None,
+                     dp_rank: int = 0, dp: int = 1, keep=None):
+    """One AdamW step (optax.adamw(1e-3)'s update) of ``llama_loss`` on
+    ``params`` (this rank's shards under ``fsdp``): (the batch's loss,
+    the ms of the step, the moments' bytes, and given ``keep`` (name,
+    tensor -> a copy to keep) its copy of each leaf's batch gradient,
+    else None)."""
+    from llmvox_tpu_torch.models import llama as L
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.parallel import sharding as psh
+    from llmvox_tpu_torch.train.optim import AdamW, named_leaves
+    from llmvox_tpu_torch.utils.config import CodecTrainConfig
+    leaves = named_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_()
+    rows = psh.dp_rows(toks.shape[0], dp_rank, dp)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = L.llama_loss(params, toks[rows], cfg, ep=ep, fsdp=fsdp)
+    loss.backward()
+    grads = [t.grad for _, t in leaves]
+    if fsdp is not None:
+        whole = [g for (n, _), g in zip(leaves, grads)
+                 if n not in fsdp.dims]
+        pmesh.all_reduce_(whole, group=fsdp.group)
+    kept = None
+    if keep is not None:
+        _sync(dev)
+        t_keep = time.perf_counter()
+        kept = {n: keep(n, g.detach()) for (n, _), g in zip(leaves, grads)}
+        _sync(dev)
+        t0 += time.perf_counter() - t_keep   # the copy is not the step's
+    opt = AdamW(CodecTrainConfig(initial_learning_rate=FSDP_LR,
+                                 num_warmup_steps=0),
+                [t for _, t in leaves], [True] * len(leaves))
+    opt.step(grads)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    total = loss.detach().reshape(1)
+    if fsdp is not None:
+        pmesh.all_reduce_([total], group=fsdp.group)
+    moments = sum(m.numel() * m.element_size() for m in opt.mu + opt.nu)
+    del opt, grads
+    for _, t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return float(total[0]), ms, moments, kept
+
+
+def _fsdp_rank(mp, rank: int, dev, small) -> dict:
+    """The ep-aware FSDP step at the MoE's widths, 1 layer, f32, at capacity
+    ``FSDP_CF``: rank 0 first runs it on one process and keeps the result
+    on the host while the others wait; then every rank its shard of the
+    step (dp x ep, ``LLAMA_FSDP_SPECS``), rank 0 holding its shard to the
+    one process's: its loss, each leaf's gradient and its params after
+    the step."""
+    from llmvox_tpu_torch.models.llama import LlamaConfig
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    from llmvox_tpu_torch.parallel import sharding as psh
+    from llmvox_tpu_torch.train.optim import named_leaves
+    from llmvox_tpu_torch.utils import params as P
+    cfg = LlamaConfig(**dict(_geometry(small)["moe"], n_layer=1,
+                             moe_capacity_factor=FSDP_CF))
+    toks = torch.as_tensor(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (FSDP_ROWS, FSDP_T)), device=dev)
+    out = {"dp": mp.dp, "ep": mp.ep, "rows": FSDP_ROWS, "T": FSDP_T}
+
+    def mine(name, whole):
+        """Rank 0's shard of a whole leaf, on the host."""
+        spec = psh.LLAMA_FSDP_SPECS
+        for k in name.split("/"):
+            spec = spec[k]
+        return psh.shard_leaf(whole, spec, 1, 0, dp=mp.dp,
+                              dp_rank=mp.dp_rank, ep=mp.ep,
+                              ep_rank=mp.ep_rank).cpu()
+    one = one_grads = None
+    if rank == 0:
+        full = P.init_llama_params(200, cfg, device=dev)
+        out["params"] = sum(t.numel() for _, t in named_leaves(full))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out["one_loss"], out["one_ms"], _, one_grads = _fsdp_llama_step(
+            full, cfg, toks, dev, keep=mine)
+        out["one_peak_bytes"] = _peak(dev)
+        one = {k: mine(k, v.detach()) for k, v in named_leaves(full)}
+        del full
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    pmesh.barrier()
+    full = P.init_llama_params(200, cfg, device=dev)
+    shard = psh.shard_llama(full, cfg, 1, 0, ep=mp.ep, ep_rank=mp.ep_rank,
+                            dp=mp.dp, dp_rank=mp.dp_rank)
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    fsdp = psh.llama_fsdp(shard, mp.dp_group)
+    loss, ms, moments, grads = _fsdp_llama_step(
+        shard, cfg, toks, dev, ep=mp.ep_group, fsdp=fsdp,
+        dp_rank=mp.dp_rank, dp=mp.dp,
+        keep=None if one is None else lambda n, g: g.clone())
+    out.update(loss=loss, ms=ms, peak_bytes=_peak(dev),
+               shard_bytes=_tree_bytes(shard), moment_bytes=moments,
+               expert_shard=tuple(shard["h"]["moe_wgate"].shape))
+    if one is not None:
+        out["loss_rel_err"] = abs(loss - out["one_loss"]) / abs(
+            out["one_loss"])
+        assert out["loss_rel_err"] <= TRAIN_LOSS_RTOL, out
+        worst = off = bad = n = 0
+        grad_err = {}
+        for name, t in named_leaves(shard):
+            g_one = one_grads[name].to(dev)
+            grad_err[name] = _rel_err(grads[name], g_one)
+            # where the one process's gradient is within rounding of 0
+            near0 = g_one.abs() <= TRAIN_GRAD_RTOL * g_one.abs().max()
+            err = (t.detach() - one[name].to(dev)).abs()
+            worst = max(worst, float(err.max()))
+            past = err > TRAIN_PARAM_ATOL
+            off += int(past.sum())
+            bad += int((past & ~near0).sum())
+            n += err.numel()
+        out.update(grad_rel_err=max(grad_err.values()),
+                   grad_rel_err_at=max(grad_err, key=grad_err.get),
+                   param_abs_err=worst, params_off=off, params_held=n,
+                   params_off_not_near0=bad)
+        assert all(e <= TRAIN_GRAD_RTOL for e in grad_err.values()), \
+            grad_err
+        assert bad == 0 and worst <= 2 * FSDP_LR, out
+    del shard, one, one_grads, grads
+    return out
+
+
+def _mp_rank(rank: int, world: int, dev, small) -> dict:
+    """The last multi-device paths on one rank (the group still formed),
+    each counted from 0 for the kernels' launches: experts over ep =
+    world (``_ep_rank``), the pipeline over pp = world (``_pp_rank``), the
+    all-to-all MoE over ep = world (``_a2a_rank``) and the ep-aware FSDP
+    step at dp 2 x ep world/2 (``_fsdp_rank``); this rank's peak device
+    memory over them."""
+    from llmvox_tpu_torch.parallel import mesh as pmesh
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"launches": {}, "s": {}}
+    mp = pmesh.initialize_model_parallel(1, 1, world)
+    for name, fn in (("ep", lambda: _ep_rank(mp, dev, small)),
+                     ("pp", lambda: _pp_rank(mp.ep_group, dev, small)),
+                     ("a2a", lambda: _a2a_rank(mp, rank, dev, small))):
+        _zero_launches()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["s"][name] = time.perf_counter() - t0
+        out["launches"][name] = _read_launches()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["peak_bytes"] = _peak(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    out["fsdp"] = _fsdp_rank(pmesh.initialize_model_parallel(
+        1, 1, world // 2), rank, dev, small)
+    out["s"]["fsdp"] = time.perf_counter() - t0
+    out["launches"]["llama_fsdp"] = _read_launches()
+    return out
+
+
+def _mp_one(mp: dict, dev, small) -> dict:
+    """Rank 0, the group gone: one process holds the ep and pp ranks'
+    chains (``_hold_run``; the pp chains against
+    ``prefill_slots`` + ``decode_block_pooled``, f32 identical, bf16 equal
+    or at ties)."""
+    from llmvox_tpu_torch.models import llama as L
+    out = {"ep": {}, "pp": {}, "a2a": mp["a2a"], "fsdp": mp["fsdp"],
+           "launches": mp["launches"], "peak_bytes": mp["peak_bytes"],
+           "s": mp["s"]}
+    ep = mp["a2a"]["ep"]
+    for name, which, depth, dtype in EP_RUNS:
+        out["ep"][name] = _hold_run(mp["ep"][name], which, depth, dtype, dev,
+                                    small, ep, name,
+                                    timed=name == "ep bf16", par="ep")
+    pp = mp["pp"]["pp"]
+    lcfg = L.LlamaConfig(**dict(_geometry(small)["llama"],
+                                n_layer=BIG_DEPTH, max_seq_len=PP_SEQ))
+    ids, lens = _tp_prompts(lcfg, PP_POOL)
+    ones = torch.ones(PP_POOL, dtype=torch.bool, device=dev)
+    for name, dtype in PP_RUNS:
+        got = mp["pp"][name]
+        full = _llama_tree(lcfg, 180, dev, dtype)
+        with torch.no_grad():
+            st = L.init_llama_pool_state(lcfg, PP_POOL, dtype, dev)
+            first, st = L.prefill_slots(
+                full, torch.as_tensor(ids, device=dev),
+                torch.as_tensor(lens, device=dev), st,
+                torch.arange(PP_POOL, device=dev), ones, lcfg)
+            (toks, _), ms = _timed(lambda: L.decode_block_pooled(
+                full, st._replace(k=st.k.clone(), v=st.v.clone()), ones,
+                lcfg, block=PP_BLOCK), dev)
+        res = {"one_step_ms": ms / PP_BLOCK, "held": {},
+               "step_ms": {m: b["step_ms"] for m, b in got["blocks"].items()},
+               "stage_bytes": got["stage_bytes"]}
+        assert got["first"] == first.tolist(), (name, got["first"])
+        assert got["pos"] == lens.tolist(), (name, got["pos"])
+        for m, b in got["blocks"].items():
+            for r in range(PP_POOL):
+                c = [got["first"][r]] + b["toks"][r]
+                o = [int(first[r])] + toks[r].tolist()
+                what = f"n_micro {m} row {r}"
+                if dtype == torch.float32:
+                    assert c == o, (name, what, c, o)
+                if c == o:
+                    continue
+                res["held"][what] = _held_to(
+                    full, lcfg, c[1:], list(ids[r, :lens[r]]) + c[:1], pp,
+                    (name, what)) or "equal picks teacher-forced"
+        out["pp"][name] = res
+        del full, st
+    out["pp"]["pp"] = pp
+    return out
+
+
 def _dp_rank(rank: int, world: int, small=None) -> dict:
     """One rank of phase 22 (``parallel/launch.py::spawn``): the decoder
     and codec trainers data-parallel on this rank's card, lockstep after
@@ -6779,7 +7280,18 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
     out["sp_s"] = time.perf_counter() - t0
     out["sp_rank"] = {"timed": sp["timed"],
                       "bytes": {k: v["bytes"]
-                                for k, v in sp["checks"].items()}}
+                                for k, v in sp["checks"].items()},
+                      "ckpt": {k: v["ckpt"] for k, v in sp["checks"].items()
+                               if "ckpt" in v}}
+    t0 = time.perf_counter()
+    mp = _mp_rank(rank, world, dev, small)
+    out["mp_s"] = time.perf_counter() - t0
+    out["mp_rank"] = {"peak_bytes": mp["peak_bytes"],
+                      "fsdp": {k: mp["fsdp"][k] for k in (
+                          "ms", "peak_bytes", "shard_bytes",
+                          "moment_bytes")},
+                      "a2a_ms": {k: v["ms"] for k, v in
+                                 mp["a2a"]["cases"].items()}}
     dist.destroy_process_group()
     if rank:
         return out
@@ -6813,6 +7325,16 @@ def _dp_rank(rank: int, world: int, small=None) -> dict:
     out["sp"] = _sp_one(sp, dev, small)
     out["sp_s"] += time.perf_counter() - t0
     del sp
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["mp"] = _mp_one(mp, dev, small)
+    out["mp_s"] += time.perf_counter() - t0
+    del mp
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     r32 = ct.CodecTrainer(ccfg, dataclasses.replace(ctcfg, dp_size=1),
                           device=dev, **state)
     logs1, cms1, embeds1, _ = _codec_steps(r32, audios)
@@ -7079,6 +7601,91 @@ def _log_sp(t: dict, ranks, backend: str, card: str) -> None:
         f"{[round(r['sp_s'], 1) for r in ranks]} s")
 
 
+def _log_mp(t: dict, ranks, backend: str, card: str) -> None:
+    """Phase 22's figures of the ep, pp, a2a and FSDP paths and of the
+    sharded checkpoint, each beside the card."""
+    gb, at = 1e9, f" ({backend}; {card})"
+    ep = t["a2a"]["ep"]
+    for name, which, depth, dtype in EP_RUNS:
+        r = t["ep"][name]
+        held = "; ".join(f"{k}: {v}" for k, v in r["held"].items())
+        f = r["routes"]
+        msg = (f"[ep] Mixtral-8x7B geometry, {depth} layers, "
+               f"{str(dtype).split('.')[-1]}, ep {ep} (each rank "
+               f"{8 // ep} experts): {r['tokens']}-token B=1 chain against "
+               f"one process: {held}; forced onto the ep routes: route "
+               f"flips {f['flips']} of {f['rows']} token-layers (gaps "
+               f"{[round(g, 2) for g in f['flip_gap_ulps']]} ulps, tol "
+               f"{TP_ROUTE_TIE_ULPS * ep}), chain: {f['held']}; prefill "
+               f"logits' max|err| {100 * r['prefill_logits_err']:.4f}% of "
+               f"their std; each rank's weights "
+               f"{r['ep']['weight_bytes'] / gb:.3f} GB, one process's "
+               f"{r['one']['weight_bytes'] / gb:.3f} GB")
+        if "ep_token_ms" in r:
+            msg += (f"; ms a B=1 token {r['ep_token_ms']:.2f} at ep, "
+                    f"{r['one_token_ms']:.2f} one process")
+        log(msg + at)
+    pp = t["pp"]["pp"]
+    for name, dtype in PP_RUNS:
+        r = t["pp"][name]
+        log(f"[pp] Llama-3.1-8B geometry, {BIG_DEPTH} layers, KV "
+            f"{PP_SEQ}, {str(dtype).split('.')[-1]}, pp {pp}, a pool of "
+            f"{PP_POOL}: the pp prefill's first tokens and pos equal "
+            f"prefill_slots'; {PP_BLOCK}-token blocks at n_micro "
+            f"{list(r['step_ms'])} against decode_block_pooled: "
+            f"{r['held'] or 'identical'}; ms a token step "
+            + ", ".join(f"{ms:.2f} at n_micro {m}"
+                        for m, ms in r["step_ms"].items())
+            + f", one process's pooled step {r['one_step_ms']:.2f}; each "
+            f"stage's layers + KV {r['stage_bytes'] / gb:.3f} GB" + at)
+    a = t["a2a"]
+    cases = "; ".join(
+        f"{k}: y rel err {v['y_rel_err']:.2e}, aux rel err "
+        f"{v['aux_rel_err']:.2e}, ms {v['ms']:.2f} (ep), {v['one_ms']:.2f} "
+        f"(one process)" for k, v in a["cases"].items())
+    log(f"[a2a] moe_ffn_a2a, Mixtral-8x7B's layer widths (4096, 8 experts "
+        f"of 14336, top-2), f32, ep {ep}, {a['rows']} rows a rank, against "
+        f"moe_ffn(group_size={a['rows']}) on one process (tol {A2A_REL:.0e} "
+        f"of the largest |value|, aux {A2A_AUX_RTOL:.0e}): {cases}; "
+        f"gradients' rel err "
+        f"{ {k: f'{v:.2e}' for k, v in a['grad_rel_err'].items()} }; the "
+        f"{a['route']!r} route, the all-reduce route bitwise equal to the "
+        f"native: {a['routes_bitwise']}" + at)
+    f = t["fsdp"]
+    per = [rk["mp_rank"]["fsdp"] for rk in ranks]
+    state = [f"{p['shard_bytes'] / gb:.3f} + {p['moment_bytes'] / gb:.3f}"
+             for p in per]
+    log(f"[fsdp] llama_loss + AdamW step, Mixtral-8x7B's widths at 1 layer "
+        f"({f['params'] / 1e9:.2f} G params), f32, capacity factor "
+        f"{FSDP_CF}, {f['rows']} x {f['T']} tokens, dp {f['dp']} x ep "
+        f"{f['ep']} (LLAMA_FSDP_SPECS; experts a rank {f['expert_shard']}): "
+        f"loss rel err {f['loss_rel_err']:.2e} (tol {TRAIN_LOSS_RTOL:.0e}), "
+        f"rank 0's gradients, worst max|err| / max|g| "
+        f"{f['grad_rel_err']:.2e} at {f['grad_rel_err_at']} (tol "
+        f"{TRAIN_GRAD_RTOL:.0e} a leaf), params max|err| "
+        f"{f['param_abs_err']:.2e}, {f['params_off']} of {f['params_held']} "
+        f"off by more than {TRAIN_PARAM_ATOL:.0e}, of them "
+        f"{f['params_off_not_near0']} where |g| is past the rounding bound "
+        f"(tol 0) against one process; ms a step {[round(p['ms'], 1) for p in per]} (each "
+        f"rank), one process {f['one_ms']:.1f}; each rank's params + "
+        f"moments {state} GB, "
+        f"peak {[round((p['peak_bytes'] or 0) / gb, 3) for p in per]} GB, "
+        f"one process's peak {(f['one_peak_bytes'] or 0) / gb:.3f} GB" + at)
+    for name, r in ranks[0]["sp_rank"]["ckpt"].items():
+        each = [rk["sp_rank"]["ckpt"][name] for rk in ranks]
+        log(f"[ckpt] save_sharded of the decoder trainer's {name} shards: "
+            f"{[round(e['bytes'] / 1e6, 1) for e in each]} MB a rank, save "
+            f"{[round(e['save_s'], 2) for e in each]} s (each rank), "
+            f"load whole on one process {r['load_s']:.2f} s, "
+            f"{r['leaves']} leaves equal to the gathered tree" + at)
+    log(f"[mp] peak device memory over the ep, pp and a2a checks "
+        f"{[round((rk['mp_rank']['peak_bytes'] or 0) / gb, 3) for rk in ranks]} "
+        f"GB each rank; kernel launches (rank 0, each path counted from 0): "
+        f"{t['launches']}; seconds {[round(rk['mp_s'], 1) for rk in ranks]} "
+        f"(each rank), rank 0's by path "
+        f"{ {k: round(v, 1) for k, v in t['s'].items()} }")
+
+
 def phase_dp(engines, weights, card: str, device="cuda", small=None,
              graphs=None) -> dict:
     """Phase 22: data and tensor parallelism on the card(s).  The trainers'
@@ -7123,11 +7730,12 @@ def phase_dp(engines, weights, card: str, device="cuda", small=None,
         f"{c['world1_step_ms'][1]:.1f} ({backend}; {card})")
     _log_tp(r0["tp"], ranks, backend, card)
     _log_sp(r0["sp"], ranks, backend, card)
+    _log_mp(r0["mp"], ranks, backend, card)
     train_s = time.perf_counter() - t0
     pool = _dp_pool(engines, weights, devices[:world], graphs)
     out = {"world": world, "backend": backend, "devices": devices,
            "decoder": d, "codec": c, "tp": r0["tp"], "sp": r0["sp"],
-           "pool": pool,
+           "mp": r0["mp"], "pool": pool,
            "train_s": train_s,
            "ranks": [{k: r[k] for k in ("rank", "device")} for r in ranks]}
     out["phase_s"] = time.perf_counter() - t0
@@ -7362,6 +7970,7 @@ def main(argv) -> int:
     mesh_pool = dict(pool_llm)
     tp_path = dict(pool_llm)
     sp_path = dict(pool_llm)
+    mp_paths = {p: dict(pool_llm) for p in ("ep", "a2a", "pp", "llama_fsdp")}
     if not kernels_only:
         engines, weights = phase_offline()
         lap("offline")
@@ -7448,6 +8057,8 @@ def main(argv) -> int:
         tp_path = dp["tp"]["launches"]
         # and its sequence-parallel and FSDP checks
         sp_path = dp["sp"]["launches"]
+        # and its ep, a2a, pp and Llama FSDP checks, each from 0
+        mp_paths = dp["mp"]["launches"]
     deep = k1["timings"][8191]
     entry = {"name": "K1 decode_attention", "route": "cuda",
              "source": "llmvox_tpu_torch/csrc/decode_attention.cu",
@@ -7462,6 +8073,7 @@ def main(argv) -> int:
              "mesh_pool_launches": mesh_pool["k1"],
              "tp_launches": tp_path["k1"],
              "sp_fsdp_launches": sp_path["k1"],
+             **{f"{p}_launches": n["k1"] for p, n in mp_paths.items()},
              "codec_train_launches": codec_launches["k1"],
              "codec_eval_launches": eval_launches["k1"],
              "pos": 8191, "dtype": "bfloat16", **deep,
@@ -7482,6 +8094,7 @@ def main(argv) -> int:
               "mesh_pool_launches": mesh_pool["k2"],
               "tp_launches": tp_path["k2"],
               "sp_fsdp_launches": sp_path["k2"],
+              **{f"{p}_launches": n["k2"] for p, n in mp_paths.items()},
               "codec_train_launches": codec_launches["k2"],
               "codec_eval_launches": eval_launches["k2"],
               "B": K2_B, "pos": 8191, "dtype": "bfloat16", **k2_deep,
@@ -7501,6 +8114,7 @@ def main(argv) -> int:
               "mesh_pool_launches": mesh_pool["k3"],
               "tp_launches": tp_path["k3"],
               "sp_fsdp_launches": sp_path["k3"],
+              **{f"{p}_launches": n["k3"] for p, n in mp_paths.items()},
               "codec_train_launches": codec_launches["k3"],
               "codec_eval_launches": eval_launches["k3"],
               "B": K3_B, "nq": SPEC_K + 1, "pos": 8192 - SPEC_K - 1,
@@ -7522,6 +8136,7 @@ def main(argv) -> int:
               "mesh_pool_launches": mesh_pool["k4"],
               "tp_launches": tp_path["k4"],
               "sp_fsdp_launches": sp_path["k4"],
+              **{f"{p}_launches": n["k4"] for p, n in mp_paths.items()},
               "codec_train_launches": codec_launches["k4"],
               "codec_eval_launches": eval_launches["k4"],
               "weight": "wproj 3072->768", "M": 1, "dtype": "bfloat16",

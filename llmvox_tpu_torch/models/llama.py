@@ -66,7 +66,19 @@ bytes.  Every rank of a group holds the same logits, so greedy tokens
 agree, and sampled ones do where the ranks' generators are seeded alike.
 The head counts a function uses are read from the weights' and caches'
 shapes.  ``prefill_slots_continue`` and the speculative pooled block
-refuse a tensor-parallel state (ROADMAP queue 1 item 10).
+take ``tp`` too.
+
+Expert parallelism: every function that takes ``tp`` takes ``ep``, a
+group over which a mixture-of-experts tree holds this rank's contiguous
+block of E/ep experts (``shard_llama(..., ep=)``, JAX's
+``P(None, "ep", None, "tp")``); the tokens are the same on every rank of
+it, each rank runs its experts' share of the slots and the outputs are
+summed over the group (``ops/moe.py::moe_ffn``).  ``apply_llama`` and
+``llama_loss`` also take ``fsdp`` (``parallel/sharding.py::llama_fsdp``:
+the leaves are dp shards, gathered where the forward uses them, and the
+batch's rows are split over the same group, the experts routing the
+whole batch as one, as GSPMD keeps it).  The pipeline over layers is
+``models/llama_pp.py``.
 """
 from __future__ import annotations
 
@@ -75,6 +87,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from llmvox_tpu_torch.models.spec import run_spec_loop
 from llmvox_tpu_torch.ops import moe, nn
@@ -239,7 +252,7 @@ def _gqa_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _mlp(lp: Dict, h: torch.Tensor, cfg: LlamaConfig,
          token_mask: Optional[torch.Tensor] = None,
-         drop_free: bool = False, tp=None
+         drop_free: bool = False, tp=None, ep=None, dp=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN half of a layer: the dense SwiGLU wdown(silu(wgate h) *
     wup h), the silu in f32, or top-k routed experts when
@@ -249,14 +262,17 @@ def _mlp(lp: Dict, h: torch.Tensor, cfg: LlamaConfig,
     axis) marks the real tokens: padding and inactive rows are kept out
     of routing.  ``drop_free`` (every inference path) gives the experts
     room for every token, so no token drops.  ``tp``: the group over which
-    the hidden columns are split (the products summed over it)."""
-    h = tpar.copy_to_tp(h, tp)
+    the hidden columns are split (the products summed over it); ``ep``:
+    the group over which the experts are split; ``dp``: the group over
+    which the batch's rows are split, whose tokens route as one batch."""
     if cfg.n_experts:
         return moe.moe_ffn(h, lp["router"], lp["moe_wgate"], lp["moe_wup"],
                            lp["moe_wdown"], cfg.moe_top_k,
                            cfg.moe_capacity_factor, token_mask=token_mask,
                            group_size=cfg.moe_group_size,
-                           drop_free=drop_free, tp_group=tp)
+                           drop_free=drop_free, tp_group=tp, ep_group=ep,
+                           dp_group=dp)
+    h = tpar.copy_to_tp(h, tp)
     gate = nn.linear(h, lp["wgate"])
     up = nn.linear(h, lp["wup"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
@@ -292,56 +308,68 @@ def local_kv_heads(cfg: LlamaConfig, tp=None) -> int:
     return cfg.n_kv_head // n
 
 
-def _refuse_tp_state(k: torch.Tensor, cfg: LlamaConfig, what: str) -> None:
-    if k.shape[3] != cfg.n_kv_head:
-        raise ValueError(
-            f"{what} on a tensor-parallel state ({k.shape[3]} of "
-            f"{cfg.n_kv_head} KV heads) is not ported: ROADMAP queue 1 "
-            "item 10")
-
-
 def _layer_params(params: Dict, layer: int) -> Dict:
     return {k: v[layer] for k, v in params["h"].items()}
 
 
-def _head(params: Dict):
+def _head(params: Dict, fsdp=None):
     head = params.get("head")
-    return params["tok_emb"].t() if head is None else head
+    if head is None:
+        return _leaf(params, "tok_emb", fsdp).t()
+    return _leaf(params, "head", fsdp)
+
+
+def _leaf(params: Dict, name: str, fsdp=None) -> torch.Tensor:
+    """A top-level leaf, gathered over dp under ``fsdp``."""
+    return params[name] if fsdp is None else fsdp.leaf(name, params[name])
+
+
+def _dp_group(fsdp):
+    """The group of the batch's rows: FSDP's (every rank when its group
+    is None), None without FSDP."""
+    if fsdp is None:
+        return None
+    return fsdp.group if fsdp.group is not None else dist.group.WORLD
 
 
 def apply_llama(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
                 positions: Optional[torch.Tensor] = None,
                 return_hidden: bool = False, return_moe_aux: bool = False,
-                tp=None):
+                tp=None, ep=None, fsdp=None):
     """Teacher-forced forward: (B, T) int -> (B, T, V) logits.
     ``return_hidden=True`` also returns the post-final-norm hidden states
     (the draft heads' input); ``return_moe_aux=True`` appends the mean
     over layers of the experts' load-balancing statistic (0 for a dense
     config).  The experts route as JAX's training forward routes them:
     at ``moe_capacity_factor``, in ``moe_group_size`` groups, tokens
-    past an expert's capacity dropped for it.  ``tp``: a tensor-parallel
-    group over which ``params`` is this rank's shard (the module's
-    docstring)."""
+    past an expert's capacity dropped for it.  ``tp`` / ``ep``: the
+    groups over which ``params`` is this rank's shard (the module's
+    docstring).  ``fsdp``: the leaves are this rank's dp shards and
+    ``tokens`` this rank's block of rows of a batch split over the same
+    group, the experts routing the whole batch."""
     b, t = tokens.shape
     hd = cfg.head_dim
     dev = tokens.device
+    dp = _dp_group(fsdp)
     if positions is None:
         positions = torch.arange(t, device=dev)[None, :]
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     cos, sin = _rope_tables(positions, cfg, hd)
-    x = params["tok_emb"][tokens]
+    x = _leaf(params, "tok_emb", fsdp)[tokens]
     auxs = []
     for layer in range(cfg.n_layer):
         lp = _layer_params(params, layer)
+        if fsdp is not None:
+            lp = fsdp.layer(lp)
         q, k, v = _attention_in(lp, x, cfg, cos, sin, tp)
         att = _gqa_cache_attention(q, k, v, causal, cfg)
         x = x + _attention_out(lp, att, tp)
         h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-        y, aux = _mlp(lp, h, cfg, tp=tp)
+        y, aux = _mlp(lp, h, cfg, tp=tp, ep=ep, dp=dp)
         x = x + y
         auxs.append(aux)
     x = rms_norm(x, params["lnf_s"], cfg.rms_eps)
-    logits = nn.linear(x, _head(params))
+    logits = nn.linear(x, _head(params, fsdp))
     out = (logits,)
     if return_hidden:
         out = out + (x,)
@@ -357,7 +385,8 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def llama_loss(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-               mtp_weight: float = 0.2) -> torch.Tensor:
+               mtp_weight: float = 0.2, ep=None,
+               fsdp=None) -> torch.Tensor:
     """Next-token cross-entropy over ``tokens`` (B, T): position t's
     hidden predicts tokens[t+1].  With draft heads in ``params`` it adds
     the multi-token-prediction terms: head j predicts tokens[t+2+j] from
@@ -365,14 +394,30 @@ def llama_loss(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     consumes), their mean weighted by ``mtp_weight``.  A
     mixture-of-experts config adds its load-balancing statistic (the mean
     over layers) weighted by ``cfg.moe_aux_weight``.  A forward function:
-    autograd differentiates it (the optimizer is not ported)."""
+    autograd differentiates it (JAX has no Llama trainer; a step composes
+    it with ``train/optim.py::AdamW``).
+
+    ``ep`` / ``fsdp``: as ``apply_llama``.  Under ``fsdp`` ``tokens``
+    are this rank's equal block of the batch's rows and the loss is this
+    rank's share: its terms over the whole batch's count, and 1/dp of the
+    aux term (whole on every rank) in value with the whole term's
+    gradient (its statistics' all-reduce passes the gradient to each
+    rank's own tokens only), so the shares and their gradients, summed
+    over the ranks, are the batch's."""
+    n_dp = tpar.size(_dp_group(fsdp))
     heads = params.get("draft_heads")
     logits, hidden, moe_aux = apply_llama(params, tokens[:, :-1], cfg,
                                           return_hidden=True,
-                                          return_moe_aux=True)
-    loss = _ce(logits, tokens[:, 1:]) + cfg.moe_aux_weight * moe_aux
+                                          return_moe_aux=True, ep=ep,
+                                          fsdp=fsdp)
+    aux_term = cfg.moe_aux_weight * moe_aux
+    if n_dp > 1:
+        aux_term = aux_term - aux_term.detach() * (n_dp - 1) / n_dp
+    loss = _ce(logits, tokens[:, 1:]) / n_dp + aux_term
     if heads is None:
         return loss
+    if fsdp is not None:
+        heads = fsdp.leaf("draft_heads", heads)
     n_heads = heads.shape[0]
     aux = 0.0
     for j in range(n_heads):
@@ -382,7 +427,7 @@ def llama_loss(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             continue
         lj = nn.linear(hidden[:, :t_use], heads[j])
         aux = aux + _ce(lj, tokens[:, shift:])
-    return loss + mtp_weight * aux / n_heads
+    return loss + mtp_weight * aux / n_heads / n_dp
 
 
 class LlamaDecodeState(NamedTuple):
@@ -432,7 +477,7 @@ def _layer_step(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, tables: _StepTables,
                 cfg: LlamaConfig,
                 token_mask: Optional[torch.Tensor] = None,
-                tp=None) -> torch.Tensor:
+                tp=None, ep=None) -> torch.Tensor:
     """One layer for T new tokens, the cache (B, S, KV, hd) already
     holding the tokens before them: writes their K and V rows in place
     and attends the window ``tables`` describes (``_step_tables``, made
@@ -446,30 +491,30 @@ def _layer_step(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                                tables.valid, cfg)
     x = x + _attention_out(lp, att, tp)
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp)[0]
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp, ep=ep)[0]
 
 
 def _layers(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
             cfg: LlamaConfig, attn_len: Optional[int] = None,
             token_mask: Optional[torch.Tensor] = None,
-            tp=None) -> torch.Tensor:
+            tp=None, ep=None) -> torch.Tensor:
     """Every layer over (B, T) new tokens; returns the last hidden x."""
     x = params["tok_emb"][tokens]
     tables = _step_tables(state.pos, tokens.shape[1], state.k.shape[2],
                           attn_len, cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step(_layer_params(params, layer), x, state.k[layer],
-                        state.v[layer], tables, cfg, token_mask, tp)
+                        state.v[layer], tables, cfg, token_mask, tp, ep)
     return x
 
 
 def _forward_cached(params: Dict, tokens: torch.Tensor,
                     state: LlamaDecodeState, cfg: LlamaConfig,
-                    attn_len: Optional[int] = None, tp=None
+                    attn_len: Optional[int] = None, tp=None, ep=None
                     ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """(B, T) new tokens -> (B, V) logits of the last position; cache
     extended.  The final norm and head run on the last position only."""
-    x = _layers(params, tokens, state, cfg, attn_len, tp=tp)
+    x = _layers(params, tokens, state, cfg, attn_len, tp=tp, ep=ep)
     x = rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps)
     logits = nn.linear(x, _head(params))
     return logits, state._replace(pos=state.pos + tokens.shape[1])
@@ -525,15 +570,15 @@ def _gumbel(logits: torch.Tensor,
 
 
 def prefill(params: Dict, tokens: torch.Tensor, state: LlamaDecodeState,
-            cfg: LlamaConfig, tp=None
+            cfg: LlamaConfig, tp=None, ep=None
             ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Cache the prompt; returns (last-position logits (B, V), state)."""
-    return _forward_cached(params, tokens, state, cfg, tp=tp)
+    return _forward_cached(params, tokens, state, cfg, tp=tp, ep=ep)
 
 
 def prefill_padded(params: Dict, tokens: torch.Tensor, valid_len,
                    state: LlamaDecodeState, cfg: LlamaConfig,
-                   attn_len: Optional[int] = None, tp=None
+                   attn_len: Optional[int] = None, tp=None, ep=None
                    ) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Bucketed prefill: ``tokens`` (B, Tpad) right-padded, the first
     ``valid_len`` (an int or a 0-d device tensor, uniform across the
@@ -549,7 +594,7 @@ def prefill_padded(params: Dict, tokens: torch.Tensor, valid_len,
                                 device=tokens.device)
     valid_mask = (torch.arange(tokens.shape[1], device=tokens.device)
                   < valid_len).expand(tokens.shape)
-    x = _layers(params, tokens, state, cfg, attn_len, valid_mask, tp)
+    x = _layers(params, tokens, state, cfg, attn_len, valid_mask, tp, ep)
     last = (valid_len - 1).long().reshape(1)
     x = rms_norm(x.index_select(1, last)[:, 0], params["lnf_s"], cfg.rms_eps)
     logits = nn.linear(x, _head(params))
@@ -560,8 +605,8 @@ def decode_block(params: Dict, first_token: torch.Tensor,
                  state: LlamaDecodeState, cfg: LlamaConfig, block: int = 16,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, attn_len: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None, tp=None
-                 ) -> Tuple[torch.Tensor, LlamaDecodeState]:
+                 generator: Optional[torch.Generator] = None, tp=None,
+                 ep=None) -> Tuple[torch.Tensor, LlamaDecodeState]:
     """Generate ``block`` tokens on the device from ``first_token`` (B,)
     (the token sampled from the prefill's logits).  Returns the tokens
     generated after it, (B, block) int32, and the state.  EOS handling is
@@ -572,7 +617,7 @@ def decode_block(params: Dict, first_token: torch.Tensor,
     out = []
     for _ in range(block):
         logits, state = _forward_cached(params, tok[:, None], state, cfg,
-                                        attn_len, tp)
+                                        attn_len, tp, ep)
         tok = _sample(logits, temperature, top_k, top_p, generator)
         out.append(tok)
     return torch.stack(out, dim=1), state
@@ -687,8 +732,8 @@ def _row_tables(pos_vec: torch.Tensor, t: int, s_cap: int,
 def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, tables: _StepTables,
                      cfg: LlamaConfig,
-                     token_mask: Optional[torch.Tensor] = None, tp=None
-                     ) -> torch.Tensor:
+                     token_mask: Optional[torch.Tensor] = None, tp=None,
+                     ep=None) -> torch.Tensor:
     """One layer for T new tokens per row, each row at its own position
     (``_row_tables``): writes their K and V rows of the cache (B, S, KV,
     hd) in place, attends the window with the per-row causal mask, and
@@ -705,14 +750,14 @@ def _layer_step_rows(lp: Dict, x: torch.Tensor, k_cache: torch.Tensor,
                                tables.valid, cfg).to(x.dtype)
     x = x + _attention_out(lp, att, tp)
     h = rms_norm(x, lp["ln2_s"], cfg.rms_eps)
-    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp)[0]
+    return x + _mlp(lp, h, cfg, token_mask, drop_free=True, tp=tp, ep=ep)[0]
 
 
 def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, pos_vec: torch.Tensor,
                       cfg: LlamaConfig, attn_len: Optional[int] = None,
-                      token_mask: Optional[torch.Tensor] = None, tp=None
-                      ) -> torch.Tensor:
+                      token_mask: Optional[torch.Tensor] = None, tp=None,
+                      ep=None) -> torch.Tensor:
     """Every layer over (B, T) new tokens at per-row positions, the caches
     k/v (L, B, S, KV, hd) written in place; returns the last hidden x.
     ``token_mask`` (B, T) marks the real tokens for expert routing."""
@@ -721,7 +766,7 @@ def _scan_layers_rows(params: Dict, tokens: torch.Tensor, k: torch.Tensor,
                          cfg, x.device)
     for layer in range(cfg.n_layer):
         x = _layer_step_rows(_layer_params(params, layer), x, k[layer],
-                             v[layer], tables, cfg, token_mask, tp)
+                             v[layer], tables, cfg, token_mask, tp, ep)
     return x
 
 
@@ -770,7 +815,7 @@ def _write_slot_values(vec: torch.Tensor, slots: torch.Tensor,
 
 
 def prefix_kv(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-              tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              tp=None, ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced KV rows of a shared prompt prefix: ``tokens`` (1, P)
     -> (k, v) each (L, P, KV, hd), in the params' dtype.  Computed once,
     they seed every slot whose prompt starts with the prefix
@@ -782,7 +827,7 @@ def prefix_kv(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     v = torch.zeros(shape, dtype=dtype, device=dev)
     _scan_layers_rows(params, tokens, k, v,
                       torch.zeros((1,), dtype=torch.int32, device=dev), cfg,
-                      tp=tp)
+                      tp=tp, ep=ep)
     return k[:, 0], v[:, 0]
 
 
@@ -795,7 +840,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
                   prefix_v: Optional[torch.Tensor] = None,
                   rows: Optional[Tuple] = None,
                   generator: Optional[torch.Generator] = None,
-                  gumbel: Optional[torch.Tensor] = None, tp=None
+                  gumbel: Optional[torch.Tensor] = None, tp=None, ep=None
                   ) -> Tuple[torch.Tensor, LlamaPoolState]:
     """Prefill N mixed-length prompts into pool slots in one program.
 
@@ -833,7 +878,7 @@ def prefill_slots(params: Dict, tokens: torch.Tensor,
             kc[:, :p] = prefix_k[layer].to(dtype)
             vc[:, :p] = prefix_v[layer].to(dtype)
         x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
-                             tables, cfg, tok_mask, tp)
+                             tables, cfg, tok_mask, tp, ep)
         _write_slot_rows(state.k[layer], slot_ids, act, kc[:, :width])
         _write_slot_rows(state.v[layer], slot_ids, act, vc[:, :width])
     logits = _head_rows(params, x, valid_lens, cfg)
@@ -853,8 +898,8 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
                            attn_len: Optional[int] = None,
                            rows: Optional[Tuple] = None,
                            generator: Optional[torch.Generator] = None,
-                           gumbel: Optional[torch.Tensor] = None
-                           ) -> Tuple[torch.Tensor, LlamaPoolState]:
+                           gumbel: Optional[torch.Tensor] = None, tp=None,
+                           ep=None) -> Tuple[torch.Tensor, LlamaPoolState]:
     """Continue a chunked prefill: ``tokens`` (N, Tpad) extend prompts
     already cached, row n's slot holding ``pos0[n]`` tokens; the chunk
     lands at pos0..pos0+Tpad-1.  Each row runs on a copy of its slot's
@@ -866,9 +911,8 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
 
     ``final=False`` (middle chunks) skips the head and returns zeros;
     ``final=True`` samples each row's first token at its last valid
-    position and stores it in the slot's ``tok``.  A tensor-parallel
-    state is refused (ROADMAP queue 1 item 10)."""
-    _refuse_tp_state(state.k, cfg, "prefill_slots_continue")
+    position and stores it in the slot's ``tok``.  ``tp`` / ``ep``: as
+    ``prefill_slots``."""
     n, tpad = tokens.shape
     dev = tokens.device
     cap, s = state.k.shape[1], state.k.shape[2]
@@ -887,7 +931,7 @@ def prefill_slots_continue(params: Dict, tokens: torch.Tensor,
         kc = state.k[layer][:, :s].index_select(0, slot_ids)
         vc = state.v[layer][:, :s].index_select(0, slot_ids)
         x = _layer_step_rows(_layer_params(params, layer), x, kc, vc,
-                             tables, cfg, tok_mask)
+                             tables, cfg, tok_mask, tp, ep)
         _write_slot_rows(state.k[layer], slot_ids, act,
                          kc[ridx, tables.rows], tables.rows)
         _write_slot_rows(state.v[layer], slot_ids, act,
@@ -910,8 +954,8 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
                         attn_len: Optional[int] = None,
                         rows: Optional[Tuple] = None,
                         generator: Optional[torch.Generator] = None,
-                        gumbel: Optional[torch.Tensor] = None, tp=None
-                        ) -> Tuple[torch.Tensor, LlamaPoolState]:
+                        gumbel: Optional[torch.Tensor] = None, tp=None,
+                        ep=None) -> Tuple[torch.Tensor, LlamaPoolState]:
     """Advance every active row ``block`` tokens in one program.
 
     Each row continues from its own ``tok`` and ``pos``; inactive rows
@@ -926,7 +970,8 @@ def decode_block_pooled(params: Dict, state: LlamaPoolState,
     out = []
     for i in range(block):
         x = _scan_layers_rows(params, tok[:, None], state.k, state.v, pos,
-                              cfg, attn_len, token_mask=act[:, None], tp=tp)
+                              cfg, attn_len, token_mask=act[:, None], tp=tp,
+                              ep=ep)
         logits = nn.linear(rms_norm(x[:, -1], params["lnf_s"], cfg.rms_eps),
                            _head(params))
         nxt = _sample_maybe_rows(logits, temperature, top_k, top_p, rows,
@@ -1020,7 +1065,8 @@ def spec_iteration(params: Dict, state: LlamaPoolState, bufs: SpecBuffers,
                    attn_len: Optional[int] = None,
                    temperature: float = 0.0, top_k: int = 0,
                    top_p: float = 1.0, rows: Optional[Tuple] = None,
-                   generator: Optional[torch.Generator] = None) -> None:
+                   generator: Optional[torch.Generator] = None, tp=None,
+                   ep=None) -> None:
     """One iteration of JAX's speculative loop body, in place on the
     caches, ``state.pos``/``state.tok`` and ``bufs``.
 
@@ -1050,7 +1096,7 @@ def spec_iteration(params: Dict, state: LlamaPoolState, bufs: SpecBuffers,
 
     # ---- one batched step from each row's last token -------------------
     x = _scan_layers_rows(params, tok[:, None], k, v, pos, cfg, attn_len,
-                          token_mask=active_it[:, None])
+                          token_mask=active_it[:, None], tp=tp, ep=ep)
     hidden, logits = _hidden_logits(params, x[:, -1], cfg)
     if rows is not None:
         token1 = _sample_rows(logits, *rows, generator=generator)
@@ -1081,7 +1127,8 @@ def spec_iteration(params: Dict, state: LlamaPoolState, bufs: SpecBuffers,
     # ---- one batched verify forward for every row's drafts -------------
     prevs = torch.cat([token1[:, None], d[:, :-1]], dim=1)
     xs = _scan_layers_rows(params, prevs, k, v, pos1, cfg, attn_len,
-                           token_mask=active_it[:, None].expand(bsz, kd))
+                           token_mask=active_it[:, None].expand(bsz, kd),
+                           tp=tp, ep=ep)
     _, vlogits = _hidden_logits(params, xs, cfg)                # (B, kd, V)
 
     if sampling:
@@ -1151,7 +1198,8 @@ def decode_block_spec_pooled(params: Dict, state: LlamaPoolState,
                              temperature: float = 0.0, top_k: int = 0,
                              top_p: float = 1.0,
                              rows: Optional[Tuple] = None,
-                             generator: Optional[torch.Generator] = None
+                             generator: Optional[torch.Generator] = None,
+                             tp=None, ep=None
                              ) -> Tuple[torch.Tensor, LlamaPoolState,
                                         torch.Tensor]:
     """Speculative ``decode_block_pooled``: every active row advances
@@ -1169,15 +1217,16 @@ def decode_block_spec_pooled(params: Dict, state: LlamaPoolState,
     state holds new ``pos`` and ``tok``.
 
     Returns (tokens (B, block), state, iters (B,): each row's active
-    iterations, as JAX counts them).  A tensor-parallel state is refused
-    (ROADMAP queue 1 item 10)."""
-    _refuse_tp_state(state.k, cfg, "decode_block_spec_pooled")
+    iterations, as JAX counts them).  ``tp`` / ``ep``: as
+    ``decode_block_pooled``; the draft heads are whole on every rank and
+    read the hidden state after the row-parallel sums, the same on each."""
     bufs = spec_buffers(state.pos.shape[0], block, k_draft,
                         state.pos.device, drafts=draft_tokens is not None)
     st = state._replace(pos=state.pos.clone(), tok=state.tok.clone())
     run_spec_loop(
         lambda: spec_start(bufs, active, block, draft_tokens),
         lambda: spec_iteration(params, st, bufs, cfg, k_draft, attn_len,
-                               temperature, top_k, top_p, rows, generator),
+                               temperature, top_k, top_p, rows, generator,
+                               tp, ep),
         bufs.flag, block)
     return bufs.out[:, :block], st, bufs.iters

@@ -18,20 +18,24 @@ idiom differs in two places, and the port follows it:
 
 Data parallelism and Megatron tensor parallelism need only
 ``all_reduce``, ``broadcast`` and an all-gather of rows (``gather_rows``);
-sequence parallelism and FSDP a ring rotation (``ppermute``, JAX's
-``lax.ppermute``), an all-gather and a reduce-scatter along one
-dimension.  NCCL and gloo both carry ``all_reduce`` and ``broadcast`` on
+sequence parallelism, FSDP and the pipeline a ring rotation
+(``ppermute``, JAX's ``lax.ppermute``), an all-gather and a
+reduce-scatter along one dimension; the all-to-all expert dispatch
+(``ops/moe.py::moe_ffn_a2a``) an all-to-all (``all_to_all_dim``, JAX's
+tiled ``lax.all_to_all``).  NCCL and gloo both carry ``all_reduce`` and ``broadcast`` on
 CUDA tensors, so two gloo ranks can share one card (NCCL refuses two
 ranks on one GPU).  The rest takes one of two routes, chosen by the
 backend and the tensor's device (``route``):
 the op itself (``"native"``: NCCL, or gloo on CPU tensors) or an
 ``all_reduce`` of a zero-filled buffer (``"all_reduce"``: gloo on CUDA
-tensors, which carries nothing else), bitwise equal for the rotation and
-the gather because adding zeros changes no bit (but a -0.0's sign).
+tensors, which carries nothing else), bitwise equal for the rotation, the
+gather and the all-to-all because adding zeros changes no bit (but a
+-0.0's sign).
 
-A launch of ``dp * sp * tp`` ranks is ordered as JAX's ``create_mesh``
-orders its axes (dp, sp, ep, tp), tp innermost: rank r is tp index
-``r % tp``, sp index ``(r // tp) % sp`` and dp index ``r // (tp * sp)``
+A launch of ``dp * sp * ep * tp`` ranks is ordered as JAX's
+``create_mesh`` orders its axes (dp, sp, ep, tp), tp innermost: rank r is
+tp index ``r % tp``, ep index ``(r // tp) % ep``, sp index
+``(r // (tp * ep)) % sp`` and dp index ``r // (tp * ep * sp)``
 (``initialize_model_parallel``).  The collectives take a ``group``
 (None: every rank; ``LOCAL``: this rank alone, a no-op).
 """
@@ -186,28 +190,30 @@ def barrier() -> None:
 
 
 def data_parallel_size(dp_size: int, tp_size: int = 1,
-                       sp_size: int = 1) -> int:
+                       sp_size: int = 1, ep_size: int = 1) -> int:
     """The data-parallel ranks a trainer's ``dp_size`` runs on:
-    ``dp_size``, or the launch's world over ``tp_size * sp_size`` for -1
-    (JAX's "all devices" is one process's devices).  ``dp_size * sp_size
-    * tp_size`` must be the world size: nothing falls back to fewer
-    ranks."""
+    ``dp_size``, or the launch's world over ``tp_size * sp_size *
+    ep_size`` for -1 (JAX's "all devices" is one process's devices).
+    ``dp_size * sp_size * ep_size * tp_size`` must be the world size:
+    nothing falls back to fewer ranks."""
     w = world()
-    for name, n in (("tp_size", tp_size), ("sp_size", sp_size)):
+    for name, n in (("tp_size", tp_size), ("sp_size", sp_size),
+                    ("ep_size", ep_size)):
         if n < 1 or w % n:
             raise ValueError(f"a world of {w} ranks does not split into "
                              f"groups of {name}={n}")
-    if w % (tp_size * sp_size):
+    if w % (tp_size * sp_size * ep_size):
         raise ValueError(f"a world of {w} ranks does not split into "
-                         f"groups of tp_size={tp_size} x sp_size={sp_size}")
-    inner = tp_size * sp_size
+                         f"groups of tp_size={tp_size} x sp_size={sp_size}"
+                         + (f" x ep_size={ep_size}" if ep_size > 1 else ""))
+    inner = tp_size * sp_size * ep_size
     dp = w // inner if dp_size == -1 else dp_size
     if dp * inner != w:
         raise ValueError(
             f"dp_size={dp_size} x sp_size={sp_size} x tp_size={tp_size} but "
             f"the launch has a world of {w}: training runs one rank a card "
             "(torchrun --nproc_per_node N), and dp_size -1 takes the world "
-            "over sp_size x tp_size")
+            "over sp_size x tp_size" + (" x ep_size" if ep_size > 1 else ""))
     return dp
 
 
@@ -223,14 +229,15 @@ LOCAL = _Local()
 
 
 class ModelParallel(NamedTuple):
-    """The groups of one launch split as dp x sp x tp (tp innermost): each
-    group's size, this rank's indices, and the process groups.  A group
-    of this rank alone (the tp group at tp 1, the dp group at dp 1) is
-    ``LOCAL``, and a group of every rank (the dp group at sp 1 and tp 1,
-    the batch group at tp 1) is None, so any group here can be handed to
-    the collectives as it is.  ``batch_group`` is the dp x sp ranks of
-    one tp index: the ranks whose shares of a batch make it whole, over
-    which a replicated leaf's gradient is summed."""
+    """The groups of one launch split as dp x sp x ep x tp (tp innermost):
+    each group's size, this rank's indices, and the process groups.  A
+    group of this rank alone (the tp group at tp 1, the dp group at dp 1)
+    is ``LOCAL``, and a group of every rank (the dp group at sp, ep and tp
+    1, the batch group at ep and tp 1) is None, so any group here can be
+    handed to the collectives as it is.  ``batch_group`` is the dp x sp
+    ranks of one (ep, tp) index: the ranks whose shares of a batch make it
+    whole, over which a replicated leaf's gradient is summed (the ranks of
+    an ep group hold the same tokens, each with its block of experts)."""
     dp: int
     tp: int
     dp_rank: int
@@ -241,6 +248,9 @@ class ModelParallel(NamedTuple):
     sp_rank: int = 0
     sp_group: object = None
     batch_group: Optional[object] = None
+    ep: int = 1
+    ep_rank: int = 0
+    ep_group: object = None
 
 
 def _form(groups: List[List[int]], model: bool = False):
@@ -262,32 +272,43 @@ def _form(groups: List[List[int]], model: bool = False):
     return mine
 
 
-def initialize_model_parallel(tp_size: int = 1,
-                              sp_size: int = 1) -> ModelParallel:
-    """Split the launch's world into ``world / (sp_size * tp_size)``
-    data-parallel replicas of ``sp_size`` sequence-parallel shares of
-    ``tp_size`` tensor-parallel ranks, as JAX's ``create_mesh(dp_size=-1,
-    tp_size=tp_size, sp_size=sp_size)`` orders a mesh (dp, sp, ep, tp):
-    rank r is tp index ``r % tp``, sp index ``(r // tp) % sp`` and dp
-    index ``r // (tp * sp)``.  Every rank calls it, in the same order
-    (``new_group`` is collective); each call forms its own groups."""
+def initialize_model_parallel(tp_size: int = 1, sp_size: int = 1,
+                              ep_size: int = 1) -> ModelParallel:
+    """Split the launch's world into ``world / (sp_size * ep_size *
+    tp_size)`` data-parallel replicas of ``sp_size`` sequence-parallel
+    shares of ``ep_size`` expert-parallel blocks of ``tp_size``
+    tensor-parallel ranks, as JAX's ``create_mesh(dp_size=-1, tp_size=,
+    sp_size=, ep_size=)`` orders a mesh (dp, sp, ep, tp): rank r is tp
+    index ``r % tp``, ep index ``(r // tp) % ep``, sp index
+    ``(r // (tp * ep)) % sp`` and dp index ``r // (tp * ep * sp)``.  Every
+    rank calls it, in the same order (``new_group`` is collective); each
+    call forms its own groups."""
     w, r = world(), rank()
-    tp, sp = tp_size, sp_size
-    dp = data_parallel_size(-1, tp, sp)
-    inner = tp * sp
+    tp, sp, ep = tp_size, sp_size, ep_size
+    dp = data_parallel_size(-1, tp, sp, ep)
+    inner = tp * ep * sp
+    cells = [(d, s, e, t) for d in range(dp) for s in range(sp)
+             for e in range(ep) for t in range(tp)]
 
-    def at(d, s, t):
-        return d * inner + s * tp + t
-    tp_group = _form([[at(d, s, t) for t in range(tp)]
-                      for d in range(dp) for s in range(sp)], model=True)
-    sp_group = _form([[at(d, s, t) for s in range(sp)]
-                      for d in range(dp) for t in range(tp)], model=True)
-    dp_group = _form([[at(d, s, t) for d in range(dp)]
-                      for s in range(sp) for t in range(tp)])
-    batch_group = _form([[x for x in range(w) if x % tp == t]
-                         for t in range(tp)])
+    def at(d, s, e, t):
+        return ((d * sp + s) * ep + e) * tp + t
+
+    def groups(axis: int):
+        # the ranks that differ only in mesh axis ``axis`` (0 dp .. 3 tp)
+        out = {}
+        for c in cells:
+            key = c[:axis] + c[axis + 1:]
+            out.setdefault(key, []).append(at(*c))
+        return list(out.values())
+    tp_group = _form(groups(3), model=True)
+    sp_group = _form(groups(1), model=True)
+    dp_group = _form(groups(0))
+    batch_group = _form([[x for x in range(w) if x % (tp * ep) == et]
+                         for et in range(tp * ep)])
+    ep_group = _form(groups(2), model=True)
     return ModelParallel(dp, tp, r // inner, r % tp, dp_group, tp_group,
-                         sp, (r // tp) % sp, sp_group, batch_group)
+                         sp, (r // (tp * ep)) % sp, sp_group, batch_group,
+                         ep, (r // tp) % ep, ep_group)
 
 
 def group_size(group=None) -> int:
@@ -479,6 +500,55 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
         i = group_rank(group)
         out = xt[i * size:(i + 1) * size]
     return out.movedim(0, dim).contiguous()
+
+
+def all_to_all_dim(x: torch.Tensor, group, via: Optional[str] = None,
+                   dim: int = 0) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all(x, split_axis=dim, concat_axis=dim)``:
+    ``x`` cut along ``dim`` into as many contiguous blocks as ranks, block
+    j sent to rank j of ``group``; returns the blocks received, in the
+    group's rank order (every rank's ``x`` has one shape).  Natively
+    ``all_to_all_single``; by the all-reduce route a zero-filled (n, n,
+    block) buffer whose row i is this rank's blocks, of which rank i keeps
+    column i.  Not differentiated: ``all_to_all`` is."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"all_to_all: {xt.shape[0]} rows do not split "
+                         f"over {n} ranks")
+    if (via or route(x.device)) == NATIVE:
+        out = torch.empty_like(xt)
+        dist.all_to_all_single(out, xt, group=group)
+    else:
+        i = group_rank(group)
+        blocks = xt.reshape(n, xt.shape[0] // n, *xt.shape[1:])
+        buf = xt.new_zeros((n, *blocks.shape))
+        buf[i] = blocks
+        dist.all_reduce(buf, group=group)
+        out = buf[:, i].reshape(xt.shape)
+    return out.movedim(0, dim).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_to_all_dim(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the exchange is its own inverse: block j of rank i's gradient
+        # is block i of rank j's output gradient
+        return all_to_all_dim(grad, ctx.group, dim=ctx.dim), None, None
+
+
+def all_to_all(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``all_to_all_dim`` differentiated: its backward is the inverse
+    exchange (the same exchange of the gradients), as JAX's transpose of
+    ``all_to_all`` is."""
+    return _AllToAll.apply(x, group, dim) if group_size(group) > 1 else x
 
 
 class _PPermute(torch.autograd.Function):

@@ -35,10 +35,15 @@ together; ``FSDP`` gathers a rank's shards where the forward uses them
 gradient), and the optimizer's moments take their parameter's shard
 (``opt_state_specs``, JAX's ``opt_state_shardings``).
 
-Still refused (ROADMAP queue 1 item 10): expert parallelism (ep > 1 is
-JAX's ``moe_ffn_a2a``) and ``llama_fsdp_shardings``, which only an
-ep-aware train step uses; a quantized tree under tp, on which JAX's
-``llama_param_shardings`` raises (its table walk reads ``.key`` of a
+Expert parallelism: ``LLAMA_TP_SPECS`` puts the experts' axis over ep,
+and ``shard_llama(..., ep=, ep_rank=)`` gives a rank its contiguous block
+of E/ep experts (each with its tp block of columns).  The ep-aware FSDP
+of JAX's ``llama_fsdp_shardings`` is ``LLAMA_FSDP_SPECS`` (``shard_llama``
+at dp > 1): dense matrices split one dimension over dp and their
+Megatron one over tp, experts over ep, dp and tp, the embedding and head
+over dp, the router and norms whole; ``llama_fsdp`` gathers them where
+``llama_loss`` uses them.  A quantized tree is refused, as JAX's ``llama_param_shardings``
+raises an AttributeError on it (its table walk reads ``.key`` of a
 quantized leaf's fields).
 """
 from __future__ import annotations
@@ -153,6 +158,25 @@ DECODER_FSDP_SPECS = {
     "draft_heads": (None, DP_AXIS, None),
 }
 
+# JAX's ``llama_fsdp_shardings`` table (llmvox_tpu/parallel/sharding.py:
+# 137-176): ZeRO-3 over dp beside tp's Megatron dimension, the experts'
+# axis over ep
+LLAMA_FSDP_SPECS = {
+    "tok_emb": (DP_AXIS, None), "lnf_s": (), "head": (DP_AXIS, None),
+    "draft_heads": (None, DP_AXIS, None),
+    "h": {
+        "ln1_s": (), "ln2_s": (),
+        "wq": (None, DP_AXIS, TP_AXIS), "wk": (None, DP_AXIS, TP_AXIS),
+        "wv": (None, DP_AXIS, TP_AXIS), "wo": (None, TP_AXIS, DP_AXIS),
+        "wgate": (None, DP_AXIS, TP_AXIS), "wup": (None, DP_AXIS, TP_AXIS),
+        "wdown": (None, TP_AXIS, DP_AXIS),
+        "router": (),
+        "moe_wgate": (None, EP_AXIS, DP_AXIS, TP_AXIS),
+        "moe_wup": (None, EP_AXIS, DP_AXIS, TP_AXIS),
+        "moe_wdown": (None, EP_AXIS, TP_AXIS, DP_AXIS),
+    },
+}
+
 # the decoder's fused q|k|v leaves, cut by heads (the module's docstring)
 FUSED_QKV = frozenset({"wqkv", "bqkv"})
 
@@ -178,9 +202,9 @@ def _refuse_quantized(tree: Dict) -> None:
         if _is_quantized(leaf):
             raise ValueError(
                 f"{'/'.join(path)} is quantized ({type(leaf).__name__}): a "
-                "quantized tree is not sharded over tp (JAX's "
-                "llama_param_shardings raises on it too; ROADMAP queue 1 "
-                "item 10)")
+                "quantized tree is not sharded (JAX's "
+                "llama_param_shardings raises an AttributeError on it: its "
+                "table walk reads .key of the quantized leaf's fields)")
         return spec
     _walk(tree, LLAMA_TP_SPECS, check)
 
@@ -199,6 +223,11 @@ def dp_dim(spec: Tuple) -> Optional[int]:
     """The dimension a spec splits over dp (FSDP; None: whole on every
     dp rank)."""
     return axis_dim(spec, DP_AXIS)
+
+
+def ep_dim(spec: Tuple) -> Optional[int]:
+    """The dimension a spec splits over ep (the experts' axis)."""
+    return axis_dim(spec, EP_AXIS)
 
 
 def tp_index(n: int, tp: int, rank: int, fused: bool = False) -> np.ndarray:
@@ -221,51 +250,71 @@ def _take(x, dim: int, idx: np.ndarray):
     return np.take(np.asarray(x), idx, axis=dim)
 
 
+def leaf_index(shape: Sequence[int], spec: Tuple, tp: int = 1,
+               rank: int = 0, fused: bool = False, dp: int = 1,
+               dp_rank: int = 0, ep: int = 1, ep_rank: int = 0
+               ) -> List[Optional[np.ndarray]]:
+    """Per dimension of a leaf of ``shape``, the indices of the shard that
+    tp rank ``rank``, dp rank ``dp_rank`` and ep rank ``ep_rank`` hold
+    (None: the whole dimension)."""
+    idx: List[Optional[np.ndarray]] = [None] * len(shape)
+    for axis, n, r in ((TP_AXIS, tp, rank), (DP_AXIS, dp, dp_rank),
+                       (EP_AXIS, ep, ep_rank)):
+        d = axis_dim(spec, axis)
+        if d is None or n <= 1:
+            continue
+        idx[d] = (tp_index(shape[d], n, r, fused) if axis == TP_AXIS
+                  else np.arange(shape[d])[dp_rows(shape[d], r, n)])
+    return idx
+
+
 def shard_leaf(x, spec: Tuple, tp: int, rank: int, fused: bool = False,
-               dp: int = 1, dp_rank: int = 0):
-    """The shard of one leaf that tp rank ``rank`` and dp rank ``dp_rank``
-    hold (a copy; the leaf itself when it is replicated)."""
-    d = tp_dim(spec)
-    if d is not None and tp > 1:
-        x = _take(x, d, tp_index(x.shape[d], tp, rank, fused))
-    d = dp_dim(spec)
-    if d is not None and dp > 1:
-        x = _take(x, d, np.arange(x.shape[d])[dp_rows(x.shape[d], dp_rank,
-                                                      dp)])
+               dp: int = 1, dp_rank: int = 0, ep: int = 1, ep_rank: int = 0):
+    """The shard of one leaf that tp rank ``rank``, dp rank ``dp_rank``
+    and ep rank ``ep_rank`` hold (a copy; the leaf itself when it is
+    replicated)."""
+    for d, ix in enumerate(leaf_index(x.shape, spec, tp, rank, fused, dp,
+                                      dp_rank, ep, ep_rank)):
+        if ix is not None:
+            x = _take(x, d, ix)
     return x
 
 
 def place_shard(shard: torch.Tensor, full_shape: Sequence[int], spec: Tuple,
                 tp: int, rank: int, fused: bool = False, dp: int = 1,
-                dp_rank: int = 0) -> torch.Tensor:
+                dp_rank: int = 0, ep: int = 1, ep_rank: int = 0
+                ) -> torch.Tensor:
     """A zero-filled tensor of the full leaf's shape holding ``shard`` where
     its block lies: summed over the ranks (an all-reduce over tp, then over
-    dp, which gloo carries on CUDA tensors), the full leaf, bit for bit."""
-    dt, dd = tp_dim(spec), dp_dim(spec)
-    dt = dt if tp > 1 else None
-    dd = dd if dp > 1 else None
-    if dt is None and dd is None:
+    dp and ep, which gloo carries on CUDA tensors), the full leaf, bit for
+    bit."""
+    idx = leaf_index(full_shape, spec, tp, rank, fused, dp, dp_rank, ep,
+                     ep_rank)
+    if all(ix is None for ix in idx):
         return shard
     full = shard.new_zeros(tuple(full_shape))
-    view = full
-    if dd is not None:
-        size = full_shape[dd] // dp
-        view = full.narrow(dd, dp_rank * size, size)
-    if dt is None:
+    view, scattered = full, None
+    for d, ix in enumerate(idx):
+        if ix is None:
+            continue
+        if ix[-1] - ix[0] + 1 == len(ix):          # a contiguous block
+            view = view.narrow(d, int(ix[0]), len(ix))
+        else:                                      # the fused q|k|v heads
+            scattered = (d, torch.as_tensor(ix, device=shard.device))
+    if scattered is None:
         view.copy_(shard)
     else:
-        view.index_copy_(dt, torch.as_tensor(
-            tp_index(full_shape[dt], tp, rank, fused), device=shard.device),
-            shard)
+        view.index_copy_(*scattered, shard)
     return full
 
 
 def shard_tree(tree: Dict, specs: Dict, tp: int, rank: int, dp: int = 1,
-               dp_rank: int = 0) -> Dict:
+               dp_rank: int = 0, ep: int = 1, ep_rank: int = 0) -> Dict:
     """The shard of a full tree in the JAX layout that tp rank ``rank``
-    (and under FSDP dp rank ``dp_rank``) holds."""
+    (under FSDP dp rank ``dp_rank``, with experts ep rank ``ep_rank``)
+    holds."""
     return _walk(tree, specs, lambda path, x, spec: shard_leaf(
-        x, spec, tp, rank, path[-1] in FUSED_QKV, dp, dp_rank))
+        x, spec, tp, rank, path[-1] in FUSED_QKV, dp, dp_rank, ep, ep_rank))
 
 
 def decoder_fsdp_shardings(mesh: Mesh, params: Dict) -> Dict:
@@ -273,6 +322,32 @@ def decoder_fsdp_shardings(mesh: Mesh, params: Dict) -> Dict:
     ``mesh`` (dp on one matrix dimension, tp on the other)."""
     return _walk(params, DECODER_FSDP_SPECS,
                  lambda path, x, spec: Sharding(mesh, spec))
+
+
+def llama_fsdp_shardings(mesh: Mesh, params: Dict) -> Dict:
+    """JAX's ``llama_fsdp_shardings``: each leaf's ``Sharding`` over
+    ``mesh`` (``LLAMA_FSDP_SPECS``)."""
+    return _walk(params, LLAMA_FSDP_SPECS,
+                 lambda path, x, spec: Sharding(mesh, spec))
+
+
+def fsdp_dims(tree: Dict, specs: Dict) -> Dict[str, int]:
+    """``FSDP.dims`` of a tree: each leaf split over dp by ``specs``,
+    named by its ``/``-joined path, and the dimension."""
+    out = {}
+
+    def pick(path, x, spec):
+        d = dp_dim(spec)
+        if d is not None:
+            out["/".join(path)] = d
+    _walk(tree, specs, pick)
+    return out
+
+
+def llama_fsdp(tree: Dict, group) -> "FSDP":
+    """The ``FSDP`` that gathers a Llama tree's ``LLAMA_FSDP_SPECS``
+    shards over the dp ``group`` (None: every rank)."""
+    return FSDP(group, fsdp_dims(tree, LLAMA_FSDP_SPECS))
 
 
 def opt_state_specs(state: Dict, param_specs: Sequence[Tuple]) -> Dict:
@@ -317,29 +392,40 @@ def check_decoder_tp(cfg, tp: int) -> None:
 
 
 def check_llama_tp(cfg, tp: int, params: Optional[Dict] = None,
-                   ep: int = 1) -> None:
+                   ep: int = 1, dp: int = 1) -> None:
     """A Llama splits over ``tp`` ranks by whole query and KV heads (so
-    GQA's group map stays on each rank) and MLP or expert columns.  A
-    quantized tree and experts over ``ep`` > 1 (the size of JAX's ep mesh
-    axis: its all-to-all dispatch, ``moe_ffn_a2a``) are refused: ROADMAP
-    queue 1 item 10."""
+    GQA's group map stays on each rank) and MLP or expert columns, over
+    ``ep`` ranks by whole experts and under FSDP over ``dp`` ranks by
+    even blocks of the width, the vocabulary and the MLP's columns (as
+    GSPMD requires).  A quantized tree is refused (JAX raises on it)."""
     for name in ("n_head", "n_kv_head", "intermediate_size"):
         if tp < 1 or getattr(cfg, name) % tp:
             raise ValueError(f"{name}={getattr(cfg, name)} does not split "
                              f"over tp_size={tp}")
-    if ep > 1 and cfg.n_experts:
-        raise ValueError("experts over ep > 1 are the all-to-all dispatch "
-                         "(moe_ffn_a2a), not ported yet: ROADMAP queue 1 "
-                         "item 10")
+    if ep > 1 and cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} does not split over "
+                         f"ep_size={ep}")
+    for name in ("n_embd", "vocab_size", "intermediate_size"):
+        if dp < 1 or getattr(cfg, name) % dp:
+            raise ValueError(f"{name}={getattr(cfg, name)} does not split "
+                             f"over dp={dp} (FSDP)")
     if params is not None:
         _refuse_quantized(params)
 
 
-def shard_llama(params: Dict, cfg, tp: int, rank: int, ep: int = 1) -> Dict:
-    """Tp rank ``rank``'s shard of a full Llama tree (``check_llama_tp``
-    first)."""
-    check_llama_tp(cfg, tp, params, ep)
-    return shard_tree(params, LLAMA_TP_SPECS, tp, rank)
+def shard_llama(params: Dict, cfg, tp: int, rank: int, ep: int = 1,
+                ep_rank: int = 0, dp: int = 1, dp_rank: int = 0) -> Dict:
+    """The shard of a full Llama tree that tp rank ``rank`` and ep rank
+    ``ep_rank`` hold (``LLAMA_TP_SPECS``: a dense tree is whole over ep);
+    at ``dp`` > 1, FSDP: also dp rank ``dp_rank``'s block of every matrix
+    (``LLAMA_FSDP_SPECS``, which at dp 1 cuts as ``LLAMA_TP_SPECS``).
+    ``check_llama_tp`` first."""
+    check_llama_tp(cfg, tp, params, ep, dp)
+    if dp == 1:
+        return shard_tree(params, LLAMA_TP_SPECS, tp, rank, ep=ep,
+                          ep_rank=ep_rank)
+    return shard_tree(params, LLAMA_FSDP_SPECS, tp, rank, dp, dp_rank, ep,
+                      ep_rank)
 
 
 def check_decoder_fsdp(cfg, dp: int) -> None:

@@ -608,14 +608,38 @@ def test_moe_logits_match_jax_ep1_tp2(tp):
 
 
 def test_llama_refusals(tp):
-    """A tp state is refused by prefill_slots_continue and the
-    speculative pooled block, and n_kv_head % tp by the caches."""
-    ref = tp["ranks"][0]["llama"]["refused"]
-    for name in ("continue", "spec"):
-        assert ref[name] and "item 10" in ref[name], name
+    """n_kv_head % tp is refused by the caches and ``check_llama_tp``; a
+    tp state is no longer refused by prefill_slots_continue and the
+    speculative pooled block: on the prefixed pool's state both run at tp
+    2 and equal the one process."""
     assert "n_kv_head=2" in tp["ranks"][0]["llama"]["kv4"]
     with pytest.raises(ValueError, match="n_kv_head=2"):
         psh.check_llama_tp(tp["lin"]["cfg"], 4)
+    lin = tp["lin"]
+    cfg, params = lin["cfg"], ranks._torch_tree(lin["params"])
+    with torch.no_grad():
+        pk, pv = tl.prefix_kv(params, torch.from_numpy(lin["prefix"]).long(),
+                              cfg)
+        st = tl.init_llama_pool_state(cfg, batch=3)
+        _, st = tl.prefill_slots(
+            params, torch.from_numpy(lin["pool_tokens"]).long(),
+            torch.from_numpy(lin["pool_valid"]), st, torch.tensor([1, 0]),
+            torch.ones(2, dtype=torch.bool), cfg, prefix_k=pk, prefix_v=pv)
+        tl.decode_block_pooled(params, st, torch.tensor([True, True, False]),
+                               cfg, block=4)
+        cf, st = tl.prefill_slots_continue(
+            params, torch.from_numpy(lin["pool_tokens"][:, :4]).long(),
+            torch.tensor([4, 2]), st, torch.tensor([1, 0]),
+            torch.ones(2, dtype=torch.bool), st.pos[[1, 0]], cfg)
+        toks, st, iters = tl.decode_block_spec_pooled(
+            params, st, torch.tensor([True, True, False]), cfg, block=2,
+            draft_tokens=torch.zeros((3, 2), dtype=torch.int32))
+    for r in tp["ranks"]:
+        got = r["llama"]["continued"]
+        np.testing.assert_array_equal(got[0], cf.numpy())
+        np.testing.assert_array_equal(got[1][:2], toks.numpy()[:2])
+        np.testing.assert_array_equal(got[2], st.pos.numpy())
+        np.testing.assert_array_equal(got[3], iters.numpy())
 
 
 def test_quantized_tree_fails_in_jax_and_is_refused():
@@ -633,14 +657,24 @@ def test_quantized_tree_fails_in_jax_and_is_refused():
             psh.shard_llama(ttree, cfg, tp, 0)
 
 
-def test_experts_over_ep_are_refused():
+def test_experts_over_ep_shard_by_expert_blocks():
+    """``shard_llama(..., ep=2)`` gives each ep rank its contiguous half
+    of the experts (the router and the rest whole); a dense tree is whole
+    over ep."""
     moe = tl.LlamaConfig(**dataclasses.asdict(MOE))
-    with pytest.raises(ValueError, match="moe_ffn_a2a"):
-        psh.shard_llama(_llama_params(MOE, 0), moe, 1, 0, ep=2)
-    assert psh.shard_llama(_llama_params(MOE, 0), moe, 1, 0)
-    assert psh.shard_llama(_llama_params(LCFG, 0),
-                           tl.LlamaConfig(**dataclasses.asdict(LCFG)), 1, 0,
-                           ep=2)
+    full = _llama_params(MOE, 0)
+    for r in range(2):
+        shard = psh.shard_llama(full, moe, 1, 0, ep=2, ep_rank=r)
+        for k in ("moe_wgate", "moe_wup", "moe_wdown"):
+            np.testing.assert_array_equal(shard["h"][k],
+                                          full["h"][k][:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(shard["h"]["router"],
+                                      full["h"]["router"])
+    dense = psh.shard_llama(_llama_params(LCFG, 0),
+                            tl.LlamaConfig(**dataclasses.asdict(LCFG)), 1, 0,
+                            ep=2, ep_rank=1)
+    np.testing.assert_array_equal(dense["h"]["wgate"],
+                                  _llama_params(LCFG, 0)["h"]["wgate"])
 
 
 def test_operators_are_the_identity_without_a_group():

@@ -128,10 +128,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "codec.compress", "parallel", "parallel.mesh",
                   "parallel.sharding", "parallel.launch",
                   "parallel.tensor_parallel", "utils.runtime",
-                  "tools.validate_parity", "serve.ui", "ops.ring_attention"):
+                  "tools.validate_parity", "serve.ui", "ops.ring_attention",
+                  "models.llama_pp"):
             assert "llmvox_tpu_torch." + n in names, n
         for n in names + ["chip_smoke", "tests.torch_dp_ranks",
-                          "tests.torch_tp_ranks", "tests.torch_sp_ranks"]:
+                          "tests.torch_tp_ranks", "tests.torch_sp_ranks",
+                          "tests.torch_ep_ranks", "tests.torch_pp_ranks",
+                          "tests.torch_ckpt_ranks"]:
             importlib.import_module(n)
         bad = [m for m, v in sys.modules.items() if v is not None and (
             m in ("jax", "jaxlib", "llmvox_tpu")

@@ -76,7 +76,8 @@ def _refusals(tcfg, mcfg, table, codebook):
 
 def _llama(rank, lin):
     """The Llama checks on this rank's tp=2 group: logits, the B=1 chain,
-    a sampled block, the pooled chain, the MoE logits, and the
+    a sampled block, the pooled chain (then a continuation chunk and a
+    speculative block on its state), the MoE logits, and the
     refusals."""
     from llmvox_tpu_torch.models import llama as tl
     mp = pmesh.initialize_model_parallel(2)
@@ -135,22 +136,17 @@ def _llama(rank, lin):
                                        torch.tensor([True, True, False]),
                                        cfg, block=4, tp=g)
         out["prefixed"] = (xf.numpy(), xt.numpy())
-        refused = {}
-        for name, fn in (
-                ("continue", lambda: tl.prefill_slots_continue(
-                    shard, torch.zeros((1, 4), dtype=torch.long),
-                    torch.tensor([2]), pst, torch.tensor([0]),
-                    torch.tensor([True]), torch.tensor([3]), cfg)),
-                ("spec", lambda: tl.decode_block_spec_pooled(
-                    shard, pst, torch.tensor([True, True, False]), cfg,
-                    block=2,
-                    draft_tokens=torch.zeros((3, 2), dtype=torch.int32)))):
-            try:
-                fn()
-                refused[name] = None
-            except ValueError as e:
-                refused[name] = str(e)
-        out["refused"] = refused
+        # a continuation chunk and a speculative block with explicit
+        # drafts on the tp state
+        cf, pst = tl.prefill_slots_continue(
+            shard, torch.from_numpy(lin["pool_tokens"][:, :4]).long(),
+            torch.tensor([4, 2]), pst, torch.tensor([1, 0]),
+            torch.ones(2, dtype=torch.bool), pst.pos[[1, 0]], cfg, tp=g)
+        st_toks, pst, iters = tl.decode_block_spec_pooled(
+            shard, pst, torch.tensor([True, True, False]), cfg, block=2,
+            draft_tokens=torch.zeros((3, 2), dtype=torch.int32), tp=g)
+        out["continued"] = (cf.numpy(), st_toks.numpy(), pst.pos.numpy(),
+                            iters.numpy())
         # the MoE Llama at ep 1, tp 2
         mcfg, mparams = lin["moe_cfg"], _torch_tree(lin["moe_params"])
         mshard = psh.shard_llama(mparams, mcfg, 2, r)
