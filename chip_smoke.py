@@ -4612,6 +4612,25 @@ def _timed_stream(model, stamps: dict, what: str):
     setattr(model, what, wrapped)
 
 
+def _count_tokens(pool, served: list) -> None:
+    """Wrap ``pool.generate`` so that the tokens it yields add up in
+    ``served[0]``."""
+    orig = pool.generate
+
+    def counted(*a, **k):
+        gen = orig(*a, **k)
+
+        async def out():
+            try:
+                async for toks in gen:
+                    served[0] += len(toks)
+                    yield toks
+            finally:
+                await gen.aclose()
+        return out()
+    pool.generate = counted
+
+
 def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
                 ) -> dict:
     """``texts`` as concurrent ``POST /tts`` through ``build_server`` with
@@ -4630,13 +4649,14 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
                               llm_backend="jax", pool_capacity=tts_pool.B)
     stamps: dict = {}
     _timed_stream(model, stamps, "predict")
+    served_toks = [0]
+    _count_tokens(pool, served_toks)
     n_cap = captures()
     try:
         srv = build_server(cfg, [], stream_model=model, pool=tts_pool)
         assert captures() == n_cap, "build_server captured again"
         with _Server(srv, port) as server:
-            st0 = dict(pool.stats(), tok=pool.decode_tokens,
-                       disp=pool.dispatch_s)
+            st0 = dict(pool.stats(), disp=pool.dispatch_s)
             tts0 = tts_pool.decode_steps
             _zero_launches()
             lag = _LoopLag(server.loop)
@@ -4664,6 +4684,7 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
         served = captures() - n_cap
     finally:
         del model.predict
+        del pool.generate
     assert served == 0, "a CUDA graph was captured while serving"
     k2 = counts["k2"]
     assert k2 == dcfg.n_layer * tts_steps > 0, (counts, tts_steps)
@@ -4671,7 +4692,7 @@ def _serve_pool(model, tts_pool, weights, texts, what: str, card: str
     by_prompt = {r["prompt"]: r for r in stamps["predict"]}
     rows = [by_prompt[t] for t in texts]
     llm_s = max(r["end"] for r in rows)
-    toks = pool.decode_tokens - st0["tok"]
+    toks = served_toks[0]
     steps = st["steps"] - st0["steps"]
     out = {"requests": [{"first_delta_ms": r["first"] * 1e3,
                          "ttfa_ms": ttfa * 1e3, "wall_ms": w * 1e3}

@@ -29,6 +29,7 @@ import torch
 
 from llmvox_tpu_torch.codec import backbone as bb
 from llmvox_tpu_torch.codec import heads, seanet, vq
+from llmvox_tpu_torch.utils import trace as tracing
 from llmvox_tpu_torch.utils.config import CodecConfig
 from llmvox_tpu_torch.utils.device import Fetch, resolve_device
 from llmvox_tpu_torch.utils.graphs import GraphSet, fill, use_graphs
@@ -108,15 +109,16 @@ class WavCodec:
                 bandwidth_id: int) -> np.ndarray:
         """(B, L) codes, L a captured length, (B,) valid lengths -> the
         (B, L*hop) waveform on the host: one copy in, one replay, one
-        copy out."""
-        g = self._graphs.get((*codes.shape, bandwidth_id))
-        inp, out = g.out
-        with self._lock:
-            fill(inp, np.concatenate([codes.ravel(), lengths]).astype(
-                np.int32))
-            g()
-            fetch = Fetch(out)
-        return fetch.get()
+        copy out (a ``codec.decode`` span with spans on)."""
+        with tracing.span("codec.decode"):
+            g = self._graphs.get((*codes.shape, bandwidth_id))
+            inp, out = g.out
+            with self._lock:
+                fill(inp, np.concatenate([codes.ravel(), lengths]).astype(
+                    np.int32))
+                g()
+                fetch = Fetch(out)
+            return fetch.get()
 
     def decode_codes(self, codes: np.ndarray, bandwidth_id: int = 0,
                      pad_to_bucket: bool = True) -> np.ndarray:

@@ -41,7 +41,6 @@ codec stays f32, and the final argmax accumulates in f32.
 from __future__ import annotations
 
 import asyncio
-import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -277,10 +276,10 @@ class TTSEngine:
         """``fn(*args, **kwargs)`` (``decode_block_async`` or
         ``decode_block_fused_async``) on the device's dispatch thread,
         awaited: the launches run in submission order, off the event
-        loop."""
-        return await asyncio.get_running_loop().run_in_executor(
-            dispatch_executor(self.device),
-            functools.partial(fn, *args, **kwargs))
+        loop (a job of owner ``replica.block``)."""
+        return await asyncio.wrap_future(
+            dispatch_executor(self.device).submit_as(
+                "replica.block", None, fn, *args, **kwargs))
 
     def new_state(self) -> FreshState:
         """A fresh state for a new sentence: ``FRESH``, so the block it is

@@ -44,6 +44,14 @@ On the device:
   copy, started at launch; with ``pipeline_depth`` 2 the next iteration
   is issued before this one is fetched, and the fetch waits only for its
   own iteration.
+- ``plan_s`` and ``launch_s`` add up the host seconds of the plans and the
+  launches (``dispatch_s`` is their sum), ``prefill_s`` the launches'
+  seconds in prefill and continuation programs, and ``prefill_tokens``
+  the prompt tokens prefilled past the cached prefix.  With spans on
+  (``utils/trace.py``) an iteration's ``llm.plan``, ``dispatch.wait``,
+  ``llm.launch`` (its programs each an ``llm.prefill`` or ``llm.block``
+  span) and ``llm.fetch_wait`` share its step id, and the wait for a free
+  slot is an ``admission`` span.
 - Sampled programs draw Gumbel noise from one device ``torch.Generator``,
   registered with every capture.
 - A speculative block is its start graph, then iteration graphs issued by
@@ -75,6 +83,7 @@ import torch
 from llmvox_tpu_torch.models import llama
 from llmvox_tpu_torch.models.spec import check_draft_heads, run_spec_loop
 from llmvox_tpu_torch.serve.spec_control import SpecController
+from llmvox_tpu_torch.utils import trace as tracing
 from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
                                            resolve_device)
 from llmvox_tpu_torch.utils.graphs import GraphSet, fill, settle, use_graphs
@@ -127,7 +136,7 @@ class _Plan:
     block requests it resolves; the decode block's width and rung, and
     whether its rows' iterations come back for the controller."""
     __slots__ = ("items", "parts", "blocks", "width", "rung", "observe",
-                 "gather_s", "launch")
+                 "gather_s", "launch", "step")
 
     def __init__(self):
         self.items: List[Tuple] = []
@@ -138,6 +147,7 @@ class _Plan:
         self.observe = False
         self.gather_s = 0.0
         self.launch: Optional[concurrent.futures.Future] = None
+        self.step: Optional[int] = None
 
 
 def _fail_plan(plan: _Plan, exc: BaseException, cancel: bool = False) -> None:
@@ -267,12 +277,20 @@ class LLMPool:
         self.steps = 0
         self.prefill_calls = 0
         # token steps of the decode blocks dispatched (each block counts
-        # its width), the tokens they generate for active rows, and the
-        # host seconds spent planning and issuing iterations (the launch
-        # part counted by the dispatch thread)
+        # its width), the prompt tokens prefilled past the cached prefix,
+        # and the host seconds spent planning and launching iterations and
+        # launching their prefills (the seconds counted by the dispatch
+        # thread)
         self.decode_steps = 0
-        self.decode_tokens = 0
-        self.dispatch_s = 0.0
+        self.prefill_tokens = 0
+        self.plan_s = 0.0
+        self.launch_s = 0.0
+        self.prefill_s = 0.0
+
+    @property
+    def dispatch_s(self) -> float:
+        """Host seconds spent issuing iterations: plans and launches."""
+        return self.plan_s + self.launch_s
 
     # -- slot lifecycle -------------------------------------------------
     def _ensure_free_queue(self) -> asyncio.Queue:
@@ -673,11 +691,26 @@ class LLMPool:
         nothing is queued."""
         t0 = time.perf_counter()
         plan = _Plan()
+        plan.step = tracing.new_step()
+        with tracing.span("llm.plan", step=plan.step):
+            self._plan_iteration(plan)
+        if not plan.items:
+            return None
+        plan.gather_s = time.perf_counter() - t0
+        self._last_launch = plan.launch = dispatch_executor(
+            self.device).submit_as("llm.iteration", plan.step, self._launch,
+                                   plan)
+        return plan
+
+    def _plan_iteration(self, plan: _Plan) -> None:
+        """Plan into ``plan`` the pending prefills and one batched decode
+        block of every slot with a block queued."""
         reqs: List[_PrefillReq] = []
         try:
             if self._prefills:
                 reqs = [r for r in self._prefills if not r.future.done()]
                 self._prefills.clear()
+                self.prefill_tokens += sum(len(r.ids) for r in reqs)
                 self._run_prefills(plan, reqs)
             heads = [i for i, s in enumerate(self.slots)
                      if s.active and s.queue]
@@ -710,19 +743,12 @@ class LLMPool:
                                    plan.blocks))
                 self.steps += 1
                 self.decode_steps += width
-                self.decode_tokens += width * len(heads)
         except BaseException as exc:
             # requests already popped here would otherwise hang their
             # waiters: fail them before the crash handler runs
             plan.parts.append(reqs)
             _fail_plan(plan, exc)
             raise
-        if not plan.items:
-            return None
-        plan.gather_s = time.perf_counter() - t0
-        self._last_launch = plan.launch = dispatch_executor(
-            self.device).submit(self._launch, plan)
-        return plan
 
     def _launch(self, plan: _Plan) -> Tuple[Optional[Fetch], List[int]]:
         """On the dispatch thread: each program of the iteration (its
@@ -730,30 +756,39 @@ class LLMPool:
         iteration resolves.  Returns the fetch and the results' sizes."""
         t0 = time.perf_counter()
         outs = []
-        for key, host, rows, part in plan.items:
-            fill(self._in, host)
-            if rows is not None:
-                fill(self._rows_in, rows)
-            if key[0] == "spec":
-                bufs, _ = self._spec_block(*key[1:])
-                out = bufs.out[:, :plan.width]
-            else:
-                out = self._graphs.get(key)()
-            if part is not None:
-                # the key's output buffer is rewritten by its next replay
-                outs.append(out.reshape(-1).clone())
-        if plan.observe:
-            outs.append(bufs.iters.clone())
-        fetch = Fetch(torch.cat(outs)) if outs else None
-        self.dispatch_s += plan.gather_s + time.perf_counter() - t0
+        with tracing.span("llm.launch"):
+            for key, host, rows, part in plan.items:
+                prefill = key[0] in ("prefill", "continue")
+                t = time.perf_counter()
+                with tracing.span("llm.prefill" if prefill else "llm.block"):
+                    fill(self._in, host)
+                    if rows is not None:
+                        fill(self._rows_in, rows)
+                    if key[0] == "spec":
+                        bufs, _ = self._spec_block(*key[1:])
+                        out = bufs.out[:, :plan.width]
+                    else:
+                        out = self._graphs.get(key)()
+                if prefill:
+                    self.prefill_s += time.perf_counter() - t
+                if part is not None:
+                    # the key's output buffer is rewritten by its next
+                    # replay
+                    outs.append(out.reshape(-1).clone())
+            if plan.observe:
+                outs.append(bufs.iters.clone())
+            fetch = Fetch(torch.cat(outs)) if outs else None
+        self.plan_s += plan.gather_s
+        self.launch_s += time.perf_counter() - t0
         return fetch, [o.numel() for o in outs]
 
     async def _resolve(self, plan: _Plan) -> None:
         """Wait for the iteration's launch and its one fetch, then resolve
         its futures."""
         fetch, sizes = await asyncio.wrap_future(plan.launch)
-        vals = (await asyncio.to_thread(fetch.get) if fetch is not None
-                else np.zeros((0,), np.int32))
+        with tracing.span("llm.fetch_wait", step=plan.step):
+            vals = (await asyncio.to_thread(fetch.get) if fetch is not None
+                    else np.zeros((0,), np.int32))
         off = 0
         results = []
         for n in sizes:
@@ -792,6 +827,7 @@ class LLMPool:
         dispatch (chained on the device state) starts its own fetch task,
         and the loop waits only for the oldest.  ``generate`` issues one
         block ahead per slot, which depth 2 needs."""
+        tracing.detach()
         self._inflight = deque()   # (plan, fetch task), oldest first
         while True:
             while len(self._inflight) < self.pipeline_depth:
@@ -873,6 +909,14 @@ class LLMPool:
         if spec is not None:
             out["spec"] = spec
         return out
+
+    def host_stats(self) -> Dict:
+        """The port's own counters, for GET /stats beside ``stats()``,
+        which keeps JAX's keys."""
+        return {"decode_steps": self.decode_steps,
+                "prefill_tokens": self.prefill_tokens,
+                "plan_s": self.plan_s, "launch_s": self.launch_s,
+                "prefill_s": self.prefill_s}
 
     def spec_stats(self) -> Optional[Dict]:
         """Speculation state for /stats: None when spec is off."""
@@ -983,7 +1027,8 @@ class LLMPool:
         ``sampling``: per-request {"temperature", "top_k", "top_p"}
         (honoured with ``per_request_sampling``)."""
         self.start()
-        idx = await self.acquire()
+        with tracing.span("admission"):
+            idx = await self.acquire()
         if self.per_request:
             self.set_sampling(idx, **(sampling or {}))
         try:
@@ -1047,7 +1092,8 @@ class LLMPool:
         the parts are gathered and prefill once at the end, with the same
         output."""
         self.start()
-        idx = await self.acquire()
+        with tracing.span("admission"):
+            idx = await self.acquire()
         if self.per_request:
             self.set_sampling(idx, **(sampling or {}))
         streams = (not self._graphs.enabled

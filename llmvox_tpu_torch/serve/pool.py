@@ -40,7 +40,12 @@ for arrivals and chunk writes while a step's hundreds of kernels are
 issued.  The loop does not wait for a launch to gather the next step:
 every read and write of ``self.states`` happens on that one thread, in
 submission order, as JAX's async dispatch keeps its programs in order.
-``dispatch_s`` adds up the host seconds of the gathers and the launches.
+``gather_s`` and ``launch_s`` add up the host seconds of the gathers and
+the launches (``dispatch_s`` is their sum); ``active_rows`` the rows of
+the slots a step decodes for, each counting the step's width.  With spans
+on (``utils/trace.py``) a step's ``pool.gather``, ``dispatch.wait``,
+``pool.launch`` and ``pool.fetch_wait`` share its step id, and a
+synthesis batch is a ``pool.synth_batch`` span.
 
 Speculation: with ``spec_decode`` and draft heads in the params, a step
 is ``decode_block_spec_batch`` (attention through kernel K3) at
@@ -85,6 +90,7 @@ from llmvox_tpu_torch.models import spec
 from llmvox_tpu_torch.parallel.mesh import Mesh
 from llmvox_tpu_torch.serve.batch import dp_devices, shard_tag
 from llmvox_tpu_torch.serve.spec_control import SpecController
+from llmvox_tpu_torch.utils import trace as tracing
 from llmvox_tpu_torch.utils.config import DecoderConfig, ServeConfig
 from llmvox_tpu_torch.utils.device import (Fetch, dispatch_executor,
                                            resolve_device)
@@ -140,7 +146,7 @@ class _Plan:
     """A gathered step: what the dispatch thread launches (under a mesh,
     ``shards`` holds each shard's plan over its own slots)."""
     __slots__ = ("gather_s", "width", "rung", "heads", "fused", "groups",
-                 "host", "shards")
+                 "host", "shards", "rows")
 
     def __init__(self, gather_s, width, rung, heads, fused, groups, host,
                  shards=None):
@@ -148,6 +154,7 @@ class _Plan:
         self.width = width
         self.rung = rung
         self.heads = heads        # (slot, request, token-row offset)
+        self.rows = len({i for i, _, _ in heads})   # slots decoded for
         self.fused = fused        # (slot, request) of the fused heads
         self.groups = groups      # (fused slot idx, fused dumps, bucket)
         self.host = host          # every input of the step, one int32 array
@@ -244,15 +251,23 @@ class DecodePool:
         self._last_launch = None   # the newest launch(es) handed over
         self.steps = 0
         self.merged_steps = 0
-        # decode steps launched (each step counts its width) and the host
-        # seconds spent issuing them, gather and launch (counted by the
-        # dispatch thread)
+        # decode steps launched (each step counts its width), the rows of
+        # the slots they decode for (each counting the width), and the
+        # host seconds spent issuing them, gather and launch (counted by
+        # the dispatch thread)
         self.decode_steps = 0
-        self.dispatch_s = 0.0
+        self.active_rows = 0
+        self.gather_s = 0.0
+        self.launch_s = 0.0
         self._synth_q: Deque = deque()
         self._synth_task: Optional[asyncio.Task] = None
         self._synth_wake: Optional[asyncio.Event] = None
         self.synth_calls = 0
+
+    @property
+    def dispatch_s(self) -> float:
+        """Host seconds spent issuing steps: gathers and launches."""
+        return self.gather_s + self.launch_s
 
     def _init_device(self, graphs: Optional[bool]) -> None:
         """The one-device pool's state, static buffers, graphs and rungs."""
@@ -531,35 +546,39 @@ class DecodePool:
         started for the tokens and audio, their shapes, the controller's
         feedback or None)."""
         t0 = time.perf_counter()
-        # every input of the step in one host-to-device copy from a fresh
-        # pinned buffer
-        fill(self._in, plan.host)
-        tokens, nprod, iters = self._decode_fns[(plan.width, plan.rung)]()
-        wavs = []
-        off = 3 * self.B + self.B * plan.width
-        nb = 2 * self.SYNTH_BATCH
-        for _, _, bucket in plan.groups:
-            g = self._vocode.get((plan.width, bucket))
-            self._fused_in.copy_(self._in[off:off + nb])
-            off += nb
-            # a second group may replay the same graph: keep this one's
-            wavs.append(g().clone())
-        # accept statistics for the adaptive controller come back with the
-        # step: each slot's commits and iterations (active slots only are
-        # read; a merged pick appears once)
-        feedback = None
-        if self._spec_ctl is not None and iters is not None:
-            feedback = (plan.rung, sorted({i for i, _, _ in plan.heads}))
-            wavs = [nprod, iters] + wavs
-        # tokens (exact in f32) and audio come back in one copy
-        fetch = Fetch(torch.cat([tokens.reshape(-1).float()]
-                                + [w.reshape(-1).float() for w in wavs]))
-        shapes = (plan.width, [w.shape for w in wavs])
+        with tracing.span("pool.launch"):
+            # every input of the step in one host-to-device copy from a
+            # fresh pinned buffer
+            fill(self._in, plan.host)
+            tokens, nprod, iters = self._decode_fns[(plan.width,
+                                                     plan.rung)]()
+            wavs = []
+            off = 3 * self.B + self.B * plan.width
+            nb = 2 * self.SYNTH_BATCH
+            for _, _, bucket in plan.groups:
+                g = self._vocode.get((plan.width, bucket))
+                self._fused_in.copy_(self._in[off:off + nb])
+                off += nb
+                # a second group may replay the same graph: keep this one's
+                wavs.append(g().clone())
+            # accept statistics for the adaptive controller come back with
+            # the step: each slot's commits and iterations (active slots
+            # only are read; a merged pick appears once)
+            feedback = None
+            if self._spec_ctl is not None and iters is not None:
+                feedback = (plan.rung, sorted({i for i, _, _ in plan.heads}))
+                wavs = [nprod, iters] + wavs
+            # tokens (exact in f32) and audio come back in one copy
+            fetch = Fetch(torch.cat([tokens.reshape(-1).float()]
+                                    + [w.reshape(-1).float() for w in wavs]))
+            shapes = (plan.width, [w.shape for w in wavs])
         # counted here, where the step is launched
         self.steps += 1
         self.merged_steps += int(plan.width == 2 * self.block)
         self.decode_steps += plan.width
-        self.dispatch_s += plan.gather_s + time.perf_counter() - t0
+        self.active_rows += plan.rows * plan.width
+        self.gather_s += plan.gather_s
+        self.launch_s += time.perf_counter() - t0
         return fetch, shapes, feedback
 
     def _launch_shard(self, s: int, plan: _Plan) -> Tuple:
@@ -569,7 +588,7 @@ class DecodePool:
         with launch_scope(self._tags[s]):
             out = self.shards[s]._launch(plan)
         with self._lock:
-            self.dispatch_s += time.perf_counter() - t0
+            self.launch_s += time.perf_counter() - t0
         return out
 
     def _dispatch_step(self) -> Optional[Tuple]:
@@ -577,25 +596,28 @@ class DecodePool:
         (each shard's to its device's), without waiting for it.  Returns
         the in-flight record (the step's popped requests, its fused heads,
         and its fetch task), or None when no work is queued."""
-        plan = self._gather()
+        step = tracing.new_step()
+        with tracing.span("pool.gather", step=step):
+            plan = self._gather()
         if plan is None:
             return None
-        rec = (plan.heads, plan.fused)
+        rec = (plan.heads, plan.fused, step)
         if self.shards is None:
-            self._last_launch = dispatch_executor(self.device).submit(
-                self._launch, plan)
+            self._last_launch = dispatch_executor(self.device).submit_as(
+                "pool.step", step, self._launch, plan)
             launch = asyncio.wrap_future(self._last_launch)
         else:
             self._last_launch = [
-                dispatch_executor(sh.device).submit(self._launch_shard, s,
-                                                    sp)
+                dispatch_executor(sh.device).submit_as(
+                    "pool.step", step, self._launch_shard, s, sp)
                 for s, (sh, sp) in enumerate(zip(self.shards, plan.shards))]
             launch = [asyncio.wrap_future(f) for f in self._last_launch]
             self.steps += 1
             self.merged_steps += int(plan.width == 2 * self.block)
             self.decode_steps += plan.width
+            self.active_rows += plan.rows * plan.width
             with self._lock:
-                self.dispatch_s += plan.gather_s
+                self.gather_s += plan.gather_s
         return rec, asyncio.create_task(self._resolve_task(rec, launch))
 
     def _unpack(self, arr: np.ndarray, shapes) -> Tuple[np.ndarray, List]:
@@ -620,11 +642,12 @@ class DecodePool:
         """Wait for one step's launch and fetch, then resolve its
         futures (under a mesh, each shard's tokens and fused audio, put
         back in slot order)."""
-        heads, fused = rec
+        heads, fused, step = rec
         if self.shards is None:
             fetch, shapes, feedback = await launch
-            toks, wavs_h = self._unpack(await asyncio.to_thread(fetch.get),
-                                        shapes)
+            with tracing.span("pool.fetch_wait", step=step):
+                arr = await asyncio.to_thread(fetch.get)
+            toks, wavs_h = self._unpack(arr, shapes)
             if feedback is not None:
                 (rung, act), (nprod, iters) = feedback, wavs_h[:2]
                 wavs_h = wavs_h[2:]
@@ -634,8 +657,9 @@ class DecodePool:
             audio = self._fused_rows(fused, wavs_h)
         else:
             launches = [await f for f in launch]
-            arrs = await asyncio.to_thread(
-                lambda: [f.get() for f, _, _ in launches])
+            with tracing.span("pool.fetch_wait", step=step):
+                arrs = await asyncio.to_thread(
+                    lambda: [f.get() for f, _, _ in launches])
             parts, audio = [], {}
             for s, (sh, arr, (_, shapes, _)) in enumerate(
                     zip(self.shards, arrs, launches)):
@@ -677,6 +701,7 @@ class DecodePool:
         it and may dispatch one step beyond ``depth``, so a sentence's
         first audio does not queue behind the previous sentence's
         issued-ahead steps."""
+        tracing.detach()
         self._inflight = deque()   # (record, fetch task), oldest first
 
         def fused_waiting() -> bool:
@@ -722,19 +747,23 @@ class DecodePool:
         return fut
 
     def _synth_batch(self, reqs) -> List[bytes]:
-        hop = self.codec.cfg.hop_length
-        bucket = self.codec.bucket_for(max(max(len(c) for c, _ in reqs), 1))
-        codes = np.zeros((self.SYNTH_BATCH, bucket), np.int32)
-        lengths = np.ones((self.SYNTH_BATCH,), np.int32)
-        for i, (c, _) in enumerate(reqs):
-            codes[i, : len(c)] = c
-            lengths[i] = max(len(c), 1)
-        wavs = self.codec.decode_codes_ragged(codes, lengths)
-        self.synth_calls += 1
-        return [np.asarray(wavs[i][: len(c) * hop], dtype="<f4").tobytes()
-                for i, (c, _) in enumerate(reqs)]
+        with tracing.span("pool.synth_batch"):
+            hop = self.codec.cfg.hop_length
+            bucket = self.codec.bucket_for(
+                max(max(len(c) for c, _ in reqs), 1))
+            codes = np.zeros((self.SYNTH_BATCH, bucket), np.int32)
+            lengths = np.ones((self.SYNTH_BATCH,), np.int32)
+            for i, (c, _) in enumerate(reqs):
+                codes[i, : len(c)] = c
+                lengths[i] = max(len(c), 1)
+            wavs = self.codec.decode_codes_ragged(codes, lengths)
+            self.synth_calls += 1
+            return [np.asarray(wavs[i][: len(c) * hop],
+                               dtype="<f4").tobytes()
+                    for i, (c, _) in enumerate(reqs)]
 
     async def _synth_loop(self) -> None:
+        tracing.detach()
         while True:
             await self._synth_wake.wait()
             self._synth_wake.clear()
@@ -853,6 +882,10 @@ class DecodePool:
             "merged_steps": self.merged_steps,
             "synth_calls": self.synth_calls,
             "block": self.block,
+            "decode_steps": self.decode_steps,
+            "active_rows": self.active_rows,
+            "gather_s": self.gather_s,
+            "launch_s": self.launch_s,
         }
         if self.shards is not None:
             out["dp"] = len(self.shards)

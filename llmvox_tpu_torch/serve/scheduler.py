@@ -35,6 +35,15 @@ eos token still terminates the request; the EOA control token is
 stripped before vocoding (the reference decodes 453 as an audio code in
 each sentence's final chunk, streaming_server.py:378-391 — caught by
 tests/test_e2e_quality.py's trained-weights loop).
+
+Tracing (``utils/trace.py``): the request's ``Trace`` gets ``first_text``
+(the producer's first delta) and ``first_audio``; a consumer's waits for
+text, for a block's tokens and for a chunk's audio are
+``scheduler.text_wait``, ``scheduler.fetch_wait`` and
+``scheduler.synth_wait`` spans (the last two also the request's
+``decode_r{i}`` and ``synth_r{i}`` totals).  Each round of a consumer that
+issues a block adds one to the counter ``sched_rounds`` and the deltas
+then already queued for its replica to ``sched_backlog``.
 """
 from __future__ import annotations
 
@@ -48,8 +57,8 @@ import numpy as np
 from llmvox_tpu_torch.serve.engine import TTSEngine
 from llmvox_tpu_torch.text.byt5 import ByT5Tokenizer
 from llmvox_tpu_torch.text.cleaning import clean_text
+from llmvox_tpu_torch.utils import trace as tracing
 from llmvox_tpu_torch.utils.config import ServeConfig
-from llmvox_tpu_torch.utils.trace import Trace
 
 # Control-signal protocol on the audio queues (streaming_server.py:397-404):
 # bytes = audio chunk; int 0/1 = switch mux to that replica; "end" = finish.
@@ -83,14 +92,15 @@ class StreamingScheduler:
 
     # ------------------------------------------------------------------
     async def run(self, text_stream: AsyncIterator[str],
-                  trace: Optional[Trace] = None) -> AsyncIterator[bytes]:
+                  trace: Optional[tracing.Trace] = None
+                  ) -> AsyncIterator[bytes]:
         """text deltas in -> 24 kHz float32 PCM chunks out."""
-        trace = trace or Trace("request")
+        trace = trace or tracing.Trace("request")
         text_qs = [asyncio.Queue(), asyncio.Queue()]
         audio_qs = [asyncio.Queue(), asyncio.Queue()]
 
         tasks = [
-            asyncio.create_task(self._producer(text_stream, text_qs)),
+            asyncio.create_task(self._producer(text_stream, text_qs, trace)),
             asyncio.create_task(self._consumer(
                 0, self.engines[0], text_qs[0], audio_qs[0],
                 self.cfg.initial_dump_size_1, trace)),
@@ -103,8 +113,7 @@ class StreamingScheduler:
             while True:
                 item = await self._next(audio_qs[current], tasks)
                 if isinstance(item, bytes):
-                    if trace.first("first_audio") is None:
-                        trace.mark("first_audio")
+                    trace.mark("first_audio")
                     yield item
                 elif item == END:
                     trace.mark("end")
@@ -144,9 +153,11 @@ class StreamingScheduler:
 
     # ------------------------------------------------------------------
     async def _producer(self, text_stream: AsyncIterator[str],
-                        text_qs: List[asyncio.Queue]) -> None:
+                        text_qs: List[asyncio.Queue],
+                        trace: tracing.Trace) -> None:
         """Route deltas, ping-ponging at sentence ends
-        (streaming_server.py:184-248)."""
+        (streaming_server.py:184-248); the first one routed is the
+        request's ``first_text``."""
         eos = self.cfg.eos_token
         active = 0
         async for output in text_stream:
@@ -157,6 +168,7 @@ class StreamingScheduler:
                 output = clean_text(output, eos)
             if not output:
                 continue
+            trace.mark("first_text")
             await text_qs[active].put(output)
             if output.endswith("."):
                 active = 1 - active
@@ -172,7 +184,7 @@ class StreamingScheduler:
     # ------------------------------------------------------------------
     async def _consumer(self, index: int, engine: TTSEngine,
                         text_q: asyncio.Queue, audio_q: asyncio.Queue,
-                        dump_size: int, trace: Trace) -> None:
+                        dump_size: int, trace: tracing.Trace) -> None:
         """Drive one replica (streaming_server.py:250-426).
 
         Two latency mechanisms on top of the reference semantics:
@@ -207,12 +219,13 @@ class StreamingScheduler:
         # ---- ordered synthesis worker --------------------------------
         synth_q: asyncio.Queue = asyncio.Queue()
         synth_async = getattr(engine, "synthesize_async", None)
+        decode_key, synth_key = f"decode_r{index}", f"synth_r{index}"
 
         async def synth_worker():
             while True:
                 item = await synth_q.get()
                 if isinstance(item, list):
-                    with trace.span(f"synth_r{index}"):
+                    with trace.span("scheduler.synth_wait", synth_key):
                         if synth_async is not None:
                             # pooled engines batch concurrent requests'
                             # chunks into one codec call
@@ -274,10 +287,12 @@ class StreamingScheduler:
         try:
             while True:
                 terminated = False
+                counted = False     # this round's first block issued
 
                 # -- text intake until the sentence is complete -----------
                 if not st.sentence_done:
-                    delta = await text_q.get()
+                    with tracing.span("scheduler.text_wait"):
+                        delta = await text_q.get()
                     if delta is _STREAM_CLOSED:
                         if st.n_generated == 0 and not st.text_ids:
                             await synth_q.put(END)
@@ -386,6 +401,10 @@ class StreamingScheduler:
                         else:
                             call = (engine.decode_block_async, dec_state,
                                     window, len(st.text_ids), limit)
+                        if not counted:
+                            tracing.count("sched_rounds")
+                            tracing.count("sched_backlog", text_q.qsize())
+                            counted = True
                         if dispatch is not None:
                             nxt, dec_state = await dispatch(*call,
                                                             block=cur)
@@ -401,7 +420,7 @@ class StreamingScheduler:
                             terminated = True
                         break  # starved for text (or at capacity)
 
-                    with trace.span(f"decode_r{index}"):
+                    with trace.span("scheduler.fetch_wait", decode_key):
                         got = await pending.popleft().afetch()
                     if isinstance(got, tuple):   # fused: (tokens, audio)
                         tokens, st.fused_audio = got

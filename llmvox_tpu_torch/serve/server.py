@@ -11,8 +11,13 @@ endpoints:
                             "audio_base64", "image_base64"}
 - ``GET  /``               service info
 - ``GET  /demo``           the browser demo page
-- ``GET  /stats``          per-request latency traces, the TTS pool's
-                           counters and the pooled LLM's (``llm_pool``)
+- ``GET  /stats``          the last 1024 requests' summaries (id,
+                           admission wait, first text, first audio,
+                           end), the TTS pool's counters, the pooled
+                           LLM's (``llm_pool``, JAX's keys, and
+                           ``llm_pool_host``, the port's host seconds
+                           and prefill tokens) and the span recorder's
+                           (``trace``)
 
 A POST answers a chunked ``application/octet-stream`` body of raw float32
 little-endian 24 kHz PCM.  Its text comes from the text stream: a
@@ -38,6 +43,11 @@ Two serving modes, as in the JAX server:
   ``PoolLadder``), each request gets two ``PooledEngine`` slots and runs
   concurrently with up to ``pool.B // 2`` others; all in-flight requests
   decode through the pool's batched step.
+
+Each request is a ``utils/trace.py::Trace`` under its id (``REQUEST``,
+which the request's tasks inherit), from a parsed body to its last chunk:
+a ``request`` span carrying its marks, its wait for a seat an
+``admission`` span, ``admitted`` marked when it has one.
 """
 from __future__ import annotations
 
@@ -50,8 +60,8 @@ from llmvox_tpu_torch.serve.demo_page import DEMO_HTML
 from llmvox_tpu_torch.serve.pool import PooledEngine
 from llmvox_tpu_torch.serve.scheduler import StreamingScheduler
 from llmvox_tpu_torch.streams.protocol import aiter_stream
+from llmvox_tpu_torch.utils import trace as tracing
 from llmvox_tpu_torch.utils.config import ServeConfig
-from llmvox_tpu_torch.utils.trace import Trace
 
 _MAX_BODY = 64 * 1024 * 1024
 _POST = ("/tts", "/voicechat", "/multimodalchat", "/vlmschat")
@@ -70,7 +80,8 @@ class TTSServer:
             self._busy = asyncio.Semaphore(max(pool.B // 2, 1))
         else:
             self._busy = asyncio.Lock()
-        self.traces = collections.deque(maxlen=50)
+        self.traces = collections.deque(maxlen=1024)
+        self._requests = 0
 
     # -- request -> text stream ---------------------------------------
     async def _transcribe(self, path: str, body: Dict) -> str:
@@ -173,6 +184,8 @@ class TTSServer:
                 llm_pool = getattr(self.stream_model, "pool", None)
                 if llm_pool is not None and hasattr(llm_pool, "stats"):
                     obj["llm_pool"] = llm_pool.stats()
+                    obj["llm_pool_host"] = llm_pool.host_stats()
+                obj["trace"] = tracing.counters()
                 await self._plain(writer, 200, obj)
             elif method == "POST" and path in _POST:
                 await self._stream_response(writer, path,
@@ -211,6 +224,14 @@ class TTSServer:
         await writer.drain()
 
     async def _stream_response(self, writer, path: str, body: Dict) -> None:
+        self._requests += 1
+        trace = tracing.Trace(path, self._requests)
+        tracing.REQUEST.set(trace.id)
+        with tracing.span("request", trace.marks):
+            await self._respond(writer, path, body, trace)
+
+    async def _respond(self, writer, path: str, body: Dict,
+                       trace: tracing.Trace) -> None:
         # Build the text stream (and transcribe) BEFORE the 200 header: a
         # bad request (missing "text", an ASR failure) surfaces as a clean
         # JSON error response, not a status line spliced into an open
@@ -223,8 +244,10 @@ class TTSServer:
             b"Access-Control-Allow-Origin: *\r\nConnection: close\r\n\r\n")
         await writer.drain()
         try:
-            async with self._busy:
-                trace = Trace(path)
+            with tracing.span("admission"):
+                await self._busy.acquire()
+            try:
+                trace.mark("admitted")
                 if self.pool is not None:
                     engines = [PooledEngine(self.pool, self.cfg),
                                PooledEngine(self.pool, self.cfg)]
@@ -242,6 +265,8 @@ class TTSServer:
                     for e in engines:
                         e.close()
                 self.traces.append(trace.summary())
+            finally:
+                self._busy.release()
         except (asyncio.IncompleteReadError, ConnectionResetError,
                 BrokenPipeError):
             raise

@@ -6,7 +6,11 @@ plain PyTorch versions of the kernels, and only a caller that asks for it
 (``device="cpu"``, as the tests do) gets that path.  ``Fetch`` brings a
 result back from the card without blocking the issuing thread, and
 ``dispatch_executor`` is the one thread a device that launches the decode
-work of its engines and pools off the asyncio event loop.
+work of its engines and pools off the asyncio event loop.  With spans on
+(``utils/trace.py``), each job it runs is a ``dispatch.wait`` span (from
+its submission until it starts) and a ``dispatch.run`` span, both naming
+the job's owner: ``pool.step`` (a TTS pool step), ``llm.iteration``,
+``replica.block`` (a dedicated replica's block) or ``other``.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-_dispatchers: Dict[torch.device, ThreadPoolExecutor] = {}
+from llmvox_tpu_torch.utils import trace as tracing
+
+_dispatchers: Dict[torch.device, "DispatchExecutor"] = {}
 _dispatch_lock = threading.Lock()
 
 
@@ -41,20 +47,23 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 class Fetch:
-    """One device-to-host copy, started now and waited for on ``get``.  On
-    the CPU it is a copy taken now: the tensor may be a static buffer that
-    the next call overwrites (``utils/graphs.py``)."""
+    """One device-to-host copy, started now (a ``fetch.start`` span) and
+    waited for on ``get``.  On the CPU it is a copy taken now: the tensor
+    may be a static buffer that the next call overwrites
+    (``utils/graphs.py``)."""
 
     __slots__ = ("host", "event")
 
     def __init__(self, t: torch.Tensor):
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(t.device))
-        else:
-            self.host, self.event = t.clone(), None
+        with tracing.span("fetch.start"):
+            if t.is_cuda:
+                self.host = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                self.host.copy_(t, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(t.device))
+            else:
+                self.host, self.event = t.clone(), None
 
     def get(self) -> np.ndarray:
         if self.event is not None:
@@ -62,7 +71,20 @@ class Fetch:
         return self.host.numpy()
 
 
-def dispatch_executor(device: torch.device) -> ThreadPoolExecutor:
+class DispatchExecutor(ThreadPoolExecutor):
+    """A dispatch thread: ``submit_as`` names the job's owner and the step
+    its spans belong to; ``submit`` runs a job of owner ``other``."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        return self.submit_as("other", None, fn, *args, **kwargs)
+
+    def submit_as(self, owner: str, step, fn, /, *args, **kwargs):
+        if tracing.ACTIVE:
+            fn = tracing.dispatched(fn, owner, step)
+        return super().submit(fn, *args, **kwargs)
+
+
+def dispatch_executor(device: torch.device) -> DispatchExecutor:
     """The dispatch thread of ``device``: one worker that launches the
     decode work of every engine and pool on that device, off the asyncio
     event loop, in submission order.  In JAX a block is one compiled
@@ -81,7 +103,7 @@ def dispatch_executor(device: torch.device) -> ThreadPoolExecutor:
         if ex is None:
             init, args = ((torch.cuda.set_device, (device.index,))
                           if device.type == "cuda" else (None, ()))
-            ex = ThreadPoolExecutor(1, thread_name_prefix=f"dispatch-{device}",
-                                    initializer=init, initargs=args)
+            ex = DispatchExecutor(1, thread_name_prefix=f"dispatch-{device}",
+                                  initializer=init, initargs=args)
             _dispatchers[device] = ex
         return ex

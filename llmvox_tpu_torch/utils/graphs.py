@@ -50,6 +50,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from llmvox_tpu_torch.utils import trace as tracing
+
 # every count a replay adds to: "module.attribute" -> (module, attribute,
 # that counter's lock), filled by ``register_counter``
 _COUNTERS: Dict[str, Tuple[object, str, threading.Lock]] = {}
@@ -171,11 +173,13 @@ def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
 
 def fill(static: torch.Tensor, host: np.ndarray) -> None:
     """Copy a host array into the head of a static device buffer: one
-    copy, from pinned memory on a card, so it does not sync."""
-    t = torch.from_numpy(np.ascontiguousarray(host))
-    if static.is_cuda:
-        t = t.pin_memory()
-    static[:t.numel()].copy_(t, non_blocking=True)
+    copy, from pinned memory on a card, so it does not sync (a
+    ``graph.fill`` span with spans on)."""
+    with tracing.span("graph.fill"):
+        t = torch.from_numpy(np.ascontiguousarray(host))
+        if static.is_cuda:
+            t = t.pin_memory()
+        static[:t.numel()].copy_(t, non_blocking=True)
 
 
 def _pool(device: torch.device):
@@ -266,15 +270,18 @@ class StepGraph:
             CAPTURE_S += time.perf_counter() - t0
 
     def __call__(self):
-        """Run the body (one replay on a card); returns its outputs."""
-        if not self.enabled:
-            self.body()
-        elif self.graph is None:
+        """Run the body (one replay on a card); returns its outputs.  With
+        spans on it is a ``graph.replay`` span, the graph's name its
+        info."""
+        if self.enabled and self.graph is None:
             raise RuntimeError(f"CUDA graph {self.name} was not captured "
                                f"at warmup")
-        else:
-            self.graph.replay()
-            _add(self.delta)
+        with tracing.span("graph.replay", self.name):
+            if not self.enabled:
+                self.body()
+            else:
+                self.graph.replay()
+                _add(self.delta)
         return self.out
 
 

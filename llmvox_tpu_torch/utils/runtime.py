@@ -1,17 +1,17 @@
-"""Profiler helpers: a device trace around a block of work, and named
-spans inside it.
+"""Profiler helper: a device trace around a block of work.
 
-Counterpart of ``llmvox_tpu/utils/runtime.py``'s ``profile_trace`` and
-``annotate`` (``jax.profiler.trace`` and ``TraceAnnotation``), on
-``torch.profiler``: the trace records the host's ops and, on a card, the
-CUDA kernels (CUPTI), and is written as a Chrome trace (``trace.json``
-under ``out_dir``) that Perfetto or ``chrome://tracing`` loads; each
-``annotate`` span is a ``record_function`` range in it.  JAX's
+Counterpart of ``llmvox_tpu/utils/runtime.py``'s ``profile_trace``
+(``jax.profiler.trace``), on ``torch.profiler``: the trace records the
+host's ops and, on a card, the CUDA kernels (CUPTI), and is written as a
+Chrome trace (``trace.json`` under ``out_dir``) that Perfetto or
+``chrome://tracing`` loads.  JAX's ``annotate`` (``TraceAnnotation``) is
+``utils/trace.py``'s ``span``: inside ``profile_trace`` each span is a
+``record_function`` range in the trace.  JAX's
 ``enable_compilation_cache`` has no counterpart: the built kernels stay
 in ``ops/build.py``'s directory, and CUDA graphs are captured at warmup.
 
     with profile_trace("trace_dir"):
-        with annotate("tts"):
+        with trace.span("tts"):
             engine.tts("hello")
 """
 from __future__ import annotations
@@ -22,6 +22,8 @@ import tempfile
 from typing import Iterator, Optional
 
 import torch
+
+from llmvox_tpu_torch.utils import trace as tracing
 
 
 @contextlib.contextmanager
@@ -38,11 +40,6 @@ def profile_trace(out_dir: Optional[str] = None) -> Iterator:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.trace_path = os.path.join(out_dir, "trace.json")
-    with prof:
+    with prof, tracing.profiling():
         yield prof
     prof.export_chrome_trace(prof.trace_path)
-
-
-def annotate(name: str):
-    """A named span in the trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)

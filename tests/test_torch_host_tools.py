@@ -3,7 +3,7 @@
 - ``tools/warmup_cache.py --batch_streams N`` warms ``BatchTTS`` at N
   streams, as JAX's tool compiles it;
 - ``utils/runtime.py``: ``profile_trace`` writes a Chrome trace that holds
-  an ``annotate`` span;
+  a ``utils/trace.py`` span;
 - ``tools/validate_parity.py``: each section skipped without its inputs,
   as JAX's is; the comparisons against the reference's own torch code run
   where ``LLMVOX_REFERENCE`` names its checkout (they skip otherwise, as
@@ -36,6 +36,7 @@ from llmvox_tpu_torch.train import codec_main
 from llmvox_tpu_torch.train.checkpoint import load_params_npz
 from llmvox_tpu_torch.train.data import Sample, save_prepared
 from llmvox_tpu_torch.utils import audio, runtime
+from llmvox_tpu_torch.utils import trace as tracing
 
 from tests import test_torch_engine as eng
 
@@ -205,8 +206,10 @@ def test_warmup_cache_warms_batch_tts_at_batch_streams(capsys, monkeypatch):
 
 def test_profile_trace_holds_an_annotated_span(tmp_path):
     with runtime.profile_trace(str(tmp_path)) as prof:
-        with runtime.annotate("llmvox_span"):
+        with tracing.span("llmvox_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
+    # outside profile_trace a span is no range of a profiler
+    assert not tracing.ACTIVE
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}

@@ -1439,7 +1439,7 @@ def test_http_server_with_pooled_llm_and_pooled_tts(params):
     batched speech program on each side (``llm_backend`` jax with
     ``llm_pool_capacity``): each request's chunks equal the JAX server's,
     and ``GET /stats`` reports the LLM pool (``llm_pool``), as JAX's
-    does."""
+    does, and the port's own counters of it (``llm_pool_host``)."""
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1490,6 +1490,9 @@ def test_http_server_with_pooled_llm_and_pooled_tts(params):
         wav = to_wave(got)
         assert wav.size > 0 and np.isfinite(wav).all()
         np.testing.assert_allclose(wav, to_wave(want), **CODEC_TOL)
+    host = stats["port"]["llm_pool_host"]
+    assert host["prefill_tokens"] > 0 and host["plan_s"] > 0
+    assert 0 < host["prefill_s"] < host["launch_s"]
     tstats, jstats = stats["port"]["llm_pool"], stats["jax"]["llm_pool"]
     assert tstats.keys() == jstats.keys()
     # steps and prefill programs depend on how the arrivals interleave
